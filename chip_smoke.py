@@ -1,0 +1,485 @@
+"""Chip smoke test of the PyTorch + CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero before the result line is printed):
+  1. the card's name and power limit;
+  2. build every hand-written kernel (one nvcc per source, in parallel)
+     and print the ptxas report (registers, shared memory, spills);
+  3. gqsa_gemv against its plain version at the full llama2-7b shapes;
+  4. paged attention against its plain version at full width;
+  5. timing of both kernels at the full-width decode shapes (CUDA events,
+     L2 flushed before every launch, as the decode loop finds it cold),
+     beside the plain version, a library yardstick and the bound;
+  6. full-width llama2-7b (GQSA W4 S50 G16, random seeded weights, packed
+     on the card layer by layer): one batched prefill + 4 decode steps
+     through the kernels and through the plain versions, compared in f32
+     and in bf16 compute;
+  7. the main path: the port's serve CLI at full width, 4 slots, 8
+     requests x 32 new tokens, with both kernels' launch counts read
+     just after it (set to 0 just before).
+The line before the last is a JSON object with every kernel's numbers;
+the last line is {"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "src"))
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
+F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+TOL = 1e-4                       # max-abs error, relative to max |plain|
+# whole-model logits, relative to max |plain|: f32 compute differs only in
+# summation order; in bf16 a one-ulp rounding flip is amplified through 32
+# random layers (measured 1.7% on an H100)
+LOGITS_TOL_F32 = 1e-3
+LOGITS_TOL_BF16 = 5e-2
+SEED = 0
+
+
+def log(msg: str = "") -> None:
+    print(msg, flush=True)
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+class Timer:
+    """Device time of one call, averaged: each launch is bracketed by CUDA
+    events right after an L2 flush (a 1 GiB write, ~0.3 ms, which also
+    keeps the card busy while the host enqueues the call, so host overhead
+    under that is not counted)."""
+
+    def __init__(self):
+        self.flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+
+    def ms(self, fn, iters: int = 30, warmup: int = 3) -> float:
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        start = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+        end = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+        for i in range(iters):
+            self.flush.fill_(i & 0xFF)
+            start[i].record()
+            fn()
+            end[i].record()
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in zip(start, end)) / iters
+
+
+def phase_device():
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    log(f"[device] {name} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | count {torch.cuda.device_count()}")
+    log(f"[nvidia-smi] {smi.splitlines()[0]}")
+    return name, smi.splitlines()[0]
+
+
+def phase_build():
+    from repro_torch.kernels.build import SOURCES, build_all, library_path
+    fresh = sum(not library_path(name).exists() for name in SOURCES)
+    t0 = time.time()
+    logs = build_all(SOURCES)
+    log(f"[build] {fresh} of {len(SOURCES)} sources compiled in "
+        f"{time.time() - t0:.1f}s (ptxas reports below, kept with each "
+        f"library)")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if any(k in line for k in ("registers", "spill", "smem",
+                                       "Compiling entry")):
+                log(f"[ptxas {name}] {line.strip()}")
+
+
+def _packed(n, k, seed):
+    from repro_torch.core.gqs_layer import GQSAConfig
+    from repro_torch.core.model_compress import pack_linear
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((n, k), generator=g, device="cuda") / k ** 0.5
+    return pack_linear(w, GQSAConfig())
+
+
+SHAPES = {"wq/wk/wv/wo": (4096, 4096), "wg/wu": (11008, 4096),
+          "wd": (4096, 11008)}
+PER_LAYER = {"wq/wk/wv/wo": 4, "wg/wu": 2, "wd": 1}
+
+
+def phase_gemv_check():
+    from repro_torch.core.bsr import pack_dense
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels import ops
+    worst = 0.0
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    for label, (n, k) in SHAPES.items():
+        bsr = _packed(n, k, SEED)
+        for b in (1, 4, 8, 64):
+            for dt in (torch.bfloat16, torch.float32):
+                x = torch.randn((b, k), generator=g, device="cuda").to(dt)
+                y = ops.gqsa_gemv(x, bsr)
+                ref = ops.gqsa_gemv(x, bsr, plain=True)
+                torch.cuda.synchronize()
+                err = (y - ref).abs().max().item()
+                rel = err / ref.abs().max().item()
+                worst = max(worst, err)
+                log(f"[gemv check] {label} N={n} K={k} B={b} "
+                    f"x={str(dt)[6:]}: max_abs_err {err:.3e} "
+                    f"rel {rel:.3e}")
+                require(y.shape == (b, n) and torch.isfinite(y).all(),
+                        "gqsa_gemv output shape/finite")
+                require(rel <= TOL, f"gqsa_gemv disagrees: rel {rel}")
+    # ragged packing: unequal kept groups per row (-1 padding)
+    n, k = 1024, 4096
+    w = torch.randn((n, k), generator=g, device="cuda")
+    mask = torch.rand((n, k // 16), generator=g, device="cuda") < 0.4
+    bsr = pack_dense(w, mask, QuantConfig(bits=4, group_size=16))
+    require(bool((bsr.idx < 0).any()), "ragged packing has padding")
+    for b in (1, 5):
+        x = torch.randn((b, k), generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        y = ops.gqsa_gemv(x, bsr)
+        ref = ops.gqsa_gemv(x, bsr, plain=True)
+        err = (y - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        worst = max(worst, err)
+        log(f"[gemv check] ragged N={n} K={k} M={bsr.idx.shape[1]} B={b}: "
+            f"max_abs_err {err:.3e} rel {rel:.3e}")
+        require(rel <= TOL, f"gqsa_gemv ragged disagrees: rel {rel}")
+    return worst
+
+
+def _attn_case(b, t, lens, dtype, g, kh=32, d=128, ps=16, mp=16):
+    """Full-width attention instance over a shuffled pool: slot i owns
+    ceil(max len / ps) pages in table order, the rest are sentinels."""
+    num_pages = b * mp
+    q = torch.randn((b, t, kh, d), generator=g, device="cuda")
+    kp = torch.randn((num_pages, ps, kh, d), generator=g,
+                     device="cuda").to(dtype)
+    vp = torch.randn((num_pages, ps, kh, d), generator=g,
+                     device="cuda").to(dtype)
+    perm = torch.randperm(num_pages, generator=g, device="cuda")
+    bt = torch.full((b, mp), num_pages, dtype=torch.int32, device="cuda")
+    for i in range(b):
+        occ = -(-int(lens[i].max()) // ps)
+        bt[i, :occ] = perm[i * mp:i * mp + occ].to(torch.int32)
+    return q, kp, vp, lens.to("cuda"), bt
+
+
+def phase_attention_check():
+    from repro_torch.kernels import ops
+    worst = 0.0
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    for dtype in (torch.bfloat16, torch.float32):
+        for t in (1, 4):
+            # ragged staircase lengths; slot 3 is all-sentinel with
+            # length 0 and slot 4 has a real table row but length 0
+            base = torch.tensor([1, 37, 256 - t, 0, 0, 129])
+            lens = base[:, None] + torch.arange(t)[None, :]
+            lens[3:5] = 0
+            lens = lens.to(torch.int32)
+            q, kp, vp, lq, bt = _attn_case(6, t, lens, dtype, g)
+            bt[4, :2] = bt[1, :2]
+            o = ops.paged_decode_attention(q, kp, vp, lq, bt)
+            ref = ops.paged_decode_attention(q, kp, vp, lq, bt, plain=True)
+            torch.cuda.synchronize()
+            require(bool((o[3:5] == 0).all()), "length-0 rows are zeros")
+            require(bool(torch.isfinite(o).all()), "attention finite")
+            err = (o - ref).abs().max().item()
+            rel = err / ref.abs().max().item()
+            worst = max(worst, err)
+            log(f"[attn check] pages={str(dtype)[6:]} T={t} KH=32 D=128 "
+                f"ps=16: max_abs_err {err:.3e} rel {rel:.3e}")
+            require(rel <= TOL, f"paged_attention disagrees: rel {rel}")
+    return worst
+
+
+def phase_timing(timer):
+    """Both kernels at the full-width decode shapes (4 slots)."""
+    import torch.nn.functional as F
+    from repro_torch.core.bsr import to_dense
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    b = 4
+    gemv = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    for label, (n, k) in SHAPES.items():
+        bsr = _packed(n, k, SEED + 4)
+        x = torch.randn((b, k), generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        dense = to_dense(bsr).to(torch.bfloat16)
+        m = bsr.idx.shape[1]
+        nbytes = n * m * 20 + b * k * 2 + b * n * 4
+        flops = 2 * b * n * m * 16
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
+        t_k = timer.ms(lambda: gqsa_gemv_cuda(x, bsr))
+        t_p = timer.ms(lambda: ops.gqsa_gemv(x, bsr, plain=True))
+        t_l = timer.ms(lambda: torch.matmul(x, dense.T))
+        log(f"[gemv time] {label} N={n} K={k} M={m} B={b} bf16: kernel "
+            f"{t_k * 1e3:.1f}us plain {t_p * 1e3:.1f}us torch.matmul(dense "
+            f"bf16) {t_l * 1e3:.1f}us bound {bound * 1e3:.2f}us "
+            f"({nbytes / 1e6:.1f} MB) -> {bound / t_k:.0%} of bound")
+        c = PER_LAYER[label]
+        gemv["ms"] += c * t_k
+        gemv["plain_ms"] += c * t_p
+        gemv["library_ms"] += c * t_l
+        gemv["bound_ms"] += c * bound
+        del dense
+    log(f"[gemv time] one decode layer (7 projections, B=4): kernel "
+        f"{gemv['ms']:.4f}ms plain {gemv['plain_ms']:.4f}ms matmul "
+        f"{gemv['library_ms']:.4f}ms bound {gemv['bound_ms']:.4f}ms")
+
+    attn = None
+    for label, lens in (("serve", [20, 25, 31, 29]),
+                        ("max_seq", [256, 256, 256, 256])):
+        lq = torch.tensor(lens, dtype=torch.int32)[:, None]
+        q, kp, vp, lq, bt = _attn_case(b, 1, lq, torch.bfloat16, g)
+        q = q.to(torch.bfloat16)
+        tot = int(sum(lens))
+        nbytes = 2 * tot * 32 * 128 * 2 + 2 * b * 32 * 128 * 4
+        flops = 4 * tot * 32 * 128
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
+        smax = max(lens)
+        # library yardstick: SDPA on K/V gathered contiguous beforehand
+        kk = torch.stack([kp[bt[i].clamp(max=kp.shape[0] - 1).long()]
+                          .reshape(-1, 32, 128)[:smax] for i in range(b)]) \
+            .permute(0, 2, 1, 3).contiguous()
+        vv = torch.stack([vp[bt[i].clamp(max=kp.shape[0] - 1).long()]
+                          .reshape(-1, 32, 128)[:smax] for i in range(b)]) \
+            .permute(0, 2, 1, 3).contiguous()
+        mask = (torch.arange(smax, device="cuda")[None, :]
+                < lq.to("cuda"))[:, None, None, :]
+        qs = q.permute(0, 2, 1, 3).contiguous()
+        # the kernel alone, on the operands the dispatcher prepares
+        lq2, live = ops.paged_query_prep(lq, bt, b, 1, kp.shape[1])
+        qh = q.permute(0, 2, 1, 3).float().contiguous()
+        t_k = timer.ms(lambda: paged_attention_cuda(qh, kp, vp, lq2, bt,
+                                                    live, 1))
+        t_p = timer.ms(lambda: ops.paged_decode_attention(q, kp, vp, lq, bt,
+                                                          plain=True))
+        t_l = timer.ms(lambda: F.scaled_dot_product_attention(
+            qs, kk, vv, attn_mask=mask))
+        log(f"[attn time] {label} lengths={lens} B=4 KH=32 D=128 bf16: "
+            f"kernel {t_k * 1e3:.1f}us plain {t_p * 1e3:.1f}us sdpa "
+            f"{t_l * 1e3:.1f}us bound {bound * 1e3:.2f}us "
+            f"({nbytes / 1e6:.2f} MB) -> {bound / t_k:.0%} of bound")
+        if attn is None:
+            attn = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound)
+    return gemv, attn
+
+
+def phase_model():
+    """Full-width prefill + 4 decode steps, kernels vs plain versions, in
+    f32 compute (strict: the two differ only in f32 summation order) and
+    in bf16, the serving dtype (loose: a one-ulp bf16 rounding flip that
+    the summation order decides is amplified by 32 random layers)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.gqs_layer import GQSAConfig
+    from repro_torch.models import transformer as tf
+    full = get_config("llama2_7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = tf.init_params(SEED, full, "cuda", gqsa=GQSAConfig())
+    torch.cuda.synchronize()
+    packed = sum(leaf["bsr"].nbytes_packed()
+                 for blk in ("attn", "mlp")
+                 for leaf in params["layers"][blk].values())
+    log(f"[model] llama2-7b full width, GQSA W4 S50 G16 packed on the card "
+        f"in {time.time() - t0:.1f}s: {packed / 1e9:.3f} GB of packed "
+        f"linears")
+    rng = np.random.default_rng(SEED)
+    b, ps, mp = 4, 16, 16
+    lens = np.array([7, 12, 4, 15], np.int32)
+    toks = np.zeros((b, 16), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, full.vocab, n)
+    bt = torch.arange(b * mp, dtype=torch.int32, device="cuda").reshape(b, mp)
+    toks_d = torch.from_numpy(toks).cuda()
+    lens_d = torch.from_numpy(lens).cuda()
+
+    def run(cfg, plain, feed=None):
+        cache = tf.init_paged_cache(cfg, b * mp, ps, device="cuda")
+        logits, _ = tf.prefill(params, cache, toks_d, lens_d, bt, cfg,
+                               plain=plain)
+        out = [logits[:, -1].float()]
+        fed = []
+        pos = lens_d.clone()
+        for step in range(4):
+            tok = (out[-1].argmax(-1) if feed is None else feed[step])
+            fed.append(tok)
+            logits, _ = tf.decode_step(params, cache, tok[:, None].int(),
+                                       pos, cfg, bt, max_live_pages=2,
+                                       plain=plain)
+            out.append(logits[:, -1].float())
+            pos = pos + 1
+        torch.cuda.synchronize()
+        return out, fed
+
+    for dtype, tol in (("float32", LOGITS_TOL_F32),
+                       ("bfloat16", LOGITS_TOL_BF16)):
+        cfg = dataclasses.replace(full, dtype=dtype)
+        t0 = time.time()
+        kern, fed = run(cfg, plain=False)
+        t_k = time.time() - t0
+        # the plain run is fed the kernel run's tokens (teacher forcing)
+        plain, _ = run(cfg, plain=True, feed=fed)
+        for i, (a, p) in enumerate(zip(kern, plain)):
+            require(bool(torch.isfinite(a).all())
+                    and a.shape == (b, full.vocab), "logits finite, [B, V]")
+            err = (a - p).abs().max().item()
+            scale = p.abs().max().item()
+            top2 = p.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+            agree = a.argmax(-1) == p.argmax(-1)
+            log(f"[model {dtype}] "
+                f"{'prefill' if i == 0 else f'decode {i}'}: logits "
+                f"max_abs_diff {err:.4e} (max |logit| {scale:.3f}, "
+                f"rel {err / scale:.2e}), argmax agrees "
+                f"{int(agree.sum())}/{b}")
+            require(err <= tol * scale,
+                    f"kernel vs plain logits differ by {err} ({dtype})")
+            require(bool(agree[clear].all()),
+                    "argmax differs where the top-2 margin is clear")
+        log(f"[model {dtype}] kernel path prefill + 4 decode steps "
+            f"{t_k:.2f}s wall (first calls, eager)")
+    log(f"[model] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB")
+    profile_decode(params, full, toks_d, lens_d, bt, b * mp, ps)
+    del params
+
+
+def profile_decode(params, cfg, toks, lens, bt, num_pages, ps, steps=8):
+    """Where a full-width bf16 decode step's time goes: wall time per step
+    (host clock around synchronised steps, no profiler), then device time
+    by kernel from a torch.profiler trace of as many steps; the device's
+    busy share is device time over wall time. Only the trace's kernel
+    events are summed: a CPU-side op's device time repeats the time of
+    the kernels it launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as tf
+    cache = tf.init_paged_cache(cfg, num_pages, ps, device="cuda")
+    logits, _ = tf.prefill(params, cache, toks, lens, bt, cfg)
+    tok = logits[:, -1].argmax(-1).int()[:, None]
+    pos = lens.clone()
+
+    def step():
+        nonlocal pos
+        tf.decode_step(params, cache, tok, pos, cfg, bt, max_live_pages=2)
+        pos = pos + 1
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    rows = sorted((e.self_device_time_total / steps / 1e3,
+                   e.count // steps, e.key)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)[::-1]
+    busy = sum(r[0] for r in rows)
+    if busy == 0:
+        log(f"[profile] bf16 decode step at 4 slots: wall {wall * 1e3:.2f} "
+            f"ms; the profiler traced no kernel: device time not measured")
+        return
+    log(f"[profile] bf16 decode step at 4 slots: wall {wall * 1e3:.2f} ms, "
+        f"device busy {busy:.2f} ms ({busy / (wall * 1e3):.0%}), "
+        f"{sum(r[1] for r in rows)} kernels per step")
+    for ms, n, name in rows[:8]:
+        log(f"[profile]   {ms:8.3f} ms  x{n:<5d} {name[:70]}")
+
+
+def phase_serve():
+    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.launch import serve
+    argv = ["--full", "--compress", "gqsa", "--slots", "4", "--requests",
+            "8", "--max-new", "32", "--max-seq", "256", "--seed",
+            str(SEED)]
+    buf = io.StringIO()
+    gqsa_gemv_cuda.launches = 0
+    paged_attention_cuda.launches = 0
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        res = serve.main(argv)
+    wall = time.time() - t0
+    launches = {"gqsa_gemv": gqsa_gemv_cuda.launches,
+                "paged_attention": paged_attention_cuda.launches}
+    for line in buf.getvalue().splitlines():
+        log(f"[serve] {line}")
+    log(f"[serve] wall {wall:.1f}s (init + pack + serve); launches "
+        f"{launches}")
+    require(len(res["results"]) == 8, "all 8 requests answered")
+    require(all(len(r["tokens"]) == 32 for r in res["results"]),
+            "every request got 32 tokens")
+    require(all(v > 0 for v in launches.values()),
+            "both kernels launched on the main path")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import repro_torch  # noqa: F401  (sets the TF32 switches)
+    name, smi = phase_device()
+    phase_build()
+    gemv_err = phase_gemv_check()
+    attn_err = phase_attention_check()
+    gemv_t, attn_t = phase_timing(Timer())
+    torch.cuda.empty_cache()
+    phase_model()
+    torch.cuda.empty_cache()
+    launches = phase_serve()
+    kernels = [
+        dict(name="gqsa_gemv", route="cuda",
+             source="src/repro_torch/csrc/gqsa_gemv.cu",
+             replaces="src/repro/kernels/gqsa_gemv.py:71",
+             launches=launches["gqsa_gemv"], max_abs_err=gemv_err,
+             ms=gemv_t["ms"], plain_ms=gemv_t["plain_ms"],
+             bound_ms=gemv_t["bound_ms"], bound_by="bytes",
+             library_ms=gemv_t["library_ms"],
+             unit="one decode layer: 7 projections at 4 slots, bf16 x"),
+        dict(name="paged_attention", route="cuda",
+             source="src/repro_torch/csrc/paged_attention.cu",
+             replaces="src/repro/kernels/paged_attention.py:181",
+             launches=launches["paged_attention"], max_abs_err=attn_err,
+             ms=attn_t["ms"], plain_ms=attn_t["plain_ms"],
+             bound_ms=attn_t["bound_ms"], bound_by="bytes",
+             library_ms=attn_t["library_ms"],
+             unit="one layer's decode attention: 4 slots, lengths "
+                  "20/25/31/29, KH=32, D=128, bf16 pages"),
+    ]
+    log(f"[power] {smi}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

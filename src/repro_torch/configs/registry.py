@@ -1,0 +1,22 @@
+"""Architecture registry: the configs the port can serve so far."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+# the paper's own benchmark model; the reference's other architectures
+# are later slices of the port (ROADMAP queue A)
+ARCH_IDS = ["llama2_7b"]
+
+_ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
+
+
+def get_config(name: str, reduced: bool = False) -> ModelConfig:
+    name = _ALIASES.get(name, name)
+    if name not in ARCH_IDS:
+        raise NotImplementedError(
+            f"arch {name!r} is not yet ported (ported: {ARCH_IDS}; "
+            f"ROADMAP A.12)")
+    mod = importlib.import_module(f"repro_torch.configs.{name}")
+    return mod.reduced() if reduced else mod.full()

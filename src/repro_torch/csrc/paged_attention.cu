@@ -1,0 +1,260 @@
+// Paged decode attention (plain mode) for Hopper (sm_90a).
+//
+// Replaces the TPU kernel
+// src/repro/kernels/paged_attention.py:paged_attention_pallas in its plain
+// mode (bf16/f32 pages given, no int8 scales, no tree bitmaps).
+//
+// Attention computed in place on the paged KV pool, with no dense page
+// gather. Layouts (one layer's view of the pool):
+//   q            [B, KH, TR, D] f32   query rows grouped by KV head,
+//                                     T-major inside the row dim (TR = T*R)
+//   k/v_pages    [P, PS, KH, D]       bf16 or f32
+//   lengths      [B, T] int32         query t sees positions < lengths[b,t]
+//   block_tables [B, MP] int32        page ids; entries >= P are sentinels
+//   live         [B] int32            pages to visit (ceil(max_t len / PS))
+//   out          [B, KH, TR, D] f32
+// Scale 1/sqrt(D). A row whose length is 0 returns exact zeros.
+//
+// Bound on the card: bytes. Each live K/V element is read once and used
+// for 2*TR flops per operand, far below the f32 flop/byte balance, so the
+// floor is the live K/V bytes over 3.35 TB/s.
+//
+// Design: one block per (slot, KV head), which loads its own block-table
+// row and walks the slot's live pages in order with an online softmax
+// (the TPU grid's sequential page axis becomes a loop in the block, since
+// blocks carry nothing between each other). Each page's [PS, D] K and V
+// tiles are fetched with coalesced 16-byte loads (a head's D values are
+// contiguous in the pool), all issued at once into registers, so a page
+// costs one memory round trip; the next page's loads are issued before
+// the current page is computed, hiding that trip. Tiles are kept in
+// shared memory as f32; warps compute the TR x PS scores with lane-split
+// dot products and the softmax statistics with one warp per row; thread
+// d owns output column d of every row. Sentinel pages are clamped to P-1 and masked by length, as
+// the TPU kernel does. The -inf guards of the TPU kernel are kept, so a
+// fully masked row ends with l = 0 and writes 0. Fewer blocks than SMs at
+// small batch (4 slots x 32 heads = 128 blocks) is accepted here: a
+// split over pages with a combine step is later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxRows = 16;  // TR = T * R rows per (slot, KV head)
+constexpr int kStage = 8;     // 16-byte vectors per thread per K/V tile
+
+__device__ __forceinline__ void unpack16(const uint4& u, float* o, float) {
+  const float* f = reinterpret_cast<const float*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) o[i] = f[i];
+}
+
+__device__ __forceinline__ void unpack16(const uint4& u, float* o,
+                                          __nv_bfloat16) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+
+template <typename Page>
+struct TileLoader {
+  // One page's [PS, D] K or V tile of one KV head, as 16-byte vectors:
+  // vector v covers elements v*E .. v*E+E-1 of the tile (E = 16 / size of
+  // Page), i.e. row s = v*E / D, columns d0 .. d0+E-1 (a head's D values
+  // are contiguous in the pool).
+  static constexpr int E = 16 / sizeof(Page);
+  int nvec, D, KH;
+  __device__ size_t offset(int v, size_t pbase) const {
+    const int e = v * E;
+    const int s = e / D;
+    return pbase + static_cast<size_t>(s) * KH * D + (e - s * D);
+  }
+};
+
+template <typename Page>
+__global__ void paged_attention_kernel(
+    const float* __restrict__ q, const Page* __restrict__ k_pages,
+    const Page* __restrict__ v_pages, const int32_t* __restrict__ lengths,
+    const int32_t* __restrict__ block_tables,
+    const int32_t* __restrict__ live, float* __restrict__ out, int KH,
+    int TR, int T, int D, int P, int PS, int MP, float scale) {
+  const int b = blockIdx.x;
+  const int kh = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nthreads >> 5;
+  const int R = TR / T;
+
+  extern __shared__ float smem[];
+  float* q_s = smem;              // [TR, D]
+  float* k_s = q_s + TR * D;      // [PS, D]
+  float* v_s = k_s + PS * D;      // [PS, D]
+  float* p_s = v_s + PS * D;      // [TR, PS] scores, then probabilities
+  float* m_s = p_s + TR * PS;     // [TR] running max
+  float* l_s = m_s + TR;          // [TR] running denominator
+  float* c_s = l_s + TR;          // [TR] this page's correction factor
+  __shared__ int len_s[kMaxRows];
+
+  const float* qb = q + (static_cast<size_t>(b) * KH + kh) * TR * D;
+  for (int e = tid; e < TR * D; e += nthreads) q_s[e] = qb[e];
+  if (tid < TR) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+    len_s[tid] = lengths[b * T + tid / R];
+  }
+  float acc[kMaxRows];
+#pragma unroll
+  for (int r = 0; r < kMaxRows; ++r) acc[r] = 0.f;
+  const int n_live = min(max(live[b], 0), MP);
+
+  const TileLoader<Page> ld{PS * D / TileLoader<Page>::E, D, KH};
+  const uint4* kv4 = reinterpret_cast<const uint4*>(k_pages);
+  const uint4* vv4 = reinterpret_cast<const uint4*>(v_pages);
+  constexpr int E = TileLoader<Page>::E;
+  uint4 kr[kStage], vr[kStage];
+  // issue every load of page pi's tiles at once (register staging), so a
+  // page costs one memory round trip, and the next page's loads are in
+  // flight while the current page is computed
+  auto fetch = [&](int pi) {
+    // sentinel entries (>= P) clamp to the last page; their positions are
+    // masked by the length below
+    const int page = min(max(block_tables[static_cast<size_t>(b) * MP + pi],
+                             0), P - 1);
+    const size_t pbase = (static_cast<size_t>(page) * PS * KH + kh) * D;
+#pragma unroll
+    for (int j = 0; j < kStage; ++j) {
+      const int v = j * nthreads + tid;
+      if (v < ld.nvec) {
+        const size_t o = ld.offset(v, pbase) / E;
+        kr[j] = __ldg(kv4 + o);
+        vr[j] = __ldg(vv4 + o);
+      }
+    }
+  };
+  if (n_live > 0) fetch(0);
+  __syncthreads();
+
+  for (int pi = 0; pi < n_live; ++pi) {
+#pragma unroll
+    for (int j = 0; j < kStage; ++j) {
+      const int v = j * nthreads + tid;
+      if (v < ld.nvec) {
+        unpack16(kr[j], k_s + v * E, Page());
+        unpack16(vr[j], v_s + v * E, Page());
+      }
+    }
+    __syncthreads();
+    if (pi + 1 < n_live) fetch(pi + 1);
+
+    for (int pr = warp; pr < TR * PS; pr += nwarps) {
+      const int r = pr / PS;
+      const int s = pr - r * PS;
+      float dot = 0.f;
+      for (int d = lane; d < D; d += 32)
+        dot = fmaf(q_s[r * D + d], k_s[s * D + d], dot);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      if (lane == 0)
+        p_s[pr] = (pi * PS + s < len_s[r]) ? dot * scale : -INFINITY;
+    }
+    __syncthreads();
+
+    // online softmax statistics: one warp per row, lanes over positions
+    for (int r = warp; r < TR; r += nwarps) {
+      float* row = p_s + r * PS;
+      const float m_old = m_s[r];
+      float mx = -INFINITY;
+      for (int s = lane; s < PS; s += 32) mx = fmaxf(mx, row[s]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m_old, mx);
+      const float m_safe = isinf(m_new) ? 0.f : m_new;
+      float sum = 0.f;
+      for (int s = lane; s < PS; s += 32) {
+        const float e = isinf(row[s]) ? 0.f : expf(row[s] - m_safe);
+        row[s] = e;
+        sum += e;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) {
+        const float corr = isinf(m_old) ? 0.f : expf(m_old - m_safe);
+        l_s[r] = l_s[r] * corr + sum;
+        m_s[r] = m_new;
+        c_s[r] = corr;
+      }
+    }
+    __syncthreads();
+
+    if (tid < D) {
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) {
+        if (r < TR) {
+          float a = acc[r] * c_s[r];
+          for (int s = 0; s < PS; ++s)
+            a = fmaf(p_s[r * PS + s], v_s[s * D + tid], a);
+          acc[r] = a;
+        }
+      }
+    }
+    __syncthreads();  // the next page overwrites k_s, v_s and p_s
+  }
+
+  if (tid < D) {
+    float* ob = out + (static_cast<size_t>(b) * KH + kh) * TR * D;
+#pragma unroll
+    for (int r = 0; r < kMaxRows; ++r)
+      if (r < TR) ob[r * D + tid] = acc[r] / fmaxf(l_s[r], 1e-30f);
+  }
+}
+
+}  // namespace
+
+// Launches on `stream` and returns cudaGetLastError() (0 = launched).
+extern "C" int paged_attention_launch(
+    const void* q, const void* k_pages, const void* v_pages, int pages_bf16,
+    const void* lengths, const void* block_tables, const void* live,
+    void* out, int B, int KH, int TR, int T, int D, int P, int PS, int MP,
+    void* stream) {
+  const int threads = ((D + 31) / 32) * 32;
+  const int vec = pages_bf16 ? 8 : 4;  // elements per 16-byte vector
+  if (TR > kMaxRows || TR % T != 0 || D > 1024 || D % vec != 0
+      || PS * D / vec > kStage * threads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      sizeof(float) * (static_cast<size_t>(TR) * D + 2 * PS * D + TR * PS
+                       + 3 * TR);
+  const dim3 grid(B, KH);
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pages_bf16) {
+    paged_attention_kernel<__nv_bfloat16><<<grid, threads, smem, s>>>(
+        static_cast<const float*>(q),
+        static_cast<const __nv_bfloat16*>(k_pages),
+        static_cast<const __nv_bfloat16*>(v_pages),
+        static_cast<const int32_t*>(lengths),
+        static_cast<const int32_t*>(block_tables),
+        static_cast<const int32_t*>(live), static_cast<float*>(out), KH, TR,
+        T, D, P, PS, MP, scale);
+  } else {
+    paged_attention_kernel<float><<<grid, threads, smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k_pages),
+        static_cast<const float*>(v_pages),
+        static_cast<const int32_t*>(lengths),
+        static_cast<const int32_t*>(block_tables),
+        static_cast<const int32_t*>(live), static_cast<float*>(out), KH, TR,
+        T, D, P, PS, MP, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,94 @@
+"""Public kernel entry points: the CUDA kernel for a CUDA tensor, the plain
+PyTorch version for a CPU tensor.
+
+The choice follows only the device of the inputs (and an explicit
+``plain=True``, which the kernel-vs-plain checks pass): on the card a
+dispatcher launches the kernel or raises, it never falls back.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.bsr import BSRMatrix
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels.gqsa_gemv import MAX_GEMV_BATCH, gqsa_gemv_cuda
+from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+
+def _use_plain(t: torch.Tensor, plain: bool, name: str) -> bool:
+    if plain or t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    return False
+
+
+def gqsa_gemv(x: torch.Tensor, bsr: BSRMatrix, *,
+              plain: bool = False) -> torch.Tensor:
+    """y [B, N] f32 = x [B, K] @ dense(bsr).T, any B.
+
+    On the card, batches beyond ``MAX_GEMV_BATCH`` rows are chunked over
+    the kernel (prefill sends slots x bucket rows through here)."""
+    if _use_plain(x, plain, "gqsa_gemv"):
+        return kref.gqsa_gemv_ref(x, bsr)
+    x = x.contiguous()
+    b = x.shape[0]
+    if b <= MAX_GEMV_BATCH:
+        return gqsa_gemv_cuda(x, bsr)
+    return torch.cat([gqsa_gemv_cuda(x[i:i + MAX_GEMV_BATCH], bsr)
+                      for i in range(0, b, MAX_GEMV_BATCH)], dim=0)
+
+
+def paged_query_prep(lengths, block_tables: torch.Tensor, b: int, t: int,
+                     page_size: int):
+    """The reference's ``_paged_query_prep``: broadcast the [] / [B] /
+    [B, T] length spec to the kernel's [B, T] int32 operand and derive
+    each slot's live page count (ceil(max_t length / page_size), clipped to
+    the table width), on the device, with no host sync."""
+    from repro_torch.models.layers import query_lengths
+    lq = query_lengths(lengths, b, t, block_tables.device) \
+        .to(torch.int32).contiguous()
+    mp = block_tables.shape[1]
+    live = torch.clamp((lq.amax(dim=1) + page_size - 1) // page_size, 0, mp)
+    return lq, live.to(torch.int32)
+
+
+def paged_decode_attention(q, k_pages, v_pages, lengths, block_tables, *,
+                           plain: bool = False, prep=None):
+    """Decode attention on the paged KV pool (plain mode).
+
+    q: [B, T, H, D] (T=1 decode); k/v_pages: [P, ps, KH, D] bf16/f32;
+    lengths: [] / [B] / [B, T] per-query valid prefix; block_tables:
+    [B, MP] page ids, entries >= P are sentinels. Returns [B, T, H, D] f32
+    (rows of length 0 are zeros). ``prep``: :func:`paged_query_prep` of
+    these lengths, when the caller already has it."""
+    if _use_plain(q, plain, "paged_decode_attention"):
+        return kref.paged_attention_ref(q, k_pages, v_pages, lengths,
+                                        block_tables)
+    b, t, h, d = q.shape
+    page_size, khn = k_pages.shape[1], k_pages.shape[2]
+    r = h // khn
+    lq, live = prep if prep is not None else paged_query_prep(
+        lengths, block_tables, b, t, page_size)
+    # kernel row layout: [B, KH, T*R, D], T-major inside the row dim
+    qh = q.reshape(b, t, khn, r, d).permute(0, 2, 1, 3, 4) \
+          .reshape(b, khn, t * r, d).float().contiguous()
+    o = paged_attention_cuda(qh, k_pages, v_pages, lq,
+                             block_tables.to(torch.int32).contiguous(),
+                             live, t)
+    return o.reshape(b, khn, t, r, d).permute(0, 2, 1, 3, 4) \
+            .reshape(b, t, h, d)
+
+
+def w4_matmul(*args, **kwargs):
+    raise NotImplementedError("w4_matmul is not yet ported (ROADMAP B.3)")
+
+
+def paged_latent_attention(*args, **kwargs):
+    raise NotImplementedError(
+        "paged latent (MLA) attention is not yet ported (ROADMAP B.6)")
+
+
+def kv_decode_attention(*args, **kwargs):
+    raise NotImplementedError(
+        "int8 KV decode attention is not yet ported (ROADMAP B.5)")

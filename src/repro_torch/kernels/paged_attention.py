@@ -1,0 +1,105 @@
+"""Paged decode attention (plain mode): the wrapper of the hand-written
+CUDA kernel (``repro_torch/csrc/paged_attention.cu``). Its plain PyTorch
+version is ``kernels/ref.py:paged_attention_ref``.
+
+Replaces the TPU kernel
+``src/repro/kernels/paged_attention.py:paged_attention_pallas`` in plain
+mode (bf16/f32 pages, no int8 scales, no tree bitmaps), which decode
+attention on the paged KV pool reaches every step.
+
+Bound on the H100: bytes. Each live K/V element is read once and used for
+two f32 multiply-adds per query row; the floor is the live K/V bytes over
+3.35 TB/s.
+
+Design: one block per (slot, KV head) walks that slot's live pages in
+order with an online softmax in f32, staging each page's K and V tiles in
+shared memory; sentinel block-table entries clamp to page P - 1 and are
+masked by length; a row of length 0 returns zeros (details in the CUDA
+source). At decode batch 4 x 32 heads the grid has fewer blocks than the
+card has SMs; a split over pages is later work.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels.build import load
+
+MAX_ROWS = 16           # T * R query rows per (slot, KV head)
+MAX_HEAD_DIM = 1024
+SMEM_LIMIT = 48 * 1024  # dynamic shared memory without an opt-in
+STAGE = 8               # 16-byte loads per thread per K/V page tile
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    fn = load("paged_attention").paged_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(t: torch.Tensor, name: str, dtypes, shape) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"paged_attention: {name} must be a CUDA tensor")
+    if t.dtype not in dtypes:
+        raise TypeError(f"paged_attention: {name} must be one of {dtypes}, "
+                        f"got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"paged_attention: {name} has shape "
+                         f"{tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"paged_attention: {name} must be contiguous")
+
+
+def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
+                         v_pages: torch.Tensor, lengths: torch.Tensor,
+                         block_tables: torch.Tensor, live: torch.Tensor,
+                         t: int) -> torch.Tensor:
+    """out [B, KH, T*R, D] f32 on the card.
+
+    q: [B, KH, T*R, D] f32 (T-major rows); k/v_pages: [P, ps, KH, D] bf16
+    or f32 (one dtype); lengths: [B, T] int32; block_tables: [B, MP]
+    int32 (entries >= P are sentinels); live: [B] int32 live page counts."""
+    b, khn, tr, d = q.shape
+    p, ps = k_pages.shape[0], k_pages.shape[1]
+    mp = block_tables.shape[1]
+    if tr > MAX_ROWS or tr % t or d > MAX_HEAD_DIM:
+        raise ValueError(f"paged_attention_cuda takes T*R <= {MAX_ROWS} rows "
+                         f"(a multiple of T) and D <= {MAX_HEAD_DIM}, got "
+                         f"T*R={tr}, T={t}, D={d}")
+    page_dtypes = (torch.bfloat16, torch.float32)
+    _check(q, "q", (torch.float32,), (b, khn, tr, d))
+    _check(k_pages, "k_pages", page_dtypes, (p, ps, khn, d))
+    _check(v_pages, "v_pages", (k_pages.dtype,), (p, ps, khn, d))
+    _check(lengths, "lengths", (torch.int32,), (b, t))
+    _check(block_tables, "block_tables", (torch.int32,), (b, mp))
+    _check(live, "live", (torch.int32,), (b,))
+    smem = 4 * (tr * d + 2 * ps * d + tr * ps + 3 * tr)
+    vec = 16 // k_pages.element_size()         # elements per 16-byte load
+    threads = -(-d // 32) * 32
+    if smem > SMEM_LIMIT or d % vec or ps * d // vec > STAGE * threads:
+        raise ValueError(f"paged_attention_cuda: page size {ps} x head dim "
+                         f"{d} does not fit the kernel's staging "
+                         f"({smem} bytes of shared memory)")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged_attention_cuda: pages must be 16-byte "
+                         "aligned (vector loads)")
+    out = torch.empty((b, khn, tr, d), dtype=torch.float32, device=q.device)
+    rc = _launcher()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                     int(k_pages.dtype == torch.bfloat16),
+                     lengths.data_ptr(), block_tables.data_ptr(),
+                     live.data_ptr(), out.data_ptr(), b, khn, tr, t, d, p,
+                     ps, mp, torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"paged_attention kernel launch failed: CUDA error {rc}")
+    paged_attention_cuda.launches += 1
+    return out
+
+
+paged_attention_cuda.launches = 0

@@ -1,0 +1,56 @@
+"""Plain PyTorch versions of the kernels: the port's CPU path and the
+oracles that the CUDA kernels are held against on the card.
+
+Same math as the reference's oracles (``src/repro/kernels/ref.py``), with
+one deliberate difference: a paged-attention row whose length is 0 returns
+exact zeros, as both the TPU and the CUDA kernels do, where the
+reference's oracle returns NaN.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.bsr import BSRMatrix, to_dense
+
+
+def gqsa_gemv_ref(x: torch.Tensor, bsr: BSRMatrix) -> torch.Tensor:
+    """Sparse-quantized GEMV / skinny GEMM: x [B, K] -> y [B, N] with
+    y[b,n] = sum_m deq(vals[n,m]) . x[b, idx[n,m]G : +G].
+
+    The kept groups are dequantized once and scattered into a dense [N, K]
+    f32 operand (padding slots carry scale 0 and scatter-add zeros), then
+    contracted with one f32 matmul. Returns f32."""
+    return x.float() @ to_dense(bsr).T
+
+
+def attention_scale(d: int) -> float:
+    """1/sqrt(D) rounded as f32 arithmetic rounds it (the reference and
+    the kernel compute it in f32); exact as a Python float."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(d)))
+
+
+def paged_attention_ref(q, k_pages, v_pages, lengths, block_tables):
+    """Dense page gather followed by staircase attention, in f32.
+
+    q: [B, T, H, D]; k/v_pages: [P, ps, KH, D]; lengths: [] / [B] / [B, T]
+    per-query valid prefix; block_tables: [B, MP] page ids — entries >= P
+    are sentinels and clamp to P - 1, their positions masked by
+    ``lengths``. Returns [B, T, H, D] f32; rows of length 0 are zeros."""
+    from repro_torch.models.layers import staircase_mask
+    b, t, h, d = q.shape
+    num_pages, ps, khn, _ = k_pages.shape
+    r = h // khn
+    bt = block_tables.long().clamp(0, num_pages - 1)
+    k = k_pages[bt].reshape(b, -1, khn, d).float()
+    v = v_pages[bt].reshape(b, -1, khn, d).float()
+    s = k.shape[1]
+    qh = q.reshape(b, t, khn, r, d).float()
+    sco = torch.einsum("btkrd,bskd->bkrts", qh, k) * attention_scale(d)
+    valid = staircase_mask(lengths, b, t, s)[:, None, None]  # [B,1,1,T,S]
+    sco = torch.where(valid, sco, -torch.inf)
+    # an all-masked row softmaxes to NaN; the mask zeroes it, as the
+    # kernels' l = 0 guard does
+    p = torch.where(valid, torch.softmax(sco, dim=-1), 0.0)
+    o = torch.einsum("bkrts,bskd->btkrd", p, v)
+    return o.reshape(b, t, h, d)

@@ -1,0 +1,251 @@
+"""Shared building blocks: norms, RoPE, prefill attention, paged decode
+attention, MLP. Every linear routes through ``core.gqs_layer.apply_linear``
+so the blocks accept FP or packed-GQSA parameters alike.
+
+``plain=True`` (kernel-vs-plain checks only) sends the kernels' work
+through their plain PyTorch versions even on the card.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.gqs_layer import apply_linear
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import attention_scale
+
+
+# ---------------------------------------------------------------------------
+# norms and RoPE
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def rope_table(positions: torch.Tensor, head_dim: int,
+               theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin), each [..., S, 1, D/2], for :func:`apply_rope`. Every
+    layer of a step rotates at the same positions, so the model computes
+    the table once per step."""
+    freqs = rope_freqs(head_dim, theta, positions.device)   # [D/2]
+    ang = positions[..., None].float() * freqs              # [..., S, D/2]
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               table=None) -> torch.Tensor:
+    """x: [..., S, H, D]; positions: [..., S] (broadcastable); ``table``:
+    a precomputed :func:`rope_table` of those positions."""
+    cos, sin = table if table is not None \
+        else rope_table(positions, x.shape[-1], theta)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# prefill attention: plain causal attention in f32 (the reference's
+# blocked flash attention is plain XLA code, not a Pallas kernel)
+# ---------------------------------------------------------------------------
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """q: [B, S, H, D]; k, v: [B, S, KH, D]; H % KH == 0. Returns
+    [B, S, H, D] in q's dtype; scores, softmax and sums in f32."""
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    r = h // kh
+    qh = q.reshape(b, s, kh, r, d).permute(0, 2, 3, 1, 4).float()
+    kk = k.permute(0, 2, 1, 3).float()[:, :, None]           # [B,KH,1,S,D]
+    vv = v.permute(0, 2, 1, 3).float()[:, :, None]
+    sco = (qh @ kk.transpose(-1, -2)) * attention_scale(d)   # [B,KH,R,S,S]
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    sco = sco.masked_fill(~causal, -torch.inf)
+    o = torch.softmax(sco, dim=-1) @ vv                      # [B,KH,R,S,D]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# masks and paged geometry
+# ---------------------------------------------------------------------------
+
+def query_lengths(length, b: int, t: int, device=None) -> torch.Tensor:
+    """Broadcast a [] / [B] / [B, T] valid-prefix spec to [B, T]."""
+    lq = torch.as_tensor(length, device=device)
+    if lq.ndim == 1:
+        lq = lq[:, None]
+    return lq.expand(b, t)
+
+
+def staircase_mask(length, b: int, t: int, s: int) -> torch.Tensor:
+    """[B, T, S] validity: cache position s is visible to query (b, t) iff
+    s < length[b, t] (T = 1 degenerates to a plain prefix mask)."""
+    lq = query_lengths(length, b, t)
+    pos = torch.arange(s, device=lq.device)
+    return pos[None, None, :] < lq[..., None]
+
+
+def paged_block_geometry(positions: torch.Tensor, t: int):
+    """``positions`` [B] is the write position of each slot's first fed
+    token (token t lands at positions + t). Returns ``(pos_bt [B, T] write
+    positions, rope_pos [B, T], length [B, T] per-query valid prefix)``:
+    the chain staircase (token trees are a later slice)."""
+    pos_bt = positions[:, None].to(torch.int32) + torch.arange(
+        t, dtype=torch.int32, device=positions.device)[None, :]
+    return pos_bt, pos_bt, pos_bt + 1
+
+
+def page_slots(block_tables: torch.Tensor, pos: torch.Tensor,
+               page_size: int, num_pages: int,
+               keep: torch.Tensor = None) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """Pool row of each token position: ``(flat [..] = page * ps + off,
+    valid [..])``. ``pos``: [B, S] positions of slot b.
+
+    The reference leans on XLA here: an out-of-range gather clamps and an
+    out-of-range scatter is dropped. PyTorch raises or faults instead, so
+    the write mask is explicit: a position is written only if its table
+    column exists (column < MP), its page is real (page < P, not the
+    sentinel) and ``keep`` allows it. The table read itself is clamped."""
+    mp = block_tables.shape[1]
+    col = pos // page_size
+    page = torch.gather(block_tables, 1, col.clamp(0, mp - 1).long())
+    valid = (col < mp) & (page >= 0) & (page < num_pages)
+    if keep is not None:
+        valid = valid & keep
+    flat = torch.where(valid, page * page_size + pos % page_size, 0)
+    return flat.long(), valid
+
+
+@dataclasses.dataclass
+class PageWrite:
+    """Where a step's token rows land in the pool, planned once per step
+    (every layer writes the same rows).
+
+    Without a host sync the dropped entries cannot be filtered out, so
+    they are redirected onto the first kept entry and carry that entry's
+    own value: every index written more than once then receives one
+    value, and the scatter stays deterministic. With no kept entry at
+    all, the entries rewrite row 0 with its current contents. No index
+    here is a 0-dim tensor: indexing with one reads it on the host, a
+    sync per layer."""
+    index: torch.Tensor      # [N] pool rows (dropped -> first kept row)
+    src: torch.Tensor        # [N] entry whose value each write carries
+    any_kept: torch.Tensor   # () bool
+
+
+def plan_page_write(flat: torch.Tensor, valid: torch.Tensor) -> PageWrite:
+    """From :func:`page_slots`' ``(flat, valid)``."""
+    flat, valid = flat.reshape(-1), valid.reshape(-1)
+    first = torch.argmax(valid.to(torch.int32)).reshape(1)  # 0: none kept
+    entry = torch.arange(flat.shape[0], device=flat.device)
+    return PageWrite(index=torch.where(valid, flat,
+                                       flat.index_select(0, first)),
+                     src=torch.where(valid, entry, first),
+                     any_kept=valid.any())
+
+
+def write_pages_(buf: torch.Tensor, plan: PageWrite,
+                 new: torch.Tensor) -> None:
+    """In place: ``buf`` [P, ps, ...] gets ``new``'s token rows at the kept
+    entries of ``plan``; the other entries are dropped."""
+    rows = buf.view(-1, *buf.shape[2:])                 # [P*ps, ...]
+    new = new.reshape(plan.index.shape[0], *rows.shape[1:]).to(buf.dtype)
+    vals = torch.where(plan.any_kept, new.index_select(0, plan.src),
+                       rows.index_select(0, plan.index))
+    rows.index_put_((plan.index,), vals)
+
+
+# ---------------------------------------------------------------------------
+# attention blocks
+# ---------------------------------------------------------------------------
+
+def attn_qkv(p: Dict, x: torch.Tensor, positions: torch.Tensor, cfg,
+             plain: bool = False, rope=None):
+    b, s, _ = x.shape
+    h, khn, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = apply_linear(p["wq"], x, plain=plain).reshape(b, s, h, hd)
+    k = apply_linear(p["wk"], x, plain=plain).reshape(b, s, khn, hd)
+    v = apply_linear(p["wv"], x, plain=plain).reshape(b, s, khn, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta, rope)
+    k = apply_rope(k, positions, cfg.rope_theta, rope)
+    return q, k, v
+
+
+@dataclasses.dataclass
+class PagedStep:
+    """Operands of a paged decode step that every layer shares, computed
+    once per step by :func:`paged_step`."""
+    block_tables: torch.Tensor    # [B, MP] int32, contiguous
+    length: torch.Tensor          # [B, T] per-query valid prefix
+    rope: Tuple[torch.Tensor, torch.Tensor]
+    write: PageWrite
+    kernel_prep: Tuple[torch.Tensor, torch.Tensor]   # (lengths, live pages)
+
+
+def paged_step(block_tables: torch.Tensor, positions: torch.Tensor, t: int,
+               page_size: int, num_pages: int, cfg) -> PagedStep:
+    block_tables = block_tables.to(torch.int32).contiguous()
+    pos_bt, rope_pos, length = paged_block_geometry(positions, t)
+    flat, valid = page_slots(block_tables, pos_bt, page_size, num_pages)
+    return PagedStep(
+        block_tables=block_tables, length=length,
+        rope=rope_table(rope_pos, cfg.hd, cfg.rope_theta),
+        write=plan_page_write(flat, valid),
+        kernel_prep=kops.paged_query_prep(length, block_tables,
+                                          positions.shape[0], t, page_size))
+
+
+def attention_decode_paged(p: Dict, x: torch.Tensor, cache: Dict,
+                           block_tables: torch.Tensor,
+                           positions: torch.Tensor, cfg,
+                           plain: bool = False,
+                           step: Optional[PagedStep] = None) -> torch.Tensor:
+    """One decode step of T tokens against one layer's view of the paged
+    pool ({"k_pages"/"v_pages": [P, ps, KH, D]}, bf16 or f32), which it
+    writes IN PLACE.
+
+    x: [B, T, d]; positions: [B] write position of each slot's first
+    token; block_tables: [B, MP] page ids (sentinel entries: writes
+    dropped, reads clamped and masked by the per-query length). The K/V of
+    all T tokens are written before attention reads them, so query t sees
+    the earlier fed tokens exactly as a sequential decode would.
+    ``step``: the step's shared operands (:func:`paged_step`), which the
+    model computes once for all layers; built here when absent."""
+    b, t, _ = x.shape
+    kp, vp = cache["k_pages"], cache["v_pages"]
+    if step is None:
+        step = paged_step(block_tables, positions, t, kp.shape[1],
+                          kp.shape[0], cfg)
+    q, k, v = attn_qkv(p, x, None, cfg, plain, rope=step.rope)
+    write_pages_(kp, step.write, k)
+    write_pages_(vp, step.write, v)
+    o = kops.paged_decode_attention(q, kp, vp, step.length,
+                                    step.block_tables, plain=plain,
+                                    prep=step.kernel_prep).to(q.dtype)
+    return apply_linear(p["wo"], o.reshape(b, t, -1), plain=plain)
+
+
+def mlp_block(p: Dict, x: torch.Tensor, mlp_type: str,
+              plain: bool = False) -> torch.Tensor:
+    if mlp_type == "swiglu":
+        g = apply_linear(p["wg"], x, plain=plain)
+        u = apply_linear(p["wu"], x, plain=plain)
+        return apply_linear(p["wd"], F.silu(g) * u, plain=plain)
+    u = apply_linear(p["wu"], x, plain=plain)
+    return apply_linear(p["wd"], F.gelu(u, approximate="tanh"), plain=plain)

@@ -1,0 +1,52 @@
+"""Family dispatch: one API over the ported architectures.
+
+    api = get_model(cfg)
+    params = api.init_params(seed, cfg, device)
+    cache = api.init_paged_cache(cfg, num_pages, page_size, device=device)
+    logits, cache = api.prefill(params, cache, tokens, lengths, tables, cfg)
+    logits, cache = api.decode_step(params, cache, tok, pos, cfg, tables)
+
+Only the dense family is ported so far; the reference's other families are
+later slices (ROADMAP A.12, A.14).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional
+
+from repro_torch.models import transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    init_params: Callable
+    decode_step: Callable
+    init_paged_cache: Optional[Callable] = None
+    prefill: Optional[Callable] = None
+
+    @property
+    def supports_paged_cache(self) -> bool:
+        """Continuous-batching capability: the family provides both the
+        paged pool layout and the batched prefill."""
+        return self.init_paged_cache is not None and self.prefill is not None
+
+
+_FAMILIES: Dict[str, ModelAPI] = {
+    "dense": ModelAPI(transformer.init_params, transformer.decode_step,
+                      init_paged_cache=transformer.init_paged_cache,
+                      prefill=transformer.prefill),
+}
+
+
+def paged_families() -> List[str]:
+    return sorted(f for f, api in _FAMILIES.items()
+                  if api.supports_paged_cache)
+
+
+def get_model(cfg) -> ModelAPI:
+    try:
+        return _FAMILIES[cfg.family]
+    except KeyError:
+        raise NotImplementedError(
+            f"model family {cfg.family!r} is not yet ported "
+            f"(ported: {sorted(_FAMILIES)})") from None

@@ -1,0 +1,202 @@
+"""Decoder-only LM, dense family: init, batched prefill into the paged KV
+pool, and the fused decode step.
+
+Parameters keep the reference's tree layout: nested dicts whose per-layer
+leaves are stacked [L, ...] (``params["layers"]["attn"]["wq"]["w"]`` is
+[L, N, K]; a packed layer holds ``{"bsr": BSRMatrix}`` with stacked
+leaves). The layer loop is a Python loop over slices of those leaves.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.bsr import BSRMatrix
+from repro_torch.core.gqs_layer import GQSAConfig, apply_linear
+from repro_torch.core.model_compress import StackedPacker
+from repro_torch.models import layers as L
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _linear_shapes(cfg) -> Dict[str, Dict[str, Tuple[int, int]]]:
+    d, h, khn, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    mlp = {"wg": (cfg.d_ff, d), "wu": (cfg.d_ff, d), "wd": (d, cfg.d_ff)}
+    if cfg.mlp_type != "swiglu":
+        del mlp["wg"]
+    return {"attn": {"wq": (h * hd, d), "wk": (khn * hd, d),
+                     "wv": (khn * hd, d), "wo": (d, h * hd)},
+            "mlp": mlp}
+
+
+def init_params(seed: int, cfg, device=None,
+                gqsa: Optional[GQSAConfig] = None) -> Dict:
+    """Random parameters from ``seed`` (a ``torch.Generator`` on the
+    device: other numbers than the reference's ``PRNGKey`` init, whose
+    trees the tests carry over through ``repro_torch.bridge`` instead).
+
+    Linear weights are N(0, 1/K) like the reference's. With ``gqsa`` each
+    layer's linears are packed as soon as they are drawn, one layer at a
+    time, so the full f32 model (26 GB at llama2-7b width) never exists;
+    the result equals ``compress_params(init_params(seed, cfg, device),
+    cfg, gqsa)``."""
+    if cfg.family != "dense" or cfg.qk_norm or cfg.tie_embeddings:
+        raise NotImplementedError(
+            f"init for family {cfg.family!r} (qk_norm={cfg.qk_norm}, "
+            f"tie_embeddings={cfg.tie_embeddings}) is not yet ported")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dt = cfg.params_dtype
+    n_layers, d = cfg.n_layers, cfg.d_model
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, dtype=dt,
+                           device=dev) * scale
+
+    embed = normal((cfg.vocab, d), 0.02)
+    shapes = _linear_shapes(cfg)
+    stacks = {blk: {name: (StackedPacker(n_layers, gqsa) if gqsa else
+                           torch.empty((n_layers,) + nk, dtype=dt,
+                                       device=dev))
+                    for name, nk in lin.items()}
+              for blk, lin in shapes.items()}
+    for i in range(n_layers):
+        for blk, lin in shapes.items():
+            for name, (n, k) in lin.items():
+                w = normal((n, k), 1.0 / math.sqrt(k))
+                dst = stacks[blk][name]
+                if gqsa:
+                    dst.put(i, w)
+                else:
+                    dst[i].copy_(w)
+                del w
+    layers = {"ln1": torch.ones((n_layers, d), dtype=dt, device=dev),
+              "ln2": torch.ones((n_layers, d), dtype=dt, device=dev)}
+    for blk, lin in stacks.items():
+        layers[blk] = {name: ({"bsr": s.result((n_layers,))} if gqsa
+                              else {"w": s})
+                       for name, s in lin.items()}
+    return {"embed": embed, "layers": layers,
+            "final_norm": torch.ones((d,), dtype=dt, device=dev),
+            "lm_head": {"w": normal((cfg.vocab, d), 0.02)}}
+
+
+def layer_params(tree, i: int):
+    """Layer ``i``'s parameters: the entry of a per-layer sequence
+    (:func:`split_layers`), or the slice of the stacked tree (views)."""
+    if isinstance(tree, (list, tuple)):
+        return tree[i]
+    if isinstance(tree, dict):
+        return {k: layer_params(v, i) for k, v in tree.items()}
+    if isinstance(tree, BSRMatrix):
+        return tree.layer(i)
+    return tree[i]
+
+
+def split_layers(params: Dict, cfg) -> Dict:
+    """The same parameters with ``"layers"`` as a tuple of per-layer views,
+    sliced once: a serving loop that keeps this form skips re-slicing every
+    stacked leaf in every layer of every step. No data is copied."""
+    layers = params["layers"]
+    if isinstance(layers, (list, tuple)):
+        return params
+    return dict(params, layers=tuple(layer_params(layers, i)
+                                     for i in range(cfg.n_layers)))
+
+
+# ---------------------------------------------------------------------------
+# embedding / head
+# ---------------------------------------------------------------------------
+
+def embed_tokens(params: Dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    return params["embed"][tokens.long()].to(cfg.compute_dtype)
+
+
+def unembed(params: Dict, h: torch.Tensor, cfg) -> torch.Tensor:
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    # the lm_head product is a plain matmul (outside any kernel)
+    return apply_linear(params["lm_head"], h)
+
+
+# ---------------------------------------------------------------------------
+# paged KV pool, prefill, decode
+# ---------------------------------------------------------------------------
+
+def init_paged_cache(cfg, num_pages: int, page_size: int,
+                     device=None) -> Dict:
+    """Paged KV pool [L, P, ps, KH, D] in the compute dtype, zeroed. The
+    steps below write it in place (the reference updates it functionally)."""
+    dev = resolve_device(device)
+    dt = cfg.compute_dtype
+    shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.hd)
+    return {"k_pages": torch.zeros(shape, dtype=dt, device=dev),
+            "v_pages": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def prefill(params: Dict, cache: Dict, tokens: torch.Tensor,
+            lengths: torch.Tensor, block_tables: torch.Tensor, cfg,
+            plain: bool = False) -> Tuple[torch.Tensor, Dict]:
+    """Batched prefill: run the right-padded prompts [B, S] through causal
+    attention once and write every layer's K/V into the pool (in place).
+    Padding positions (>= lengths[b]) are masked out of the writes.
+    Returns (logits at each row's last valid token [B, 1, V], cache)."""
+    b, s = tokens.shape
+    num_pages, page_size = cache["k_pages"].shape[1:3]
+    h = embed_tokens(params, tokens, cfg)
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device)[None, :].expand(b, s)
+    write = L.plan_page_write(*L.page_slots(
+        block_tables, positions, page_size, num_pages,
+        keep=positions < lengths[:, None]))
+    rope = L.rope_table(positions, cfg.hd, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        hn = L.rmsnorm(h, lp["ln1"], cfg.norm_eps)
+        q, k, v = L.attn_qkv(lp["attn"], hn, positions, cfg, plain, rope)
+        o = L.causal_attention(q, k, v)
+        h = h + apply_linear(lp["attn"]["wo"], o.reshape(b, s, -1),
+                             plain=plain)
+        L.write_pages_(cache["k_pages"][i], write, k)
+        L.write_pages_(cache["v_pages"][i], write, v)
+        hn = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)
+        h = h + L.mlp_block(lp["mlp"], hn, cfg.mlp_type, plain)
+    last = (lengths.long() - 1).clamp_min(0)
+    h_last = h[torch.arange(b, device=h.device), last][:, None]
+    return unembed(params, h_last, cfg), cache
+
+
+def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
+                pos: torch.Tensor, cfg, block_tables: torch.Tensor,
+                max_live_pages: Optional[int] = None,
+                plain: bool = False) -> Tuple[torch.Tensor, Dict]:
+    """tokens: [B, T]; pos: [B] per-slot write positions (token t lands at
+    pos + t); block_tables: [B, MP]. Writes the pool in place.
+
+    ``max_live_pages`` clamps the block tables to the batch's max occupied
+    page count: every slot's reservation fits in the leading entries, so
+    the trailing all-sentinel columns carry no information. Returns
+    (logits [B, T, V], cache)."""
+    if max_live_pages is not None:
+        block_tables = block_tables[
+            :, :max(1, min(max_live_pages, block_tables.shape[1]))]
+    num_pages, page_size = cache["k_pages"].shape[1:3]
+    # positions, rotations and pool rows are the same in every layer
+    step = L.paged_step(block_tables, pos, tokens.shape[1], page_size,
+                        num_pages, cfg)
+    h = embed_tokens(params, tokens, cfg)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        lc = {"k_pages": cache["k_pages"][i], "v_pages": cache["v_pages"][i]}
+        hn = L.rmsnorm(h, lp["ln1"], cfg.norm_eps)
+        h = h + L.attention_decode_paged(lp["attn"], hn, lc,
+                                         step.block_tables, pos, cfg, plain,
+                                         step)
+        hn = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)
+        h = h + L.mlp_block(lp["mlp"], hn, cfg.mlp_type, plain)
+    return unembed(params, h, cfg), cache

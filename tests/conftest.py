@@ -9,6 +9,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips without one, decided at "
+        "run time inside a fixture)")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)

@@ -1,0 +1,97 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py
+
+Marked ``gpu``; each test asks the ``cuda`` fixture for the card, which
+skips when there is none (decided at run time, never at import). The
+kernels build from ``src/repro_torch/csrc`` on first use. Tolerance:
+max-abs error <= 1e-4 of the plain output's max-abs, since both sides run
+f32 products and differ only in summation order over K <= 11008."""
+import pytest
+import torch
+
+from repro_torch.core.bsr import pack_dense
+from repro_torch.core.gqs_layer import GQSAConfig
+from repro_torch.core.model_compress import pack_linear
+from repro_torch.core.quant import QuantConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda
+from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+pytestmark = pytest.mark.gpu
+TOL = 1e-4
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _close(a, b):
+    torch.cuda.synchronize()
+    assert torch.isfinite(a).all()
+    err = (a - b).abs().max().item()
+    assert err <= TOL * b.abs().max().item(), err
+
+
+@pytest.mark.parametrize("n,k", [(4096, 4096), (11008, 4096), (4096, 11008),
+                                 (100, 48)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gqsa_gemv_kernel_matches_plain(cuda, n, k, dtype):
+    w = torch.randn((n, k), generator=cuda, device="cuda")
+    bsr = pack_linear(w, GQSAConfig())
+    for b in (1, 4, 8, 13):
+        x = torch.randn((b, k), generator=cuda, device="cuda").to(dtype)
+        before = gqsa_gemv_cuda.launches
+        y = ops.gqsa_gemv(x, bsr)
+        assert gqsa_gemv_cuda.launches - before == -(-b // 8)
+        _close(y, ops.gqsa_gemv(x, bsr, plain=True))
+
+
+def test_gqsa_gemv_kernel_ragged_rows(cuda):
+    w = torch.randn((300, 512), generator=cuda, device="cuda")
+    mask = torch.rand((300, 32), generator=cuda, device="cuda") < 0.3
+    mask[7] = False
+    bsr = pack_dense(w, mask, QuantConfig(bits=4, group_size=16))
+    x = torch.randn((3, 512), generator=cuda, device="cuda")
+    _close(ops.gqsa_gemv(x, bsr), ops.gqsa_gemv(x, bsr, plain=True))
+
+
+def test_gqsa_gemv_kernel_rejects_what_it_does_not_take(cuda):
+    bsr = pack_linear(torch.randn((64, 128), device="cuda"), GQSAConfig())
+    x = torch.randn((128, 4), device="cuda").T           # not contiguous
+    with pytest.raises(ValueError):
+        gqsa_gemv_cuda(x, bsr)
+    with pytest.raises(ValueError):
+        gqsa_gemv_cuda(torch.randn((9, 128), device="cuda"), bsr)
+    with pytest.raises(TypeError):
+        gqsa_gemv_cuda(torch.randn((2, 128), device="cuda").half(), bsr)
+
+
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kh,r,d", [(32, 1, 128), (4, 2, 64)])
+def test_paged_attention_kernel_matches_plain(cuda, t, dtype, kh, r, d):
+    b, ps, mp = 5, 16, 6
+    num_pages = b * mp + 3
+    q = torch.randn((b, t, kh * r, d), generator=cuda, device="cuda")
+    kp = torch.randn((num_pages, ps, kh, d), generator=cuda,
+                     device="cuda").to(dtype)
+    vp = torch.randn_like(kp, dtype=torch.float32).to(dtype)
+    perm = torch.randperm(num_pages, generator=cuda, device="cuda")
+    bt = perm[:b * mp].reshape(b, mp).to(torch.int32)
+    bt[:, 4:] = num_pages                     # sentinel tails
+    bt[3] = num_pages                         # all-sentinel slot
+    lens = torch.tensor([1, 30, 64 - t, 0, 17], device="cuda")[:, None] \
+        + torch.arange(t, device="cuda")[None, :]
+    lens[3] = 0
+    lens[4, 0] = 0                            # a length-0 row
+    lens = lens.to(torch.int32)
+    before = paged_attention_cuda.launches
+    o = ops.paged_decode_attention(q, kp, vp, lens, bt)
+    assert paged_attention_cuda.launches == before + 1
+    ref = ops.paged_decode_attention(q, kp, vp, lens, bt, plain=True)
+    _close(o, ref)
+    assert (o[3] == 0).all() and (o[4, 0] == 0).all()
