@@ -7,19 +7,25 @@ Phases (any failure exits non-zero before the result line is printed):
   2. build every hand-written kernel (one nvcc per source, in parallel)
      and print the ptxas report (registers, shared memory, spills);
   3. gqsa_gemv against its plain version at the full llama2-7b shapes;
-  4. paged attention against its plain version at full width;
-  5. timing of both kernels at the full-width decode shapes (CUDA events,
+  4. paged attention against its plain version at full width, in plain
+     mode (bf16/f32 pages) and in int8 mode (int8 pages + f32 scales);
+  5. w4_matmul against its plain version at the full llama2-7b shapes,
+     T in {1, 4, 8, 64, 200}, plus an unaligned small case and a G128 case;
+  6. timing of every kernel at the full-width decode shapes (CUDA events,
      L2 flushed before every launch, as the decode loop finds it cold),
      beside the plain version, a library yardstick and the bound;
-  6. full-width llama2-7b (GQSA W4 S50 G16, random seeded weights, packed
+  7. full-width llama2-7b (GQSA W4 S50 G16, random seeded weights, packed
      on the card layer by layer): one batched prefill + 4 decode steps
      through the kernels and through the plain versions, compared in f32
-     and in bf16 compute;
-  7. the main path: the port's serve CLI at full width, 4 slots, 8
-     requests x 32 new tokens, with both kernels' launch counts read
-     just after it (set to 0 just before).
-The line before the last is a JSON object with every kernel's numbers;
-the last line is {"ok": true, "device": {...}}.
+     and in bf16 compute, with the bf16 pool and with the int8 pool; a
+     profiled bf16 decode step; then the int8-pool main path: the engine
+     serves 8 requests x 32 new tokens on 4 slots;
+  8. the same model check for the dense-W4 baseline (packed on the card);
+  9. the main paths of the serve CLI at full width, 4 slots, 8 requests x
+     32 new tokens: ``--compress gqsa``, then ``--compress w4``.
+Each main path is driven with every kernel's launch count set to 0 just
+before it and read just after. The line before the last is a JSON object
+with every kernel's numbers; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -45,6 +51,11 @@ TOL = 1e-4                       # max-abs error, relative to max |plain|
 # random layers (measured 1.7% on an H100)
 LOGITS_TOL_F32 = 1e-3
 LOGITS_TOL_BF16 = 5e-2
+# with the int8 pool, f32 compute: the two paths' f32 K/V differ in the
+# last bits, and where one lies on a rounding boundary its int8 code flips
+# by one step (1/127 of the row's amax), which 32 random layers amplify
+# (measured 1.0e-3 on an H100); bf16 keeps its bar
+LOGITS_TOL_INT8_F32 = 1e-2
 SEED = 0
 
 
@@ -165,26 +176,37 @@ def phase_gemv_check():
 
 def _attn_case(b, t, lens, dtype, g, kh=32, d=128, ps=16, mp=16):
     """Full-width attention instance over a shuffled pool: slot i owns
-    ceil(max len / ps) pages in table order, the rest are sentinels."""
+    ceil(max len / ps) pages in table order, the rest are sentinels. int8
+    pages are random codes with positive per-token scales."""
     num_pages = b * mp
     q = torch.randn((b, t, kh, d), generator=g, device="cuda")
-    kp = torch.randn((num_pages, ps, kh, d), generator=g,
-                     device="cuda").to(dtype)
-    vp = torch.randn((num_pages, ps, kh, d), generator=g,
-                     device="cuda").to(dtype)
+    ks = vs = None
+    if dtype == torch.int8:
+        kp, vp = (torch.randint(-127, 128, (num_pages, ps, kh, d),
+                                generator=g, device="cuda",
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((num_pages, ps, kh), generator=g,
+                             device="cuda") / 64 + 1e-3 for _ in range(2))
+    else:
+        kp = torch.randn((num_pages, ps, kh, d), generator=g,
+                         device="cuda").to(dtype)
+        vp = torch.randn((num_pages, ps, kh, d), generator=g,
+                         device="cuda").to(dtype)
     perm = torch.randperm(num_pages, generator=g, device="cuda")
     bt = torch.full((b, mp), num_pages, dtype=torch.int32, device="cuda")
     for i in range(b):
         occ = -(-int(lens[i].max()) // ps)
         bt[i, :occ] = perm[i * mp:i * mp + occ].to(torch.int32)
-    return q, kp, vp, lens.to("cuda"), bt
+    return q, kp, vp, lens.to("cuda"), bt, ks, vs
 
 
 def phase_attention_check():
+    """Both modes; returns the worst max-abs error of (plain, int8)."""
     from repro_torch.kernels import ops
-    worst = 0.0
+    worst = {"plain": 0.0, "int8": 0.0}
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+        mode = "int8" if dtype == torch.int8 else "plain"
         for t in (1, 4):
             # ragged staircase lengths; slot 3 is all-sentinel with
             # length 0 and slot 4 has a real table row but length 0
@@ -192,31 +214,80 @@ def phase_attention_check():
             lens = base[:, None] + torch.arange(t)[None, :]
             lens[3:5] = 0
             lens = lens.to(torch.int32)
-            q, kp, vp, lq, bt = _attn_case(6, t, lens, dtype, g)
+            q, kp, vp, lq, bt, ks, vs = _attn_case(6, t, lens, dtype, g)
             bt[4, :2] = bt[1, :2]
-            o = ops.paged_decode_attention(q, kp, vp, lq, bt)
-            ref = ops.paged_decode_attention(q, kp, vp, lq, bt, plain=True)
+            o = ops.paged_decode_attention(q, kp, vp, lq, bt, ks, vs)
+            ref = ops.paged_decode_attention(q, kp, vp, lq, bt, ks, vs,
+                                             plain=True)
             torch.cuda.synchronize()
             require(bool((o[3:5] == 0).all()), "length-0 rows are zeros")
             require(bool(torch.isfinite(o).all()), "attention finite")
             err = (o - ref).abs().max().item()
             rel = err / ref.abs().max().item()
-            worst = max(worst, err)
+            worst[mode] = max(worst[mode], err)
             log(f"[attn check] pages={str(dtype)[6:]} T={t} KH=32 D=128 "
                 f"ps=16: max_abs_err {err:.3e} rel {rel:.3e}")
-            require(rel <= TOL, f"paged_attention disagrees: rel {rel}")
+            require(rel <= TOL, f"paged_attention ({mode}) disagrees: "
+                                f"rel {rel}")
     return worst
 
 
+def _w4_packed(n, k, seed, group_size=16):
+    from repro_torch.core.gqs_layer import pack_w4
+    from repro_torch.core.quant import QuantConfig
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((n, k), generator=g, device="cuda") / k ** 0.5
+    return pack_w4(w, QuantConfig(bits=4, group_size=group_size))
+
+
+def phase_w4_check():
+    """w4_matmul at the full-width shapes, T from decode to prefill rows,
+    bf16 and f32 x; then K = 48 (not a multiple of 64: the byte path),
+    ragged N, and G = 128."""
+    from repro_torch.kernels import ops
+    worst = 0.0
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    cases = [(label, n, k, 16, (1, 4, 8, 64, 200))
+             for label, (n, k) in SHAPES.items()]
+    cases += [("unaligned", 100, 48, 16, (1, 5, 13)),
+              ("G128", 4096, 4096, 128, (1, 4, 64))]
+    for label, n, k, gs, ts in cases:
+        p = _w4_packed(n, k, SEED, gs)
+        for t in ts:
+            for dt in (torch.bfloat16, torch.float32):
+                x = torch.randn((t, k), generator=g, device="cuda").to(dt)
+                y = ops.w4_matmul(x, p["qw"], p["scale"], p["zero"],
+                                  group_size=gs)
+                ref = ops.w4_matmul(x, p["qw"], p["scale"], p["zero"],
+                                    group_size=gs, plain=True)
+                torch.cuda.synchronize()
+                err = (y - ref).abs().max().item()
+                rel = err / ref.abs().max().item()
+                worst = max(worst, err)
+                log(f"[w4 check] {label} N={n} K={k} G={gs} T={t} "
+                    f"x={str(dt)[6:]}: max_abs_err {err:.3e} rel {rel:.3e}")
+                require(y.shape == (t, n) and torch.isfinite(y).all(),
+                        "w4_matmul output shape/finite")
+                require(rel <= TOL, f"w4_matmul disagrees: rel {rel}")
+    return worst
+
+
+def _bound_ms(nbytes, flops):
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
+
+
 def phase_timing(timer):
-    """Both kernels at the full-width decode shapes (4 slots)."""
+    """Every kernel at the full-width decode shapes (4 slots)."""
     import torch.nn.functional as F
     from repro_torch.core.bsr import to_dense
     from repro_torch.kernels import ops
     from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda
     from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.core.quant import QuantConfig, dequantize, unpack_int4
+    from repro_torch.kernels.w4_matmul import w4_matmul_cuda
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     b = 4
+    out = {}
     gemv = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     for label, (n, k) in SHAPES.items():
         bsr = _packed(n, k, SEED + 4)
@@ -225,8 +296,7 @@ def phase_timing(timer):
         dense = to_dense(bsr).to(torch.bfloat16)
         m = bsr.idx.shape[1]
         nbytes = n * m * 20 + b * k * 2 + b * n * 4
-        flops = 2 * b * n * m * 16
-        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
+        bound = _bound_ms(nbytes, 2 * b * n * m * 16)
         t_k = timer.ms(lambda: gqsa_gemv_cuda(x, bsr))
         t_p = timer.ms(lambda: ops.gqsa_gemv(x, bsr, plain=True))
         t_l = timer.ms(lambda: torch.matmul(x, dense.T))
@@ -235,74 +305,102 @@ def phase_timing(timer):
             f"bf16) {t_l * 1e3:.1f}us bound {bound * 1e3:.2f}us "
             f"({nbytes / 1e6:.1f} MB) -> {bound / t_k:.0%} of bound")
         c = PER_LAYER[label]
-        gemv["ms"] += c * t_k
-        gemv["plain_ms"] += c * t_p
-        gemv["library_ms"] += c * t_l
-        gemv["bound_ms"] += c * bound
+        for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
+                          (t_k, t_p, t_l, bound)):
+            gemv[key] += c * v
         del dense
     log(f"[gemv time] one decode layer (7 projections, B=4): kernel "
         f"{gemv['ms']:.4f}ms plain {gemv['plain_ms']:.4f}ms matmul "
         f"{gemv['library_ms']:.4f}ms bound {gemv['bound_ms']:.4f}ms")
+    out["gqsa_gemv"] = gemv
 
-    attn = None
-    for label, lens in (("serve", [20, 25, 31, 29]),
-                        ("max_seq", [256, 256, 256, 256])):
-        lq = torch.tensor(lens, dtype=torch.int32)[:, None]
-        q, kp, vp, lq, bt = _attn_case(b, 1, lq, torch.bfloat16, g)
-        q = q.to(torch.bfloat16)
-        tot = int(sum(lens))
-        nbytes = 2 * tot * 32 * 128 * 2 + 2 * b * 32 * 128 * 4
-        flops = 4 * tot * 32 * 128
-        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
-        smax = max(lens)
-        # library yardstick: SDPA on K/V gathered contiguous beforehand
-        kk = torch.stack([kp[bt[i].clamp(max=kp.shape[0] - 1).long()]
-                          .reshape(-1, 32, 128)[:smax] for i in range(b)]) \
-            .permute(0, 2, 1, 3).contiguous()
-        vv = torch.stack([vp[bt[i].clamp(max=kp.shape[0] - 1).long()]
-                          .reshape(-1, 32, 128)[:smax] for i in range(b)]) \
-            .permute(0, 2, 1, 3).contiguous()
-        mask = (torch.arange(smax, device="cuda")[None, :]
-                < lq.to("cuda"))[:, None, None, :]
-        qs = q.permute(0, 2, 1, 3).contiguous()
-        # the kernel alone, on the operands the dispatcher prepares
-        lq2, live = ops.paged_query_prep(lq, bt, b, 1, kp.shape[1])
-        qh = q.permute(0, 2, 1, 3).float().contiguous()
-        t_k = timer.ms(lambda: paged_attention_cuda(qh, kp, vp, lq2, bt,
-                                                    live, 1))
-        t_p = timer.ms(lambda: ops.paged_decode_attention(q, kp, vp, lq, bt,
-                                                          plain=True))
-        t_l = timer.ms(lambda: F.scaled_dot_product_attention(
-            qs, kk, vv, attn_mask=mask))
-        log(f"[attn time] {label} lengths={lens} B=4 KH=32 D=128 bf16: "
-            f"kernel {t_k * 1e3:.1f}us plain {t_p * 1e3:.1f}us sdpa "
-            f"{t_l * 1e3:.1f}us bound {bound * 1e3:.2f}us "
-            f"({nbytes / 1e6:.2f} MB) -> {bound / t_k:.0%} of bound")
-        if attn is None:
-            attn = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound)
-    return gemv, attn
+    w4 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    for label, (n, k) in SHAPES.items():
+        p = _w4_packed(n, k, SEED + 4)
+        args = (p["qw"], p["scale"], p["zero"])
+        x = torch.randn((b, k), generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        # library yardstick: the dequantized weight as a dense bf16 matrix
+        dense = dequantize(unpack_int4(p["qw"]), p["scale"], p["zero"],
+                           QuantConfig(group_size=16), torch.bfloat16)
+        nbytes = n * k // 2 + 8 * n * (k // 16) + b * k * 2 + b * n * 4
+        bound = _bound_ms(nbytes, 2 * b * n * k)
+        t_k = timer.ms(lambda: w4_matmul_cuda(x, *args, 16))
+        t_p = timer.ms(lambda: ops.w4_matmul(x, *args, group_size=16,
+                                             plain=True))
+        t_l = timer.ms(lambda: torch.matmul(x, dense.T))
+        log(f"[w4 time] {label} N={n} K={k} G=16 T={b} bf16: kernel "
+            f"{t_k * 1e3:.1f}us plain {t_p * 1e3:.1f}us torch.matmul(dense "
+            f"bf16) {t_l * 1e3:.1f}us bound {bound * 1e3:.2f}us "
+            f"({nbytes / 1e6:.1f} MB) -> {bound / t_k:.0%} of bound")
+        c = PER_LAYER[label]
+        for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
+                          (t_k, t_p, t_l, bound)):
+            w4[key] += c * v
+        del dense
+    log(f"[w4 time] one decode layer (7 projections, T=4): kernel "
+        f"{w4['ms']:.4f}ms plain {w4['plain_ms']:.4f}ms matmul "
+        f"{w4['library_ms']:.4f}ms bound {w4['bound_ms']:.4f}ms")
+    out["w4_matmul"] = w4
+
+    for mode, dtype in (("paged_attention", torch.bfloat16),
+                        ("paged_attention_int8", torch.int8)):
+        for label, lens in (("serve", [20, 25, 31, 29]),
+                            ("max_seq", [256, 256, 256, 256])):
+            lq = torch.tensor(lens, dtype=torch.int32)[:, None]
+            q, kp, vp, lq, bt, ks, vs = _attn_case(b, 1, lq, dtype, g)
+            q = q.to(torch.bfloat16)
+            tot = int(sum(lens))
+            if dtype == torch.int8:
+                kv_bytes = 2 * tot * 32 * (128 + 4)     # codes + scales
+            else:
+                kv_bytes = 2 * tot * 32 * 128 * 2
+            nbytes = kv_bytes + 2 * b * 32 * 128 * 4
+            bound = _bound_ms(nbytes, 4 * tot * 32 * 128)
+            smax = max(lens)
+
+            def gathered(pages, scales):
+                bti = bt.clamp(max=kp.shape[0] - 1).long()
+                v = pages[bti].float()
+                if scales is not None:
+                    v = v * scales[bti][..., None]
+                return v.reshape(b, -1, 32, 128)[:, :smax] \
+                    .permute(0, 2, 1, 3).to(torch.bfloat16).contiguous()
+
+            # library yardstick: SDPA on K/V gathered (and dequantized)
+            # contiguous beforehand
+            kk, vv = gathered(kp, ks), gathered(vp, vs)
+            mask = (torch.arange(smax, device="cuda")[None, :]
+                    < lq.to("cuda"))[:, None, None, :]
+            qs = q.permute(0, 2, 1, 3).contiguous()
+            # the kernel alone, on the operands the dispatcher prepares
+            lq2, live = ops.paged_query_prep(lq, bt, b, 1, kp.shape[1])
+            qh = q.permute(0, 2, 1, 3).float().contiguous()
+            t_k = timer.ms(lambda: paged_attention_cuda(
+                qh, kp, vp, lq2, bt, live, 1, ks, vs))
+            t_p = timer.ms(lambda: ops.paged_decode_attention(
+                q, kp, vp, lq, bt, ks, vs, plain=True))
+            t_l = timer.ms(lambda: F.scaled_dot_product_attention(
+                qs, kk, vv, attn_mask=mask))
+            log(f"[attn time] {label} lengths={lens} B=4 KH=32 D=128 "
+                f"{str(dtype)[6:]} pages: kernel {t_k * 1e3:.1f}us plain "
+                f"{t_p * 1e3:.1f}us sdpa {t_l * 1e3:.1f}us bound "
+                f"{bound * 1e3:.2f}us ({nbytes / 1e6:.2f} MB) -> "
+                f"{bound / t_k:.0%} of bound")
+            if mode not in out:
+                out[mode] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                 bound_ms=bound)
+    return out
 
 
-def phase_model():
+def check_model(params, full, label, tol_f32=LOGITS_TOL_F32):
     """Full-width prefill + 4 decode steps, kernels vs plain versions, in
-    f32 compute (strict: the two differ only in f32 summation order) and
-    in bf16, the serving dtype (loose: a one-ulp bf16 rounding flip that
-    the summation order decides is amplified by 32 random layers)."""
+    f32 compute (strict: the two differ only in f32 summation order; with
+    the int8 pool, ``tol_f32`` allows for one-step code flips) and in bf16,
+    the serving dtype (loose: a one-ulp bf16 rounding flip that the
+    summation order decides is amplified by 32 random layers)."""
     import dataclasses
-    from repro_torch.configs.registry import get_config
-    from repro_torch.core.gqs_layer import GQSAConfig
     from repro_torch.models import transformer as tf
-    full = get_config("llama2_7b")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    params = tf.init_params(SEED, full, "cuda", gqsa=GQSAConfig())
-    torch.cuda.synchronize()
-    packed = sum(leaf["bsr"].nbytes_packed()
-                 for blk in ("attn", "mlp")
-                 for leaf in params["layers"][blk].values())
-    log(f"[model] llama2-7b full width, GQSA W4 S50 G16 packed on the card "
-        f"in {time.time() - t0:.1f}s: {packed / 1e9:.3f} GB of packed "
-        f"linears")
     rng = np.random.default_rng(SEED)
     b, ps, mp = 4, 16, 16
     lens = np.array([7, 12, 4, 15], np.int32)
@@ -331,8 +429,7 @@ def phase_model():
         torch.cuda.synchronize()
         return out, fed
 
-    for dtype, tol in (("float32", LOGITS_TOL_F32),
-                       ("bfloat16", LOGITS_TOL_BF16)):
+    for dtype, tol in (("float32", tol_f32), ("bfloat16", LOGITS_TOL_BF16)):
         cfg = dataclasses.replace(full, dtype=dtype)
         t0 = time.time()
         kern, fed = run(cfg, plain=False)
@@ -347,22 +444,123 @@ def phase_model():
             top2 = p.topk(2, dim=-1).values
             clear = (top2[:, 0] - top2[:, 1]) > 2 * err
             agree = a.argmax(-1) == p.argmax(-1)
-            log(f"[model {dtype}] "
+            log(f"[model {label} {dtype}] "
                 f"{'prefill' if i == 0 else f'decode {i}'}: logits "
                 f"max_abs_diff {err:.4e} (max |logit| {scale:.3f}, "
                 f"rel {err / scale:.2e}), argmax agrees "
                 f"{int(agree.sum())}/{b}")
             require(err <= tol * scale,
-                    f"kernel vs plain logits differ by {err} ({dtype})")
+                    f"kernel vs plain logits differ by {err} ({label} "
+                    f"{dtype})")
             require(bool(agree[clear].all()),
                     "argmax differs where the top-2 margin is clear")
-        log(f"[model {dtype}] kernel path prefill + 4 decode steps "
+        log(f"[model {label} {dtype}] kernel path prefill + 4 decode steps "
             f"{t_k:.2f}s wall (first calls, eager)")
+    return toks_d, lens_d, bt, b * mp, ps
+
+
+def reset_launches():
+    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.kernels.w4_matmul import w4_matmul_cuda
+    gqsa_gemv_cuda.launches = 0
+    paged_attention_cuda.launches = 0
+    paged_attention_cuda.int8_launches = 0
+    w4_matmul_cuda.launches = 0
+
+
+def read_launches():
+    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.kernels.w4_matmul import w4_matmul_cuda
+    return {"gqsa_gemv": gqsa_gemv_cuda.launches,
+            "paged_attention": paged_attention_cuda.launches,
+            "w4_matmul": w4_matmul_cuda.launches,
+            "paged_attention_int8": paged_attention_cuda.int8_launches}
+
+
+def phase_model_gqsa():
+    """The GQSA model with the bf16 and the int8 pool; the profiled decode
+    step; and the int8-pool main path, the engine on the same weights."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.gqs_layer import GQSAConfig
+    from repro_torch.models import transformer as tf
+    full = get_config("llama2_7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = tf.init_params(SEED, full, "cuda", compress=GQSAConfig())
+    torch.cuda.synchronize()
+    packed = sum(leaf["bsr"].nbytes_packed()
+                 for blk in ("attn", "mlp")
+                 for leaf in params["layers"][blk].values())
+    log(f"[model] llama2-7b full width, GQSA W4 S50 G16 packed on the card "
+        f"in {time.time() - t0:.1f}s: {packed / 1e9:.3f} GB of packed "
+        f"linears")
+    toks, lens, bt, num_pages, ps = check_model(params, full, "gqsa")
+    check_model(params, dataclasses.replace(full, kv_cache_dtype="int8"),
+                "gqsa int8-kv", LOGITS_TOL_INT8_F32)
     log(f"[model] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
         f"GB")
-    profile_decode(params, full, toks_d, lens_d, bt, b * mp, ps)
+    profile_decode(params, full, toks, lens, bt, num_pages, ps)
+    launches = engine_int8(params, full)
     del params
+    return launches
 
+
+def engine_int8(params, full):
+    """The int8-pool main path: the engine serves 8 requests x 32 new
+    tokens on 4 slots, max_seq 256, greedy (the reference has no serve
+    flag for an int8 pool: it is reached through the engine)."""
+    import dataclasses
+    from repro_torch.engine import EngineConfig, InferenceEngine
+    from repro_torch.launch.serve import make_requests
+    cfg = dataclasses.replace(full, kv_cache_dtype="int8")
+    prompts = make_requests(8, cfg.vocab, np.random.default_rng(SEED))
+    reset_launches()
+    t0 = time.time()
+    eng = InferenceEngine(cfg, params, EngineConfig(
+        num_slots=4, max_seq=256, seed=SEED, device="cuda"))
+    require(eng.kv.data["k_pages"].dtype == torch.int8, "int8 pool")
+    for p in prompts:
+        eng.submit(p, 32)
+    res = eng.run()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[engine int8-kv] {eng.metrics.format_summary()}")
+    log(f"[engine int8-kv] wall {time.time() - t0:.1f}s; launches "
+        f"{launches}")
+    require(len(res["results"]) == 8, "all 8 requests answered")
+    require(all(len(r["tokens"]) == 32 for r in res["results"]),
+            "every request got 32 tokens")
+    require(launches["paged_attention_int8"] > 0
+            and launches["gqsa_gemv"] > 0,
+            "the int8 mode and gqsa_gemv launched on the int8-pool path")
+    require(launches["paged_attention"] == 0,
+            "no plain-mode attention on the int8-pool path")
+    return launches
+
+
+def phase_model_w4():
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.models import transformer as tf
+    full = get_config("llama2_7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = tf.init_params(SEED, full, "cuda",
+                            compress=QuantConfig(bits=4, group_size=16))
+    torch.cuda.synchronize()
+    packed = sum(t.numel() * t.element_size()
+                 for blk in ("attn", "mlp")
+                 for leaf in params["layers"][blk].values()
+                 for t in leaf.values())
+    log(f"[model] llama2-7b full width, dense W4 G16 packed on the card in "
+        f"{time.time() - t0:.1f}s: {packed / 1e9:.3f} GB of packed linears")
+    check_model(params, full, "w4")
+    log(f"[model] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB")
+    del params
 
 def profile_decode(params, cfg, toks, lens, bt, num_pages, ps, steps=8):
     """Where a full-width bf16 decode step's time goes: wall time per step
@@ -412,32 +610,56 @@ def profile_decode(params, cfg, toks, lens, bt, num_pages, ps, steps=8):
         log(f"[profile]   {ms:8.3f} ms  x{n:<5d} {name[:70]}")
 
 
-def phase_serve():
-    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
+def phase_serve(compress):
+    """A main path: the serve CLI at full width."""
     from repro_torch.launch import serve
-    argv = ["--full", "--compress", "gqsa", "--slots", "4", "--requests",
+    argv = ["--full", "--compress", compress, "--slots", "4", "--requests",
             "8", "--max-new", "32", "--max-seq", "256", "--seed",
             str(SEED)]
     buf = io.StringIO()
-    gqsa_gemv_cuda.launches = 0
-    paged_attention_cuda.launches = 0
+    reset_launches()
     t0 = time.time()
     with contextlib.redirect_stdout(buf):
         res = serve.main(argv)
+    torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"gqsa_gemv": gqsa_gemv_cuda.launches,
-                "paged_attention": paged_attention_cuda.launches}
+    launches = read_launches()
     for line in buf.getvalue().splitlines():
-        log(f"[serve] {line}")
-    log(f"[serve] wall {wall:.1f}s (init + pack + serve); launches "
-        f"{launches}")
+        log(f"[serve {compress}] {line}")
+    log(f"[serve {compress}] wall {wall:.1f}s (init + pack + serve); "
+        f"launches {launches}")
     require(len(res["results"]) == 8, "all 8 requests answered")
     require(all(len(r["tokens"]) == 32 for r in res["results"]),
             "every request got 32 tokens")
-    require(all(v > 0 for v in launches.values()),
-            "both kernels launched on the main path")
+    linear = "gqsa_gemv" if compress == "gqsa" else "w4_matmul"
+    other = "w4_matmul" if compress == "gqsa" else "gqsa_gemv"
+    require(launches[linear] > 0 and launches["paged_attention"] > 0,
+            f"{linear} and paged attention launched on the main path")
+    require(launches[other] == 0 and launches["paged_attention_int8"] == 0,
+            f"no {other} or int8-mode launch on the {compress} path")
     return launches
+
+
+KERNELS = {
+    "gqsa_gemv": dict(
+        source="src/repro_torch/csrc/gqsa_gemv.cu",
+        replaces="src/repro/kernels/gqsa_gemv.py:71",
+        unit="one decode layer: 7 projections at 4 slots, bf16 x"),
+    "paged_attention": dict(
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:181",
+        unit="one layer's decode attention: 4 slots, lengths 20/25/31/29, "
+             "KH=32, D=128, bf16 pages"),
+    "w4_matmul": dict(
+        source="src/repro_torch/csrc/w4_matmul.cu",
+        replaces="src/repro/kernels/w4_matmul.py:51",
+        unit="one decode layer: 7 projections at 4 slots, G16, bf16 x"),
+    "paged_attention_int8": dict(
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:181",
+        unit="one layer's decode attention: 4 slots, lengths 20/25/31/29, "
+             "KH=32, D=128, int8 pages + f32 scales"),
+}
 
 
 def main() -> int:
@@ -445,34 +667,37 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401  (sets the TF32 switches)
+    t_start = time.time()
     name, smi = phase_device()
     phase_build()
-    gemv_err = phase_gemv_check()
-    attn_err = phase_attention_check()
-    gemv_t, attn_t = phase_timing(Timer())
+    errs = {"gqsa_gemv": phase_gemv_check()}
+    attn = phase_attention_check()
+    errs["paged_attention"] = attn["plain"]
+    errs["paged_attention_int8"] = attn["int8"]
+    errs["w4_matmul"] = phase_w4_check()
+    times = phase_timing(Timer())
     torch.cuda.empty_cache()
-    phase_model()
+    # each main path's launches, counted from 0 just before it
+    launches = {"int8-kv engine": phase_model_gqsa()}
     torch.cuda.empty_cache()
-    launches = phase_serve()
-    kernels = [
-        dict(name="gqsa_gemv", route="cuda",
-             source="src/repro_torch/csrc/gqsa_gemv.cu",
-             replaces="src/repro/kernels/gqsa_gemv.py:71",
-             launches=launches["gqsa_gemv"], max_abs_err=gemv_err,
-             ms=gemv_t["ms"], plain_ms=gemv_t["plain_ms"],
-             bound_ms=gemv_t["bound_ms"], bound_by="bytes",
-             library_ms=gemv_t["library_ms"],
-             unit="one decode layer: 7 projections at 4 slots, bf16 x"),
-        dict(name="paged_attention", route="cuda",
-             source="src/repro_torch/csrc/paged_attention.cu",
-             replaces="src/repro/kernels/paged_attention.py:181",
-             launches=launches["paged_attention"], max_abs_err=attn_err,
-             ms=attn_t["ms"], plain_ms=attn_t["plain_ms"],
-             bound_ms=attn_t["bound_ms"], bound_by="bytes",
-             library_ms=attn_t["library_ms"],
-             unit="one layer's decode attention: 4 slots, lengths "
-                  "20/25/31/29, KH=32, D=128, bf16 pages"),
-    ]
+    phase_model_w4()
+    torch.cuda.empty_cache()
+    launches["gqsa serve"] = phase_serve("gqsa")
+    torch.cuda.empty_cache()
+    launches["w4 serve"] = phase_serve("w4")
+    path_of = {"gqsa_gemv": "gqsa serve", "paged_attention": "gqsa serve",
+               "w4_matmul": "w4 serve",
+               "paged_attention_int8": "int8-kv engine"}
+    kernels = [dict(name=k, route="cuda", source=v["source"],
+                    replaces=v["replaces"],
+                    launches=launches[path_of[k]][k],
+                    max_abs_err=errs[k], ms=times[k]["ms"],
+                    plain_ms=times[k]["plain_ms"],
+                    bound_ms=times[k]["bound_ms"], bound_by="bytes",
+                    library_ms=times[k]["library_ms"], unit=v["unit"],
+                    path=path_of[k])
+               for k, v in KERNELS.items()]
+    log(f"[time] chip_smoke total {time.time() - t_start:.1f}s")
     log(f"[power] {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,8 @@ model code calls :func:`apply_linear`, which dispatches on the leaves
 present:
 
     fp          {"w": [N,K] (, "b")}
-    gqsa        {"bsr": BSRMatrix}          quantized + group-sparse
-    w4          {"qw", "scale", "zero"}     (not yet ported)
+    gqsa        {"bsr": BSRMatrix}                                  quant+sparse
+    w4          {"qw" packed u8 [N,K/2], "scale","zero" [N,K/G]}   dense quant
     fake_quant  {"w", "gmask", ...}         (not yet ported)
 """
 from __future__ import annotations
@@ -17,7 +17,8 @@ from typing import Dict
 import torch
 
 from repro_torch.core.pruning import PruneConfig
-from repro_torch.core.quant import QuantConfig
+from repro_torch.core.quant import (QuantConfig, group_minmax_params,
+                                    pack_int4, quantize)
 from repro_torch.kernels import ops as kops
 
 
@@ -38,16 +39,17 @@ def apply_linear(p: Dict, x: torch.Tensor, *,
                  plain: bool = False) -> torch.Tensor:
     """x: [..., K] -> [..., N]; dispatch on the parameter representation.
 
-    ``plain`` sends packed layers through the GEMV's plain PyTorch version
-    even on the card (kernel-vs-plain checks only)."""
+    ``plain`` sends packed layers through their kernel's plain PyTorch
+    version even on the card (kernel-vs-plain checks only)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if "bsr" in p:
         # the kernel returns f32; the layer's output is the activation dtype
         y = kops.gqsa_gemv(x2, p["bsr"], plain=plain).to(x.dtype)
     elif "qw" in p:
-        raise NotImplementedError(
-            "dense W4 layers are not yet ported (ROADMAP B.3)")
+        g = x2.shape[-1] // p["scale"].shape[-1]
+        y = kops.w4_matmul(x2, p["qw"], p["scale"], p["zero"],
+                           group_size=g, plain=plain).to(x.dtype)
     elif "gmask" in p or "q" in p:
         raise NotImplementedError(
             "fake-quant layers are not yet ported (ROADMAP A.6)")
@@ -57,3 +59,15 @@ def apply_linear(p: Dict, x: torch.Tensor, *,
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y.reshape(*lead, -1)
+
+
+def pack_w4(w: torch.Tensor, qcfg: QuantConfig) -> Dict:
+    """FP weight -> dense W<=4 serving params (quantization-only baseline).
+    Nibble packing only holds codes < 16; wider bit-widths use the
+    fake-quant (dense FP) representation instead."""
+    if qcfg.bits > 4:
+        raise ValueError("pack_w4 packs two codes per byte: bits must be "
+                         "<= 4 (use fake_quant for W8)")
+    s, z = group_minmax_params(w, qcfg)
+    q = quantize(w, s, z, qcfg)
+    return {"qw": pack_int4(q), "scale": s, "zero": z}

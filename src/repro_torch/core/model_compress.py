@@ -1,11 +1,12 @@
-"""Whole-model GQSA compression: walk a parameter tree and replace every
-eligible linear's {"w"} with the packed-BSR serving representation.
+"""Whole-model compression: walk a parameter tree and replace every
+eligible linear's {"w"} with a packed serving representation, packed GQSA
+({"bsr"}) or the dense-W4 baseline ({"qw", "scale", "zero"}).
 
 Eligible = the decode-path GEMV weights (attention projections and MLP).
 Embeddings, lm_head and norms stay FP, as in the reference.
 
 Stacked [L, N, K] leaves are packed one [N, K] slice at a time into
-preallocated stacked BSR leaves, on the weights' device: at full llama2-7b
+preallocated stacked leaves, on the weights' device: at full llama2-7b
 width a slice is at most 180 MB of f32, so packing never holds more than
 one layer's temporaries (:class:`StackedPacker` is also what
 ``models/transformer.py:init_params`` feeds layer by layer, so the full
@@ -13,19 +14,25 @@ f32 model never exists at all).
 """
 from __future__ import annotations
 
+import dataclasses
 import re
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional, Union
 
 import torch
 
 from repro_torch.core.bsr import BSRMatrix, pack_dense
-from repro_torch.core.gqs_layer import GQSAConfig
+from repro_torch.core.gqs_layer import GQSAConfig, pack_w4
 from repro_torch.core.pruning import group_mask
+from repro_torch.core.quant import QuantConfig
 from repro_torch.core.saliency import group_saliency, magnitude_saliency
 
 COMPRESSIBLE = re.compile(
     r"(wq|wk|wv|wo|wg|wu|wd|w_qa|w_qb|w_kva|in_proj|out_proj)$")
 EXCLUDED = re.compile(r"(router|shared_?$)")  # routers stay FP
+BSR_LEAVES = ("idx", "vals", "scale", "zero")
+
+# a compression: GQSAConfig -> packed GQSA, QuantConfig -> dense W4
+Compression = Union[GQSAConfig, QuantConfig]
 
 
 def is_compressible(pstr: str) -> bool:
@@ -39,49 +46,72 @@ def pack_linear(w: torch.Tensor, gqsa: GQSAConfig) -> BSRMatrix:
     return pack_dense(w, group_mask(gsal, gqsa.prune), gqsa.quant)
 
 
-class StackedPacker:
-    """Packs the [N, K] slices of one stacked linear as they arrive and
-    writes each into preallocated stacked leaves ([count, N, M], ...)."""
+def slice_packer(compress: Compression) -> Callable[[torch.Tensor], Dict]:
+    """The per-slice packing function of a compression: FP [N, K] -> the
+    layer's serving node ({"bsr"} or {"qw", "scale", "zero"})."""
+    if isinstance(compress, GQSAConfig):
+        return lambda w: {"bsr": pack_linear(w, compress)}
+    if isinstance(compress, QuantConfig):
+        return lambda w: pack_w4(w, compress)
+    raise TypeError(f"unknown compression {compress!r}: a GQSAConfig "
+                    f"(GQSA) or a QuantConfig (dense W4)")
 
-    def __init__(self, count: int, gqsa: GQSAConfig):
+
+def _tensors(node) -> List[torch.Tensor]:
+    """The tensor leaves of a serving node, in a fixed order."""
+    if isinstance(node, BSRMatrix):
+        return [getattr(node, f) for f in BSR_LEAVES]
+    return [t for k in sorted(node) for t in _tensors(node[k])] \
+        if isinstance(node, dict) else [node]
+
+
+def _map(node, fn):
+    """The node with ``fn`` applied to each tensor leaf."""
+    if isinstance(node, BSRMatrix):
+        return dataclasses.replace(
+            node, **{f: fn(getattr(node, f)) for f in BSR_LEAVES})
+    if isinstance(node, dict):
+        return {k: _map(v, fn) for k, v in node.items()}
+    return fn(node)
+
+
+class StackedPacker:
+    """Packs the [N, K] slices of one stacked linear as they arrive, with
+    ``pack`` (one of :func:`slice_packer`'s functions), and writes each
+    into preallocated stacked leaves ([count, ...])."""
+
+    def __init__(self, count: int, pack: Callable[[torch.Tensor], Dict]):
         self.count = count
-        self.gqsa = gqsa
-        self.out: Optional[BSRMatrix] = None
+        self.pack = pack
+        self.out: Optional[Dict] = None
 
     def put(self, i: int, w: torch.Tensor) -> None:
-        b = pack_linear(w, self.gqsa)
+        node = self.pack(w)
         if self.out is None:
-            def stacked(t):
-                return torch.empty((self.count,) + tuple(t.shape),
-                                   dtype=t.dtype, device=t.device)
-            self.out = BSRMatrix(idx=stacked(b.idx), vals=stacked(b.vals),
-                                 scale=stacked(b.scale),
-                                 zero=stacked(b.zero), shape=b.shape,
-                                 group_size=b.group_size, bits=b.bits)
-        if b.idx.shape != self.out.idx.shape[1:]:
-            raise ValueError("stacked slices must keep the same groups per "
-                             "row (row-balanced packing)")
-        for name in ("idx", "vals", "scale", "zero"):
-            getattr(self.out, name)[i].copy_(getattr(b, name))
+            self.out = _map(node, lambda t: torch.empty(
+                (self.count,) + tuple(t.shape), dtype=t.dtype,
+                device=t.device))
+        for dst, src in zip(_tensors(self.out), _tensors(node)):
+            if src.shape != dst.shape[1:]:
+                raise ValueError("stacked slices must keep the same shapes "
+                                 "(row-balanced packing)")
+            dst[i].copy_(src)
 
-    def result(self, lead=()) -> BSRMatrix:
-        o = self.out
+    def result(self, lead=()) -> Dict:
         if not lead:
-            return o.layer(0) if self.count == 1 else o
-
-        def shaped(t):
-            return t.reshape(tuple(lead) + tuple(t.shape[1:]))
-        return BSRMatrix(idx=shaped(o.idx), vals=shaped(o.vals),
-                         scale=shaped(o.scale), zero=shaped(o.zero),
-                         shape=o.shape, group_size=o.group_size, bits=o.bits)
+            return _map(self.out, lambda t: t[0]) if self.count == 1 \
+                else self.out
+        return _map(self.out, lambda t: t.reshape(tuple(lead)
+                                                  + tuple(t.shape[1:])))
 
 
-def _pack_stacked(w: torch.Tensor, gqsa: GQSAConfig) -> BSRMatrix:
-    """w: [..., N, K] -> BSRMatrix with the leading dims on each leaf."""
+def _pack_stacked(w: torch.Tensor, compress: Compression) -> Dict:
+    """w: [..., N, K] -> the serving node with the leading dims on each
+    leaf."""
     lead = tuple(w.shape[:-2])
     n, k = w.shape[-2:]
     flat = w.reshape(-1, n, k)
-    packer = StackedPacker(flat.shape[0], gqsa)
+    packer = StackedPacker(flat.shape[0], slice_packer(compress))
     for i in range(flat.shape[0]):
         packer.put(i, flat[i])
     return packer.result(lead)
@@ -100,5 +130,9 @@ def _walk(node, path, fn):
 def compress_params(params: Dict, cfg, gqsa: GQSAConfig) -> Dict:
     """FP param tree -> serving tree with packed GQS layers (magnitude
     saliency: the reference's behaviour without calibration stats)."""
-    return _walk(params, "",
-                 lambda node: {"bsr": _pack_stacked(node["w"], gqsa)})
+    return _walk(params, "", lambda node: _pack_stacked(node["w"], gqsa))
+
+
+def compress_params_w4(params: Dict, cfg, qcfg: QuantConfig) -> Dict:
+    """Quantization-only baseline (dense W4, no pruning)."""
+    return _walk(params, "", lambda node: _pack_stacked(node["w"], qcfg))

@@ -1,14 +1,16 @@
-// Paged decode attention (plain mode) for Hopper (sm_90a).
+// Paged decode attention (plain and int8 modes) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel
 // src/repro/kernels/paged_attention.py:paged_attention_pallas in its plain
-// mode (bf16/f32 pages given, no int8 scales, no tree bitmaps).
+// mode (bf16/f32 pages) and its int8 mode (int8 pages with f32 per-token
+// scales); the tree and latent modes are not ported yet.
 //
 // Attention computed in place on the paged KV pool, with no dense page
 // gather. Layouts (one layer's view of the pool):
 //   q            [B, KH, TR, D] f32   query rows grouped by KV head,
 //                                     T-major inside the row dim (TR = T*R)
-//   k/v_pages    [P, PS, KH, D]       bf16 or f32
+//   k/v_pages    [P, PS, KH, D]       bf16, f32 or int8
+//   k/v_scales   [P, PS, KH] f32      int8 mode only (null otherwise)
 //   lengths      [B, T] int32         query t sees positions < lengths[b,t]
 //   block_tables [B, MP] int32        page ids; entries >= P are sentinels
 //   live         [B] int32            pages to visit (ceil(max_t len / PS))
@@ -17,7 +19,7 @@
 //
 // Bound on the card: bytes. Each live K/V element is read once and used
 // for 2*TR flops per operand, far below the f32 flop/byte balance, so the
-// floor is the live K/V bytes over 3.35 TB/s.
+// floor is the live K/V bytes (int8: codes plus scales) over 3.35 TB/s.
 //
 // Design: one block per (slot, KV head), which loads its own block-table
 // row and walks the slot's live pages in order with an online softmax
@@ -29,16 +31,24 @@
 // the current page is computed, hiding that trip. Tiles are kept in
 // shared memory as f32; warps compute the TR x PS scores with lane-split
 // dot products and the softmax statistics with one warp per row; thread
-// d owns output column d of every row. Sentinel pages are clamped to P-1 and masked by length, as
-// the TPU kernel does. The -inf guards of the TPU kernel are kept, so a
-// fully masked row ends with l = 0 and writes 0. Fewer blocks than SMs at
-// small batch (4 slots x 32 heads = 128 blocks) is accepted here: a
-// split over pages with a combine step is later work.
+// d owns output column d of every row. Sentinel pages are clamped to P-1
+// and masked by length, as the TPU kernel does. The -inf guards of the
+// TPU kernel are kept, so a fully masked row ends with l = 0 and writes 0.
+// In int8 mode a 16-byte vector holds 16 codes of one token, and the
+// token's K and V scales are loaded with it; each code is dequantised as
+// code * scale while the tile is staged, before the f32 contractions, as
+// the TPU kernel's body does (the reference's jnp path instead
+// re-quantises q and the softmax weights for int8 x int8 products: not
+// this kernel's math). Fewer blocks than SMs at small batch (4 slots x 32
+// heads = 128 blocks) is accepted here: a split over pages with a combine
+// step is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -62,6 +72,14 @@ __device__ __forceinline__ void unpack16(const uint4& u, float* o,
   }
 }
 
+__device__ __forceinline__ void unpack16(const uint4& u, float* o, int8_t) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    o[i] = static_cast<float>(
+        static_cast<int8_t>((w[i >> 2] >> (8 * (i & 3))) & 0xFFu));
+}
+
 template <typename Page>
 struct TileLoader {
   // One page's [PS, D] K or V tile of one KV head, as 16-byte vectors:
@@ -80,7 +98,8 @@ struct TileLoader {
 template <typename Page>
 __global__ void paged_attention_kernel(
     const float* __restrict__ q, const Page* __restrict__ k_pages,
-    const Page* __restrict__ v_pages, const int32_t* __restrict__ lengths,
+    const Page* __restrict__ v_pages, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int32_t* __restrict__ lengths,
     const int32_t* __restrict__ block_tables,
     const int32_t* __restrict__ live, float* __restrict__ out, int KH,
     int TR, int T, int D, int P, int PS, int MP, float scale) {
@@ -119,7 +138,9 @@ __global__ void paged_attention_kernel(
   const uint4* kv4 = reinterpret_cast<const uint4*>(k_pages);
   const uint4* vv4 = reinterpret_cast<const uint4*>(v_pages);
   constexpr int E = TileLoader<Page>::E;
+  constexpr bool kInt8 = std::is_same<Page, int8_t>::value;
   uint4 kr[kStage], vr[kStage];
+  float ksr[kStage], vsr[kStage];   // int8 mode: each vector's token scale
   // issue every load of page pi's tiles at once (register staging), so a
   // page costs one memory round trip, and the next page's loads are in
   // flight while the current page is computed
@@ -136,6 +157,12 @@ __global__ void paged_attention_kernel(
         const size_t o = ld.offset(v, pbase) / E;
         kr[j] = __ldg(kv4 + o);
         vr[j] = __ldg(vv4 + o);
+        if (kInt8) {
+          const size_t so = (static_cast<size_t>(page) * PS + v * E / D) * KH
+                            + kh;
+          ksr[j] = __ldg(k_scales + so);
+          vsr[j] = __ldg(v_scales + so);
+        }
       }
     }
   };
@@ -147,8 +174,25 @@ __global__ void paged_attention_kernel(
     for (int j = 0; j < kStage; ++j) {
       const int v = j * nthreads + tid;
       if (v < ld.nvec) {
-        unpack16(kr[j], k_s + v * E, Page());
-        unpack16(vr[j], v_s + v * E, Page());
+        float kf[E], vf[E];
+        unpack16(kr[j], kf, Page());
+        unpack16(vr[j], vf, Page());
+        if (kInt8) {  // dequantise before the f32 contractions
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            kf[e] *= ksr[j];
+            vf[e] *= vsr[j];
+          }
+        }
+        float4* kd = reinterpret_cast<float4*>(k_s + v * E);
+        float4* vd = reinterpret_cast<float4*>(v_s + v * E);
+#pragma unroll
+        for (int e = 0; e < E / 4; ++e) {
+          kd[e] = make_float4(kf[4 * e], kf[4 * e + 1], kf[4 * e + 2],
+                              kf[4 * e + 3]);
+          vd[e] = make_float4(vf[4 * e], vf[4 * e + 1], vf[4 * e + 2],
+                              vf[4 * e + 3]);
+        }
       }
     }
     __syncthreads();
@@ -219,42 +263,55 @@ __global__ void paged_attention_kernel(
   }
 }
 
+template <typename Page>
+void launch(const void* q, const void* k_pages, const void* v_pages,
+            const void* k_scales, const void* v_scales, const void* lengths,
+            const void* block_tables, const void* live, void* out, int B,
+            int KH, int TR, int T, int D, int P, int PS, int MP, int threads,
+            size_t smem, cudaStream_t s) {
+  const dim3 grid(B, KH);
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  paged_attention_kernel<Page><<<grid, threads, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const Page*>(k_pages),
+      static_cast<const Page*>(v_pages), static_cast<const float*>(k_scales),
+      static_cast<const float*>(v_scales),
+      static_cast<const int32_t*>(lengths),
+      static_cast<const int32_t*>(block_tables),
+      static_cast<const int32_t*>(live), static_cast<float*>(out), KH, TR,
+      T, D, P, PS, MP, scale);
+}
+
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// page_kind: 0 f32 pages, 1 bf16 pages, 2 int8 pages with f32 scales
+// (k_scales/v_scales, null in the other modes).
 extern "C" int paged_attention_launch(
-    const void* q, const void* k_pages, const void* v_pages, int pages_bf16,
-    const void* lengths, const void* block_tables, const void* live,
-    void* out, int B, int KH, int TR, int T, int D, int P, int PS, int MP,
-    void* stream) {
+    const void* q, const void* k_pages, const void* v_pages, int page_kind,
+    const void* k_scales, const void* v_scales, const void* lengths,
+    const void* block_tables, const void* live, void* out, int B, int KH,
+    int TR, int T, int D, int P, int PS, int MP, void* stream) {
   const int threads = ((D + 31) / 32) * 32;
-  const int vec = pages_bf16 ? 8 : 4;  // elements per 16-byte vector
-  if (TR > kMaxRows || TR % T != 0 || D > 1024 || D % vec != 0
-      || PS * D / vec > kStage * threads)
+  const int vec = page_kind == 2 ? 16 : page_kind == 1 ? 8 : 4;
+  if (page_kind < 0 || page_kind > 2 || TR > kMaxRows || TR % T != 0
+      || D > 1024 || D % vec != 0 || PS * D / vec > kStage * threads
+      || (page_kind == 2 && (k_scales == nullptr || v_scales == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(TR) * D + 2 * PS * D + TR * PS
                        + 3 * TR);
-  const dim3 grid(B, KH);
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pages_bf16) {
-    paged_attention_kernel<__nv_bfloat16><<<grid, threads, smem, s>>>(
-        static_cast<const float*>(q),
-        static_cast<const __nv_bfloat16*>(k_pages),
-        static_cast<const __nv_bfloat16*>(v_pages),
-        static_cast<const int32_t*>(lengths),
-        static_cast<const int32_t*>(block_tables),
-        static_cast<const int32_t*>(live), static_cast<float*>(out), KH, TR,
-        T, D, P, PS, MP, scale);
-  } else {
-    paged_attention_kernel<float><<<grid, threads, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k_pages),
-        static_cast<const float*>(v_pages),
-        static_cast<const int32_t*>(lengths),
-        static_cast<const int32_t*>(block_tables),
-        static_cast<const int32_t*>(live), static_cast<float*>(out), KH, TR,
-        T, D, P, PS, MP, scale);
-  }
+  if (page_kind == 2)
+    launch<int8_t>(q, k_pages, v_pages, k_scales, v_scales, lengths,
+                   block_tables, live, out, B, KH, TR, T, D, P, PS, MP,
+                   threads, smem, s);
+  else if (page_kind == 1)
+    launch<__nv_bfloat16>(q, k_pages, v_pages, nullptr, nullptr, lengths,
+                          block_tables, live, out, B, KH, TR, T, D, P, PS,
+                          MP, threads, smem, s);
+  else
+    launch<float>(q, k_pages, v_pages, nullptr, nullptr, lengths,
+                  block_tables, live, out, B, KH, TR, T, D, P, PS, MP,
+                  threads, smem, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,6 +13,7 @@ from repro_torch.core.bsr import BSRMatrix
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.gqsa_gemv import MAX_GEMV_BATCH, gqsa_gemv_cuda
 from repro_torch.kernels.paged_attention import paged_attention_cuda
+from repro_torch.kernels.w4_matmul import w4_matmul_cuda
 
 
 def _use_plain(t: torch.Tensor, plain: bool, name: str) -> bool:
@@ -53,18 +54,22 @@ def paged_query_prep(lengths, block_tables: torch.Tensor, b: int, t: int,
     return lq, live.to(torch.int32)
 
 
-def paged_decode_attention(q, k_pages, v_pages, lengths, block_tables, *,
+def paged_decode_attention(q, k_pages, v_pages, lengths, block_tables,
+                           k_scale_pages=None, v_scale_pages=None, *,
                            plain: bool = False, prep=None):
-    """Decode attention on the paged KV pool (plain mode).
+    """Decode attention on the paged KV pool (plain or int8 mode).
 
-    q: [B, T, H, D] (T=1 decode); k/v_pages: [P, ps, KH, D] bf16/f32;
-    lengths: [] / [B] / [B, T] per-query valid prefix; block_tables:
-    [B, MP] page ids, entries >= P are sentinels. Returns [B, T, H, D] f32
-    (rows of length 0 are zeros). ``prep``: :func:`paged_query_prep` of
-    these lengths, when the caller already has it."""
+    q: [B, T, H, D] (T=1 decode); k/v_pages: [P, ps, KH, D] bf16/f32, or
+    int8 with f32 [P, ps, KH] ``k/v_scale_pages`` (int8 mode: each tile is
+    dequantized before the f32 contractions); lengths: [] / [B] / [B, T]
+    per-query valid prefix; block_tables: [B, MP] page ids, entries >= P
+    are sentinels. Returns [B, T, H, D] f32 (rows of length 0 are zeros).
+    ``prep``: :func:`paged_query_prep` of these lengths, when the caller
+    already has it."""
     if _use_plain(q, plain, "paged_decode_attention"):
         return kref.paged_attention_ref(q, k_pages, v_pages, lengths,
-                                        block_tables)
+                                        block_tables, k_scale_pages,
+                                        v_scale_pages)
     b, t, h, d = q.shape
     page_size, khn = k_pages.shape[1], k_pages.shape[2]
     r = h // khn
@@ -75,13 +80,22 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, block_tables, *,
           .reshape(b, khn, t * r, d).float().contiguous()
     o = paged_attention_cuda(qh, k_pages, v_pages, lq,
                              block_tables.to(torch.int32).contiguous(),
-                             live, t)
+                             live, t, k_scale_pages, v_scale_pages)
     return o.reshape(b, khn, t, r, d).permute(0, 2, 1, 3, 4) \
             .reshape(b, t, h, d)
 
 
-def w4_matmul(*args, **kwargs):
-    raise NotImplementedError("w4_matmul is not yet ported (ROADMAP B.3)")
+def w4_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
+              zero: torch.Tensor, *, group_size: int,
+              plain: bool = False) -> torch.Tensor:
+    """y [T, N] f32 = x [T, K] @ deq(qw).T (dense grouped dequant), any
+    T >= 1.
+
+    On the card the kernel masks ragged T, N and K edges itself, so
+    nothing is padded or copied (the weights stay where they are)."""
+    if _use_plain(x, plain, "w4_matmul"):
+        return kref.w4_matmul_ref(x, qw, scale, zero, group_size)
+    return w4_matmul_cuda(x.contiguous(), qw, scale, zero, group_size)
 
 
 def paged_latent_attention(*args, **kwargs):
@@ -91,4 +105,5 @@ def paged_latent_attention(*args, **kwargs):
 
 def kv_decode_attention(*args, **kwargs):
     raise NotImplementedError(
-        "int8 KV decode attention is not yet ported (ROADMAP B.5)")
+        "int8 decode attention on a contiguous cache is not yet ported "
+        "(ROADMAP A.14, with the contiguous-cache families)")

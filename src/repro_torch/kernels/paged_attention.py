@@ -1,20 +1,23 @@
-"""Paged decode attention (plain mode): the wrapper of the hand-written
-CUDA kernel (``repro_torch/csrc/paged_attention.cu``). Its plain PyTorch
-version is ``kernels/ref.py:paged_attention_ref``.
+"""Paged decode attention (plain and int8 modes): the wrapper of the
+hand-written CUDA kernel (``repro_torch/csrc/paged_attention.cu``). Its
+plain PyTorch version is ``kernels/ref.py:paged_attention_ref``.
 
 Replaces the TPU kernel
 ``src/repro/kernels/paged_attention.py:paged_attention_pallas`` in plain
-mode (bf16/f32 pages, no int8 scales, no tree bitmaps), which decode
-attention on the paged KV pool reaches every step.
+mode (bf16/f32 pages) and in int8 mode (int8 pages with f32 [P, ps, KH]
+scale pages, ``kv_cache_dtype="int8"``), which decode attention on the
+paged KV pool reaches every step; its tree and latent modes are not
+ported yet (no tree bitmaps, no latent pool).
 
 Bound on the H100: bytes. Each live K/V element is read once and used for
-two f32 multiply-adds per query row; the floor is the live K/V bytes over
-3.35 TB/s.
+two f32 multiply-adds per query row; the floor is the live K/V bytes
+(int8: codes plus scales) over 3.35 TB/s.
 
 Design: one block per (slot, KV head) walks that slot's live pages in
 order with an online softmax in f32, staging each page's K and V tiles in
 shared memory; sentinel block-table entries clamp to page P - 1 and are
-masked by length; a row of length 0 returns zeros (details in the CUDA
+masked by length; a row of length 0 returns zeros; int8 tiles are
+dequantized (code * scale) as they are staged (details in the CUDA
 source). At decode batch 4 x 32 heads the grid has fewer blocks than the
 card has SMs; a split over pages is later work.
 """
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -37,7 +41,7 @@ STAGE = 8               # 16-byte loads per thread per K/V page tile
 def _launcher():
     fn = load("paged_attention").paged_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -56,15 +60,23 @@ def _check(t: torch.Tensor, name: str, dtypes, shape) -> None:
         raise ValueError(f"paged_attention: {name} must be contiguous")
 
 
+PAGE_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
 def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, lengths: torch.Tensor,
                          block_tables: torch.Tensor, live: torch.Tensor,
-                         t: int) -> torch.Tensor:
+                         t: int, k_scale_pages: Optional[torch.Tensor] = None,
+                         v_scale_pages: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """out [B, KH, T*R, D] f32 on the card.
 
     q: [B, KH, T*R, D] f32 (T-major rows); k/v_pages: [P, ps, KH, D] bf16
-    or f32 (one dtype); lengths: [B, T] int32; block_tables: [B, MP]
-    int32 (entries >= P are sentinels); live: [B] int32 live page counts."""
+    or f32 (plain mode), or int8 with f32 [P, ps, KH] ``k/v_scale_pages``
+    (int8 mode); lengths: [B, T] int32; block_tables: [B, MP] int32
+    (entries >= P are sentinels); live: [B] int32 live page counts.
+    Plain-mode launches count in ``launches``, int8-mode launches in
+    ``int8_launches``."""
     b, khn, tr, d = q.shape
     p, ps = k_pages.shape[0], k_pages.shape[1]
     mp = block_tables.shape[1]
@@ -72,10 +84,17 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"paged_attention_cuda takes T*R <= {MAX_ROWS} rows "
                          f"(a multiple of T) and D <= {MAX_HEAD_DIM}, got "
                          f"T*R={tr}, T={t}, D={d}")
-    page_dtypes = (torch.bfloat16, torch.float32)
+    int8 = k_pages.dtype == torch.int8
+    if int8 != (k_scale_pages is not None) \
+            or (k_scale_pages is None) != (v_scale_pages is None):
+        raise ValueError("paged_attention_cuda: int8 pages take both scale "
+                         "pages, bf16/f32 pages take none")
     _check(q, "q", (torch.float32,), (b, khn, tr, d))
-    _check(k_pages, "k_pages", page_dtypes, (p, ps, khn, d))
+    _check(k_pages, "k_pages", tuple(PAGE_KINDS), (p, ps, khn, d))
     _check(v_pages, "v_pages", (k_pages.dtype,), (p, ps, khn, d))
+    if int8:
+        _check(k_scale_pages, "k_scale_pages", (torch.float32,), (p, ps, khn))
+        _check(v_scale_pages, "v_scale_pages", (torch.float32,), (p, ps, khn))
     _check(lengths, "lengths", (torch.int32,), (b, t))
     _check(block_tables, "block_tables", (torch.int32,), (b, mp))
     _check(live, "live", (torch.int32,), (b,))
@@ -85,21 +104,28 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     if smem > SMEM_LIMIT or d % vec or ps * d // vec > STAGE * threads:
         raise ValueError(f"paged_attention_cuda: page size {ps} x head dim "
                          f"{d} does not fit the kernel's staging "
-                         f"({smem} bytes of shared memory)")
+                         f"({smem} bytes of shared memory, {vec}-element "
+                         f"vectors)")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("paged_attention_cuda: pages must be 16-byte "
                          "aligned (vector loads)")
     out = torch.empty((b, khn, tr, d), dtype=torch.float32, device=q.device)
     rc = _launcher()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                     int(k_pages.dtype == torch.bfloat16),
+                     PAGE_KINDS[k_pages.dtype],
+                     k_scale_pages.data_ptr() if int8 else None,
+                     v_scale_pages.data_ptr() if int8 else None,
                      lengths.data_ptr(), block_tables.data_ptr(),
                      live.data_ptr(), out.data_ptr(), b, khn, tr, t, d, p,
                      ps, mp, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"paged_attention kernel launch failed: CUDA error {rc}")
-    paged_attention_cuda.launches += 1
+    if int8:
+        paged_attention_cuda.int8_launches += 1
+    else:
+        paged_attention_cuda.launches += 1
     return out
 
 
-paged_attention_cuda.launches = 0
+paged_attention_cuda.launches = 0        # plain mode (bf16/f32 pages)
+paged_attention_cuda.int8_launches = 0   # int8 mode

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.bsr import BSRMatrix, to_dense
+from repro_torch.core.quant import unpack_int4
 
 
 def gqsa_gemv_ref(x: torch.Tensor, bsr: BSRMatrix) -> torch.Tensor:
@@ -24,19 +25,35 @@ def gqsa_gemv_ref(x: torch.Tensor, bsr: BSRMatrix) -> torch.Tensor:
     return x.float() @ to_dense(bsr).T
 
 
+def w4_matmul_ref(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
+                  zero: torch.Tensor, group_size: int) -> torch.Tensor:
+    """Dense grouped-dequant matmul (the W4A16 baseline): x [T, K] ->
+    y [T, N] f32 = x @ deq(qw).T, with qw packed uint8 [N, K/2] (element
+    2i in the low nibble), scale/zero [N, K/G] and deq = (q - zero) *
+    scale in f32, x widened to f32."""
+    n = qw.shape[0]
+    q = unpack_int4(qw).float()                                # [N, K]
+    qg = q.reshape(n, -1, group_size)
+    w = ((qg - zero[..., None]) * scale[..., None]).reshape(n, -1)
+    return x.float() @ w.T
+
+
 def attention_scale(d: int) -> float:
     """1/sqrt(D) rounded as f32 arithmetic rounds it (the reference and
     the kernel compute it in f32); exact as a Python float."""
     return float(np.float32(1.0) / np.sqrt(np.float32(d)))
 
 
-def paged_attention_ref(q, k_pages, v_pages, lengths, block_tables):
+def paged_attention_ref(q, k_pages, v_pages, lengths, block_tables,
+                        k_scale_pages=None, v_scale_pages=None):
     """Dense page gather followed by staircase attention, in f32.
 
-    q: [B, T, H, D]; k/v_pages: [P, ps, KH, D]; lengths: [] / [B] / [B, T]
-    per-query valid prefix; block_tables: [B, MP] page ids — entries >= P
-    are sentinels and clamp to P - 1, their positions masked by
-    ``lengths``. Returns [B, T, H, D] f32; rows of length 0 are zeros."""
+    q: [B, T, H, D]; k/v_pages: [P, ps, KH, D] (bf16/f32, or int8 with f32
+    [P, ps, KH] scale pages, dequantized after the gather as code *
+    scale); lengths: [] / [B] / [B, T] per-query valid prefix;
+    block_tables: [B, MP] page ids — entries >= P are sentinels and clamp
+    to P - 1, their positions masked by ``lengths``. Returns [B, T, H, D]
+    f32; rows of length 0 are zeros."""
     from repro_torch.models.layers import staircase_mask
     b, t, h, d = q.shape
     num_pages, ps, khn, _ = k_pages.shape
@@ -44,6 +61,9 @@ def paged_attention_ref(q, k_pages, v_pages, lengths, block_tables):
     bt = block_tables.long().clamp(0, num_pages - 1)
     k = k_pages[bt].reshape(b, -1, khn, d).float()
     v = v_pages[bt].reshape(b, -1, khn, d).float()
+    if k_scale_pages is not None:
+        k = k * k_scale_pages[bt].reshape(b, -1, khn, 1)
+        v = v * v_scale_pages[bt].reshape(b, -1, khn, 1)
     s = k.shape[1]
     qh = q.reshape(b, t, khn, r, d).float()
     sco = torch.einsum("btkrd,bskd->bkrts", qh, k) * attention_scale(d)

@@ -3,6 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --full \\
         --compress gqsa --slots 4 --requests 8 --max-new 32 --max-seq 256
 
+``--compress w4`` serves the quantization-only baseline (dense W4, the
+paper's W4A16 rows) instead of GQSA; ``none`` the FP model.
+
 Runs on the card (``--device cuda``, the default; it raises when there is
 none) or, when asked, on the CPU (``--device cpu``) through the kernels'
 plain versions. Requests are admitted in FIFO order into a fixed pool of
@@ -36,19 +39,24 @@ def make_requests(n, vocab, rng, lo=4, hi=16):
 
 
 def compressed_params(cfg, args, device):
-    """Seeded params; with ``--compress gqsa`` packed layer by layer as
-    they are drawn (the full f32 model never exists)."""
+    """Seeded params; with ``--compress gqsa`` or ``w4`` packed layer by
+    layer as they are drawn (the full f32 model never exists)."""
     t0 = time.time()
-    gqsa = None
+    compress = None
     if args.compress == "gqsa":
-        gqsa = GQSAConfig(
+        compress = GQSAConfig(
             quant=QuantConfig(bits=4, group_size=args.group_size),
             prune=PruneConfig(sparsity=args.sparsity,
                               group_size=args.group_size))
-    params = get_model(cfg).init_params(args.seed, cfg, device, gqsa=gqsa)
-    if gqsa is not None:
+    elif args.compress == "w4":
+        compress = QuantConfig(bits=4, group_size=args.group_size)
+    params = get_model(cfg).init_params(args.seed, cfg, device,
+                                        compress=compress)
+    if args.compress == "gqsa":
         print(f"packed GQSA W4 S{int(args.sparsity*100)}% "
               f"G{args.group_size} in {time.time()-t0:.1f}s")
+    elif args.compress == "w4":
+        print(f"packed W4 in {time.time()-t0:.1f}s")
     return params
 
 
@@ -58,7 +66,8 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false",
                     help="full-scale params (default: reduced config)")
-    ap.add_argument("--compress", default="gqsa", choices=["none", "gqsa"])
+    ap.add_argument("--compress", default="gqsa",
+                    choices=["none", "w4", "gqsa"])
     ap.add_argument("--sparsity", type=float, default=0.5)
     ap.add_argument("--group-size", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)

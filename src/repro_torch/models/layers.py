@@ -168,6 +168,29 @@ def write_pages_(buf: torch.Tensor, plan: PageWrite,
     rows.index_put_((plan.index,), vals)
 
 
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., KH, D] -> (int8 codes, f32 scale [..., KH]) per token + head:
+    scale = amax / 127, codes rounded half to even and clipped to +-127."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1), 1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def write_kv_(cache: Dict, plan: PageWrite, k: torch.Tensor,
+              v: torch.Tensor) -> None:
+    """In place: one layer's pool ({"k_pages", "v_pages"} and, for an
+    int8 pool, {"k_scale_pages", "v_scale_pages"}) gets the token rows of
+    ``k``/``v`` [..., KH, D] at the kept entries of ``plan``; an int8 pool
+    stores them quantized (:func:`quantize_kv`)."""
+    if "k_scale_pages" in cache:
+        (k, k_sc), (v, v_sc) = quantize_kv(k), quantize_kv(v)
+        write_pages_(cache["k_scale_pages"], plan, k_sc)
+        write_pages_(cache["v_scale_pages"], plan, v_sc)
+    write_pages_(cache["k_pages"], plan, k)
+    write_pages_(cache["v_pages"], plan, v)
+
+
 # ---------------------------------------------------------------------------
 # attention blocks
 # ---------------------------------------------------------------------------
@@ -217,8 +240,10 @@ def attention_decode_paged(p: Dict, x: torch.Tensor, cache: Dict,
                            plain: bool = False,
                            step: Optional[PagedStep] = None) -> torch.Tensor:
     """One decode step of T tokens against one layer's view of the paged
-    pool ({"k_pages"/"v_pages": [P, ps, KH, D]}, bf16 or f32), which it
-    writes IN PLACE.
+    pool, which it writes IN PLACE: {"k_pages"/"v_pages": [P, ps, KH, D]}
+    in bf16 or f32, or int8 codes with {"k_scale_pages"/"v_scale_pages":
+    [P, ps, KH]} f32 (the token's K/V are quantized before the write, and
+    the kernel dequantizes each tile before its f32 contractions).
 
     x: [B, T, d]; positions: [B] write position of each slot's first
     token; block_tables: [B, MP] page ids (sentinel entries: writes
@@ -228,16 +253,16 @@ def attention_decode_paged(p: Dict, x: torch.Tensor, cache: Dict,
     ``step``: the step's shared operands (:func:`paged_step`), which the
     model computes once for all layers; built here when absent."""
     b, t, _ = x.shape
-    kp, vp = cache["k_pages"], cache["v_pages"]
+    kp = cache["k_pages"]
     if step is None:
         step = paged_step(block_tables, positions, t, kp.shape[1],
                           kp.shape[0], cfg)
     q, k, v = attn_qkv(p, x, None, cfg, plain, rope=step.rope)
-    write_pages_(kp, step.write, k)
-    write_pages_(vp, step.write, v)
-    o = kops.paged_decode_attention(q, kp, vp, step.length,
-                                    step.block_tables, plain=plain,
-                                    prep=step.kernel_prep).to(q.dtype)
+    write_kv_(cache, step.write, k, v)
+    o = kops.paged_decode_attention(
+        q, kp, cache["v_pages"], step.length, step.block_tables,
+        cache.get("k_scale_pages"), cache.get("v_scale_pages"), plain=plain,
+        prep=step.kernel_prep).to(q.dtype)
     return apply_linear(p["wo"], o.reshape(b, t, -1), plain=plain)
 
 

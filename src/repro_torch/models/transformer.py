@@ -3,8 +3,9 @@ pool, and the fused decode step.
 
 Parameters keep the reference's tree layout: nested dicts whose per-layer
 leaves are stacked [L, ...] (``params["layers"]["attn"]["wq"]["w"]`` is
-[L, N, K]; a packed layer holds ``{"bsr": BSRMatrix}`` with stacked
-leaves). The layer loop is a Python loop over slices of those leaves.
+[L, N, K]; a packed layer holds ``{"bsr": BSRMatrix}`` or dense W4
+``{"qw", "scale", "zero"}`` with stacked leaves). The layer loop is a
+Python loop over slices of those leaves.
 """
 from __future__ import annotations
 
@@ -15,8 +16,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.bsr import BSRMatrix
-from repro_torch.core.gqs_layer import GQSAConfig, apply_linear
-from repro_torch.core.model_compress import StackedPacker
+from repro_torch.core.gqs_layer import apply_linear
+from repro_torch.core.model_compress import (Compression, StackedPacker,
+                                             slice_packer)
 from repro_torch.models import layers as L
 
 
@@ -35,16 +37,17 @@ def _linear_shapes(cfg) -> Dict[str, Dict[str, Tuple[int, int]]]:
 
 
 def init_params(seed: int, cfg, device=None,
-                gqsa: Optional[GQSAConfig] = None) -> Dict:
+                compress: Optional[Compression] = None) -> Dict:
     """Random parameters from ``seed`` (a ``torch.Generator`` on the
     device: other numbers than the reference's ``PRNGKey`` init, whose
     trees the tests carry over through ``repro_torch.bridge`` instead).
 
-    Linear weights are N(0, 1/K) like the reference's. With ``gqsa`` each
+    Linear weights are N(0, 1/K) like the reference's. With ``compress``
+    (a ``GQSAConfig``: packed GQSA; a ``QuantConfig``: dense W4) each
     layer's linears are packed as soon as they are drawn, one layer at a
     time, so the full f32 model (26 GB at llama2-7b width) never exists;
     the result equals ``compress_params(init_params(seed, cfg, device),
-    cfg, gqsa)``."""
+    cfg, gqsa)`` or ``compress_params_w4(..., qcfg)``."""
     if cfg.family != "dense" or cfg.qk_norm or cfg.tie_embeddings:
         raise NotImplementedError(
             f"init for family {cfg.family!r} (qk_norm={cfg.qk_norm}, "
@@ -61,7 +64,8 @@ def init_params(seed: int, cfg, device=None,
 
     embed = normal((cfg.vocab, d), 0.02)
     shapes = _linear_shapes(cfg)
-    stacks = {blk: {name: (StackedPacker(n_layers, gqsa) if gqsa else
+    pack = slice_packer(compress) if compress is not None else None
+    stacks = {blk: {name: (StackedPacker(n_layers, pack) if pack else
                            torch.empty((n_layers,) + nk, dtype=dt,
                                        device=dev))
                     for name, nk in lin.items()}
@@ -71,7 +75,7 @@ def init_params(seed: int, cfg, device=None,
             for name, (n, k) in lin.items():
                 w = normal((n, k), 1.0 / math.sqrt(k))
                 dst = stacks[blk][name]
-                if gqsa:
+                if pack:
                     dst.put(i, w)
                 else:
                     dst[i].copy_(w)
@@ -79,8 +83,7 @@ def init_params(seed: int, cfg, device=None,
     layers = {"ln1": torch.ones((n_layers, d), dtype=dt, device=dev),
               "ln2": torch.ones((n_layers, d), dtype=dt, device=dev)}
     for blk, lin in stacks.items():
-        layers[blk] = {name: ({"bsr": s.result((n_layers,))} if gqsa
-                              else {"w": s})
+        layers[blk] = {name: (s.result((n_layers,)) if pack else {"w": s})
                        for name, s in lin.items()}
     return {"embed": embed, "layers": layers,
             "final_norm": torch.ones((d,), dtype=dt, device=dev),
@@ -130,13 +133,27 @@ def unembed(params: Dict, h: torch.Tensor, cfg) -> torch.Tensor:
 
 def init_paged_cache(cfg, num_pages: int, page_size: int,
                      device=None) -> Dict:
-    """Paged KV pool [L, P, ps, KH, D] in the compute dtype, zeroed. The
-    steps below write it in place (the reference updates it functionally)."""
+    """Paged KV pool [L, P, ps, KH, D], zeroed: in the compute dtype, or,
+    with ``cfg.kv_cache_dtype == "int8"``, int8 codes beside f32
+    per-token x head scale pages [L, P, ps, KH]. The steps below write it
+    in place (the reference updates it functionally)."""
     dev = resolve_device(device)
-    dt = cfg.compute_dtype
     shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.hd)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k_pages": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v_pages": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "k_scale_pages": torch.zeros(shape[:-1], dtype=torch.float32,
+                                             device=dev),
+                "v_scale_pages": torch.zeros(shape[:-1], dtype=torch.float32,
+                                             device=dev)}
+    dt = cfg.compute_dtype
     return {"k_pages": torch.zeros(shape, dtype=dt, device=dev),
             "v_pages": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def layer_cache(cache: Dict, i: int) -> Dict:
+    """Layer ``i``'s view of every pool (codes and, int8, scale pages)."""
+    return {k: v[i] for k, v in cache.items()}
 
 
 def prefill(params: Dict, cache: Dict, tokens: torch.Tensor,
@@ -144,7 +161,9 @@ def prefill(params: Dict, cache: Dict, tokens: torch.Tensor,
             plain: bool = False) -> Tuple[torch.Tensor, Dict]:
     """Batched prefill: run the right-padded prompts [B, S] through causal
     attention once and write every layer's K/V into the pool (in place).
-    Padding positions (>= lengths[b]) are masked out of the writes.
+    Padding positions (>= lengths[b]) are masked out of the writes. An
+    int8 pool gets quantized codes and scales; attention itself stays in
+    the compute dtype, as in the reference.
     Returns (logits at each row's last valid token [B, 1, V], cache)."""
     b, s = tokens.shape
     num_pages, page_size = cache["k_pages"].shape[1:3]
@@ -162,8 +181,7 @@ def prefill(params: Dict, cache: Dict, tokens: torch.Tensor,
         o = L.causal_attention(q, k, v)
         h = h + apply_linear(lp["attn"]["wo"], o.reshape(b, s, -1),
                              plain=plain)
-        L.write_pages_(cache["k_pages"][i], write, k)
-        L.write_pages_(cache["v_pages"][i], write, v)
+        L.write_kv_(layer_cache(cache, i), write, k, v)
         hn = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)
         h = h + L.mlp_block(lp["mlp"], hn, cfg.mlp_type, plain)
     last = (lengths.long() - 1).clamp_min(0)
@@ -192,9 +210,9 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     h = embed_tokens(params, tokens, cfg)
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
-        lc = {"k_pages": cache["k_pages"][i], "v_pages": cache["v_pages"][i]}
         hn = L.rmsnorm(h, lp["ln1"], cfg.norm_eps)
-        h = h + L.attention_decode_paged(lp["attn"], hn, lc,
+        h = h + L.attention_decode_paged(lp["attn"], hn,
+                                         layer_cache(cache, i),
                                          step.block_tables, pos, cfg, plain,
                                          step)
         hn = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)

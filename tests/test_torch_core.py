@@ -153,7 +153,7 @@ def test_init_params_packs_layer_by_layer():
                               n_layers=3)
     fp = init_params(7, cfg, "cpu")
     a = compress_params(fp, cfg, GQSAConfig())
-    b = init_params(7, cfg, "cpu", gqsa=GQSAConfig())
+    b = init_params(7, cfg, "cpu", compress=GQSAConfig())
     assert torch.equal(a["embed"], b["embed"])
     assert torch.equal(a["lm_head"]["w"], b["lm_head"]["w"])
     for blk in ("attn", "mlp"):

@@ -29,6 +29,7 @@ from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention_cuda  # noqa: E402
+from repro_torch.kernels.w4_matmul import w4_matmul_cuda  # noqa: E402
 
 from _torch_utils import jax_tree_to_numpy  # noqa: E402
 
@@ -142,5 +143,23 @@ def test_dispatchers_never_fall_back():
     with pytest.raises(ValueError, match="CUDA"):
         paged_attention_cuda(q.reshape(2, 2, 1, 16), kp, vp, lengths, bt,
                              live, 1)
+    # the int8 mode: int8 pages with their scale pages
+    k8, v8 = kp.to(torch.int8), vp.to(torch.int8)
+    ks = vs = torch.ones(kp.shape[:3])
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention_cuda(q.reshape(2, 2, 1, 16), k8, v8, lengths, bt,
+                             live, 1, ks, vs)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.paged_decode_attention(q.to("meta"), k8, v8, lengths, bt, ks, vs)
+    # w4_matmul
+    qw = torch.zeros((16, 32), dtype=torch.uint8)
+    sz = torch.ones((16, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        w4_matmul_cuda(torch.zeros(2, 64), qw, sz, sz, 16)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.w4_matmul(torch.zeros(2, 64, device="meta"), qw, sz, sz,
+                      group_size=16)
     assert gqsa_gemv_cuda.launches == 0
     assert paged_attention_cuda.launches == 0
+    assert paged_attention_cuda.int8_launches == 0
+    assert w4_matmul_cuda.launches == 0

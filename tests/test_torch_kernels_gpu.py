@@ -6,17 +6,19 @@ Marked ``gpu``; each test asks the ``cuda`` fixture for the card, which
 skips when there is none (decided at run time, never at import). The
 kernels build from ``src/repro_torch/csrc`` on first use. Tolerance:
 max-abs error <= 1e-4 of the plain output's max-abs, since both sides run
-f32 products and differ only in summation order over K <= 11008."""
+f32 products (int8 pages and W4 codes dequantized to the same f32 values)
+and differ only in summation order over K <= 11008."""
 import pytest
 import torch
 
 from repro_torch.core.bsr import pack_dense
-from repro_torch.core.gqs_layer import GQSAConfig
+from repro_torch.core.gqs_layer import GQSAConfig, pack_w4
 from repro_torch.core.model_compress import pack_linear
 from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda
 from repro_torch.kernels.paged_attention import paged_attention_cuda
+from repro_torch.kernels.w4_matmul import w4_matmul_cuda
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-4
@@ -70,16 +72,18 @@ def test_gqsa_gemv_kernel_rejects_what_it_does_not_take(cuda):
         gqsa_gemv_cuda(torch.randn((2, 128), device="cuda").half(), bsr)
 
 
-@pytest.mark.parametrize("t", [1, 4])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("kh,r,d", [(32, 1, 128), (4, 2, 64)])
-def test_paged_attention_kernel_matches_plain(cuda, t, dtype, kh, r, d):
+def _attn_case(cuda, t, kh, r, d, dtype):
     b, ps, mp = 5, 16, 6
     num_pages = b * mp + 3
     q = torch.randn((b, t, kh * r, d), generator=cuda, device="cuda")
-    kp = torch.randn((num_pages, ps, kh, d), generator=cuda,
-                     device="cuda").to(dtype)
-    vp = torch.randn_like(kp, dtype=torch.float32).to(dtype)
+    if dtype == torch.int8:
+        kp, vp = (torch.randint(-127, 128, (num_pages, ps, kh, d),
+                                generator=cuda, device="cuda",
+                                dtype=torch.int8) for _ in range(2))
+    else:
+        kp = torch.randn((num_pages, ps, kh, d), generator=cuda,
+                         device="cuda").to(dtype)
+        vp = torch.randn_like(kp, dtype=torch.float32).to(dtype)
     perm = torch.randperm(num_pages, generator=cuda, device="cuda")
     bt = perm[:b * mp].reshape(b, mp).to(torch.int32)
     bt[:, 4:] = num_pages                     # sentinel tails
@@ -88,10 +92,88 @@ def test_paged_attention_kernel_matches_plain(cuda, t, dtype, kh, r, d):
         + torch.arange(t, device="cuda")[None, :]
     lens[3] = 0
     lens[4, 0] = 0                            # a length-0 row
-    lens = lens.to(torch.int32)
+    return q, kp, vp, lens.to(torch.int32), bt
+
+
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kh,r,d", [(32, 1, 128), (4, 2, 64)])
+def test_paged_attention_kernel_matches_plain(cuda, t, dtype, kh, r, d):
+    q, kp, vp, lens, bt = _attn_case(cuda, t, kh, r, d, dtype)
     before = paged_attention_cuda.launches
     o = ops.paged_decode_attention(q, kp, vp, lens, bt)
     assert paged_attention_cuda.launches == before + 1
     ref = ops.paged_decode_attention(q, kp, vp, lens, bt, plain=True)
     _close(o, ref)
     assert (o[3] == 0).all() and (o[4, 0] == 0).all()
+
+
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("kh,r,d", [(32, 1, 128), (4, 2, 64)])
+def test_paged_attention_kernel_int8_matches_plain(cuda, t, kh, r, d):
+    """int8 mode: random codes with positive per-token scales."""
+    q, kp, vp, lens, bt = _attn_case(cuda, t, kh, r, d, torch.int8)
+    ks, vs = (torch.rand(kp.shape[:3], generator=cuda, device="cuda") / 64
+              + 1e-3 for _ in range(2))
+    plain, int8 = (paged_attention_cuda.launches,
+                   paged_attention_cuda.int8_launches)
+    o = ops.paged_decode_attention(q, kp, vp, lens, bt, ks, vs)
+    assert paged_attention_cuda.int8_launches == int8 + 1
+    assert paged_attention_cuda.launches == plain
+    ref = ops.paged_decode_attention(q, kp, vp, lens, bt, ks, vs,
+                                     plain=True)
+    _close(o, ref)
+    assert (o[3] == 0).all() and (o[4, 0] == 0).all()
+
+
+def _w4(cuda, n, k, g):
+    w = torch.randn((n, k), generator=cuda, device="cuda") / k ** 0.5
+    return pack_w4(w, QuantConfig(bits=4, group_size=g))
+
+
+@pytest.mark.parametrize("n,k,g", [(4096, 4096, 16), (11008, 4096, 16),
+                                   (4096, 11008, 16), (300, 512, 128),
+                                   (100, 48, 16), (37, 96, 6)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_w4_matmul_kernel_matches_plain(cuda, n, k, g, dtype):
+    """Full-width shapes, a G128 case, and K that is not a multiple of 64
+    (the byte-load path); T past one 8-row tile and ragged N."""
+    p = _w4(cuda, n, k, g)
+    for t in (1, 4, 5, 8, 13, 200):
+        x = torch.randn((t, k), generator=cuda, device="cuda").to(dtype)
+        before = w4_matmul_cuda.launches
+        y = ops.w4_matmul(x, p["qw"], p["scale"], p["zero"], group_size=g)
+        assert w4_matmul_cuda.launches == before + 1
+        assert y.shape == (t, n) and y.dtype == torch.float32
+        _close(y, ops.w4_matmul(x, p["qw"], p["scale"], p["zero"],
+                                group_size=g, plain=True))
+
+
+def test_w4_matmul_kernel_misaligned_codes(cuda):
+    """qw that is not 16-byte aligned takes the byte-load path."""
+    p = _w4(cuda, 64, 256, 16)
+    buf = torch.empty(64 * 128 + 1, dtype=torch.uint8, device="cuda")
+    qw = buf[1:].view(64, 128)
+    qw.copy_(p["qw"])
+    x = torch.randn((3, 256), generator=cuda, device="cuda")
+    _close(ops.w4_matmul(x, qw, p["scale"], p["zero"], group_size=16),
+           ops.w4_matmul(x, p["qw"], p["scale"], p["zero"], group_size=16,
+                         plain=True))
+
+
+def test_w4_matmul_kernel_rejects_what_it_does_not_take(cuda):
+    p = _w4(cuda, 64, 128, 16)
+    args = (p["qw"], p["scale"], p["zero"], 16)
+    before = w4_matmul_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        w4_matmul_cuda(torch.randn((2, 128)), *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        w4_matmul_cuda(torch.randn((128, 4), device="cuda").T, *args)
+    with pytest.raises(TypeError):
+        w4_matmul_cuda(torch.randn((2, 128), device="cuda").half(), *args)
+    with pytest.raises(ValueError, match="group size"):
+        w4_matmul_cuda(torch.randn((2, 128), device="cuda"), p["qw"],
+                       p["scale"], p["zero"], 7)
+    with pytest.raises(ValueError, match="shape"):
+        w4_matmul_cuda(torch.randn((2, 64), device="cuda"), *args)
+    assert w4_matmul_cuda.launches == before
