@@ -22,7 +22,20 @@ Phases (any failure exits non-zero before the result line is printed):
      serves 8 requests x 32 new tokens on 4 slots;
   8. the same model check for the dense-W4 baseline (packed on the card);
   9. the main paths of the serve CLI at full width, 4 slots, 8 requests x
-     32 new tokens: ``--compress gqsa``, then ``--compress w4``.
+     32 new tokens: ``--compress gqsa``, then ``--compress w4``;
+ 10. the tree mode of paged attention against its plain version at full
+     width (bf16, f32 and int8 pages; the verify blocks of fanouts
+     (4, 2, 2), (2, 2, 2, 2), the chain (1, 1, 1, 1) and (1,), the
+     draft's level calls, a window narrower than T; slots of length 0),
+     and its timing at the verify shape (B=4, T=29, lengths ~64 and ~256);
+ 11. speculation against no speculation at full width in f32 compute, in
+     the engine (GQSA target): chain K=4 with draft w4s50, tree (4, 2, 2)
+     with w4s50 and with w4l25; greedy tokens equal, where they differ
+     only at a top-2 margin under the stated bound;
+ 12. the speculative main paths of the serve CLI at full width, bf16:
+     ``--spec 4 --draft-profile w4s75``, ``--spec-tree 4,2,2
+     --draft-profile w4l25`` and ``--spec-tree 4,2,2 --spec-adaptive
+     --draft-profile w4s75``.
 Each main path is driven with every kernel's launch count set to 0 just
 before it and read just after. The line before the last is a JSON object
 with every kernel's numbers; the last line is {"ok": true, "device": {...}}.
@@ -56,6 +69,12 @@ LOGITS_TOL_BF16 = 5e-2
 # by one step (1/127 of the row's amax), which 32 random layers amplify
 # (measured 1.0e-3 on an H100); bf16 keeps its bar
 LOGITS_TOL_INT8_F32 = 1e-2
+# speculative vs plain greedy tokens (f32 compute): the verify feeds up to
+# 29 rows where plain decode feeds one, so sums run in another order; a
+# token may differ only where the plain run's top-2 logit margin is under
+# twice the f32 logits bar (the near-tie rule of the CPU tests, scaled to
+# the logits' magnitude)
+SPEC_MARGIN_REL = 2 * LOGITS_TOL_F32
 SEED = 0
 
 
@@ -466,6 +485,7 @@ def reset_launches():
     gqsa_gemv_cuda.launches = 0
     paged_attention_cuda.launches = 0
     paged_attention_cuda.int8_launches = 0
+    paged_attention_cuda.tree_launches = 0
     w4_matmul_cuda.launches = 0
 
 
@@ -476,7 +496,8 @@ def read_launches():
     return {"gqsa_gemv": gqsa_gemv_cuda.launches,
             "paged_attention": paged_attention_cuda.launches,
             "w4_matmul": w4_matmul_cuda.launches,
-            "paged_attention_int8": paged_attention_cuda.int8_launches}
+            "paged_attention_int8": paged_attention_cuda.int8_launches,
+            "paged_attention_tree": paged_attention_cuda.tree_launches}
 
 
 def phase_model_gqsa():
@@ -635,8 +656,278 @@ def phase_serve(compress):
     other = "w4_matmul" if compress == "gqsa" else "gqsa_gemv"
     require(launches[linear] > 0 and launches["paged_attention"] > 0,
             f"{linear} and paged attention launched on the main path")
-    require(launches[other] == 0 and launches["paged_attention_int8"] == 0,
-            f"no {other} or int8-mode launch on the {compress} path")
+    require(launches[other] == 0 and launches["paged_attention_int8"] == 0
+            and launches["paged_attention_tree"] == 0,
+            f"no {other}, int8- or tree-mode launch on the {compress} path")
+    return launches
+
+
+def _tree_case(b, fanout, lvl, dtype, g, window=None):
+    """Full-width tree block: the verify block of ``fanout`` (lvl 0) or
+    the draft's level-``lvl`` call, over the pool of :func:`_attn_case`.
+    Slot bases are ragged; slot 3 is all-sentinel with length 0, slot 4
+    has a real table row but length 0. ``window`` overrides the block's
+    window (narrower than T)."""
+    from repro_torch.engine.spec import TreeTemplate
+    tpl = TreeTemplate(fanout)
+    spec = tpl.level_tree(lvl, "cuda") if lvl else tpl.verify_tree("cuda")
+    t = spec["anc"].shape[0]
+    win = spec["window"] if window is None else window
+    base = torch.tensor([1, 37, 255 - win, 0, 0, 129][:b],
+                        dtype=torch.int32)
+    lens = (base + win)[:, None].expand(b, t).contiguous()
+    if b > 4:
+        lens[3:5] = 0
+    q, kp, vp, lq, bt, ks, vs = _attn_case(b, t, lens, dtype, g)
+    if b > 4:
+        bt[4, :2] = bt[1, :2]
+    anc = spec["anc"][None].expand(b, t).contiguous()
+    return q, kp, vp, lq, bt, ks, vs, anc, base.to("cuda"), win
+
+
+TREE_CASES = [((4, 2, 2), 0, None), ((4, 2, 2), 1, None),
+              ((4, 2, 2), 2, None), ((2, 2, 2, 2), 0, None),
+              ((1, 1, 1, 1), 0, None), ((1,), 0, None), ((1, 1, 1, 1), 0, 3)]
+
+
+def phase_tree_check():
+    """The tree mode against its plain version at full width (KH=32,
+    D=128, ps=16): T in {2, 4, 5, 8, 29, 31}, windows equal to T, wider
+    (the draft's level calls) and narrower; every page type. Returns the
+    worst max-abs error."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    worst = 0.0
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+        for fanout, lvl, window in TREE_CASES:
+            q, kp, vp, lq, bt, ks, vs, anc, base, win = _tree_case(
+                6, fanout, lvl, dtype, g, window)
+            before = paged_attention_cuda.tree_launches
+            o = ops.paged_decode_attention(q, kp, vp, lq, bt, ks, vs,
+                                           anc=anc, anc_base=base,
+                                           anc_window=win)
+            ref = ops.paged_decode_attention(q, kp, vp, lq, bt, ks, vs,
+                                             anc=anc, anc_base=base,
+                                             anc_window=win, plain=True)
+            torch.cuda.synchronize()
+            require(paged_attention_cuda.tree_launches == before + 1,
+                    "one tree-mode launch")
+            require(bool((o[3:5] == 0).all()), "length-0 rows are zeros")
+            require(bool(torch.isfinite(o).all()), "tree attention finite")
+            err = (o - ref).abs().max().item()
+            rel = err / ref.abs().max().item()
+            worst = max(worst, err)
+            log(f"[tree check] pages={str(dtype)[6:]} fanout={fanout} "
+                f"{'verify' if lvl == 0 else f'level {lvl}'} T={q.shape[1]} "
+                f"window={win} KH=32 D=128 ps=16: max_abs_err {err:.3e} "
+                f"rel {rel:.3e}")
+            require(rel <= TOL, f"paged_attention (tree) disagrees: rel {rel}")
+    return worst
+
+
+def phase_tree_timing(timer):
+    """The tree mode at the verify shape of fanout (4, 2, 2): B=4, KH=32,
+    D=128, ps=16, T=29, bf16 pages, lengths (base + 29) about 64 and 256;
+    beside it the same slots at T=16 (one row group), the plain version,
+    SDPA with the boolean ancestor mask on pre-gathered K/V, and the
+    bound."""
+    import torch.nn.functional as F
+    from repro_torch.engine.spec import TreeTemplate
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.models.layers import ancestor_mask
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    b, kh, d = 4, 32, 128
+    tpl = TreeTemplate((4, 2, 2))
+    spec = tpl.verify_tree("cuda")
+    t, win = spec["anc"].shape[0], spec["window"]
+    out = None
+    for label, bases in (("~64", [35, 40, 31, 38]),
+                         ("~256", [227, 220, 225, 210])):
+        base = torch.tensor(bases, dtype=torch.int32)
+        lens = (base + win)[:, None].expand(b, t).contiguous()
+        q, kp, vp, lq, bt, _, _ = _attn_case(b, t, lens, torch.bfloat16, g)
+        base = base.to("cuda")
+        anc = spec["anc"][None].expand(b, t).contiguous()
+        tot = int(lens[:, 0].sum())
+        nbytes = (2 * tot * kh * d * 2 + 2 * b * t * kh * d * 4
+                  + b * t * 8 + b * 4)
+        bound = _bound_ms(nbytes, 4 * t * tot * kh * d)
+        lq2, live = ops.paged_query_prep(lq, bt, b, t, kp.shape[1])
+        qh = q.permute(0, 2, 1, 3).contiguous()        # [B, KH, T, D]
+        t_k = timer.ms(lambda: paged_attention_cuda(
+            qh, kp, vp, lq2, bt, live, t, anc=anc, anc_base=base,
+            window=win))
+        q16 = qh[:, :, :16].contiguous()
+        t_16 = timer.ms(lambda: paged_attention_cuda(
+            q16, kp, vp, lq2[:, :16].contiguous(), bt, live, 16,
+            anc=anc[:, :16].contiguous(), anc_base=base, window=win))
+        t_p = timer.ms(lambda: ops.paged_decode_attention(
+            q, kp, vp, lq, bt, anc=anc, anc_base=base, anc_window=win,
+            plain=True))
+        smax = int(lens.max())
+        bti = bt.clamp(max=kp.shape[0] - 1).long()
+        kk, vv = (pg[bti].reshape(b, -1, kh, d)[:, :smax].permute(0, 2, 1, 3)
+                  .contiguous() for pg in (kp, vp))
+        mask = ancestor_mask(lq, anc, base, win, b, t, smax)[:, None]
+        qs = qh.to(torch.bfloat16)
+        t_l = timer.ms(lambda: F.scaled_dot_product_attention(
+            qs, kk, vv, attn_mask=mask))
+        log(f"[tree time] verify (4,2,2) T={t} lengths {label} "
+            f"({lens[:, 0].tolist()}) B=4 KH=32 D=128 bf16 pages: kernel "
+            f"{t_k * 1e3:.1f}us (T=16, one row group: {t_16 * 1e3:.1f}us) "
+            f"plain {t_p * 1e3:.1f}us sdpa(mask) {t_l * 1e3:.1f}us bound "
+            f"{bound * 1e3:.2f}us ({nbytes / 1e6:.2f} MB) -> "
+            f"{bound / t_k:.0%} of bound")
+        if out is None:
+            out = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound)
+    return out
+
+
+def greedy_margin(params, cfg, prompt, tokens, at):
+    """Top-2 logit margin and max |logit| of the plain (non-speculative)
+    path at generated token ``at`` of ``tokens`` after ``prompt``,
+    teacher-forced through prefill and decode steps."""
+    from repro_torch.models import transformer as tf
+    n_pages = -(-(len(prompt) + len(tokens)) // 16)
+    cache = tf.init_paged_cache(cfg, n_pages, 16, device="cuda")
+    bt = torch.arange(n_pages, dtype=torch.int32, device="cuda")[None]
+    logits, _ = tf.prefill(params, cache,
+                           torch.from_numpy(prompt)[None].to("cuda"),
+                           torch.tensor([len(prompt)], device="cuda"), bt,
+                           cfg)
+    for i in range(at):
+        logits, _ = tf.decode_step(
+            params, cache, torch.tensor([[int(tokens[i])]], device="cuda"),
+            torch.tensor([len(prompt) + i], dtype=torch.int32,
+                         device="cuda"), cfg, bt)
+    row = logits[0, -1].float()
+    top2 = row.topk(2).values
+    return float(top2[0] - top2[1]), float(row.abs().max())
+
+
+def _engine_run(cfg, params, draft=None, **spec):
+    from repro_torch.engine import EngineConfig, InferenceEngine
+    from repro_torch.launch.serve import make_requests
+    prompts = make_requests(8, cfg.vocab, np.random.default_rng(SEED))
+    reset_launches()
+    t0 = time.time()
+    eng = InferenceEngine(cfg, params, EngineConfig(
+        num_slots=4, max_seq=256, seed=SEED, device="cuda", **spec),
+        draft_params=draft)
+    rids = [eng.submit(p, 32) for p in prompts]
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    by = {r["rid"]: r["tokens"] for r in res["results"]}
+    require(len(by) == 8 and all(len(by[r]) == 32 for r in rids),
+            "8 requests x 32 tokens")
+    return prompts, [by[r] for r in rids], eng, read_launches(), wall
+
+
+def phase_spec_engine():
+    """Speculation against no speculation, full-width GQSA W4 S50 G16 in
+    f32 compute, in the engine (8 requests x 32 tokens, 4 slots)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.gqs_layer import GQSAConfig
+    from repro_torch.core.model_compress import draft_layers
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_config("llama2_7b"), dtype="float32")
+    runs = [("chain K=4, draft w4s50", "w4s50", dict(spec_k=4)),
+            ("tree (4,2,2), draft w4s50", "w4s50",
+             dict(spec_fanout=(4, 2, 2))),
+            ("tree (4,2,2), draft w4l25", "w4l25",
+             dict(spec_fanout=(4, 2, 2)))]
+    plain = None
+    for label, profile, spec in runs:
+        params, draft = tf.init_params_and_draft(
+            SEED, cfg, profile, "cuda", compress=GQSAConfig())
+        if plain is None:
+            prompts, plain, _, _, wall = _engine_run(cfg, params)
+            log(f"[spec engine f32] no speculation: wall {wall:.1f}s")
+        _, got, eng, launches, wall = _engine_run(
+            cfg, params, draft, spec_draft_layers=draft_layers(cfg, profile),
+            **spec)
+        m = eng.metrics.summary()
+        mism, worst = 0, 0.0
+        for i, (a, b) in enumerate(zip(got, plain)):
+            diff = np.flatnonzero(a != b)
+            if len(diff) == 0:
+                continue
+            mism += 1
+            at = int(diff[0])
+            margin, scale = greedy_margin(params, cfg, prompts[i], b, at)
+            worst = max(worst, margin / scale)
+            log(f"[spec engine f32] {label}: request {i} first differs at "
+                f"token {at}: plain top-2 margin {margin:.4e} (max |logit| "
+                f"{scale:.3f}, rel {margin / scale:.2e})")
+            require(margin <= SPEC_MARGIN_REL * scale,
+                    f"{label}: tokens differ at a clear top-2 margin "
+                    f"(rel {margin / scale:.2e} > {SPEC_MARGIN_REL})")
+        log(f"[spec engine f32] {label}: {mism} of 8 requests differ from "
+            f"no speculation (margin bound {SPEC_MARGIN_REL:.0e} x max "
+            f"|logit|); acceptance {m['acceptance_rate']:.1%}, "
+            f"{m['spec_rounds']} rounds, accepted drafts per slot-round "
+            f"{m['accepted_len_mean']:.2f}; wall {wall:.1f}s; launches "
+            f"{launches}")
+        tree = "spec_fanout" in spec
+        require((launches["paged_attention_tree"] > 0) == tree,
+                "tree mode launched exactly on the tree runs")
+        require(launches["gqsa_gemv"] > 0, "gqsa_gemv launched")
+        del params, draft, eng
+        torch.cuda.empty_cache()
+
+
+SPEC_SERVE = {
+    "chain serve": ["--spec", "4", "--draft-profile", "w4s75"],
+    "tree serve": ["--spec-tree", "4,2,2", "--draft-profile", "w4l25"],
+    "adaptive tree serve": ["--spec-tree", "4,2,2", "--spec-adaptive",
+                            "--draft-profile", "w4s75"],
+}
+
+
+def phase_serve_spec(label):
+    """A speculative main path: the serve CLI at full width, bf16, GQSA
+    target, 4 slots, 8 requests x 32 new tokens."""
+    from repro_torch.launch import serve
+    argv = ["--full", "--compress", "gqsa", "--slots", "4", "--requests",
+            "8", "--max-new", "32", "--max-seq", "256", "--seed",
+            str(SEED)] + SPEC_SERVE[label]
+    buf = io.StringIO()
+    reset_launches()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        res = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches()
+    for line in buf.getvalue().splitlines():
+        log(f"[{label}] {line}")
+    rounds = max(res["spec_rounds"], 1)
+    log(f"[{label}] {' '.join(SPEC_SERVE[label])}: wall {wall:.1f}s (init + "
+        f"pack + serve); acceptance {res['acceptance_rate']:.1%}; "
+        f"launches {launches} ({launches['gqsa_gemv'] / rounds:.0f} "
+        f"gqsa_gemv, {launches['w4_matmul'] / rounds:.0f} w4_matmul, "
+        f"{launches['paged_attention_tree'] / rounds:.0f} tree-mode and "
+        f"{launches['paged_attention'] / rounds:.0f} plain-mode attention "
+        f"per round)")
+    require(len(res["results"]) == 8, "all 8 requests answered")
+    require(all(len(r["tokens"]) == 32 for r in res["results"]),
+            "every request got 32 tokens")
+    require(res["spec_rounds"] > 0, "speculative rounds ran")
+    require(launches["gqsa_gemv"] > 0, "gqsa_gemv launched")
+    if label == "chain serve":
+        require(launches["paged_attention"] > 0
+                and launches["paged_attention_tree"] == 0,
+                "the chain runs the plain mode, no tree mode")
+    else:
+        require(launches["paged_attention_tree"] > 0,
+                "the tree mode launched on the tree path")
+    if "w4l25" in SPEC_SERVE[label]:
+        require(launches["w4_matmul"] > 0, "the dense-W4 draft ran "
+                                           "w4_matmul")
     return launches
 
 
@@ -659,6 +950,11 @@ KERNELS = {
         replaces="src/repro/kernels/paged_attention.py:181",
         unit="one layer's decode attention: 4 slots, lengths 20/25/31/29, "
              "KH=32, D=128, int8 pages + f32 scales"),
+    "paged_attention_tree": dict(
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:181",
+        unit="one layer's tree verify attention, fanout (4,2,2): 4 slots, "
+             "T=29, lengths ~64, KH=32, D=128, bf16 pages"),
 }
 
 
@@ -675,7 +971,10 @@ def main() -> int:
     errs["paged_attention"] = attn["plain"]
     errs["paged_attention_int8"] = attn["int8"]
     errs["w4_matmul"] = phase_w4_check()
-    times = phase_timing(Timer())
+    errs["paged_attention_tree"] = phase_tree_check()
+    timer = Timer()
+    times = phase_timing(timer)
+    times["paged_attention_tree"] = phase_tree_timing(timer)
     torch.cuda.empty_cache()
     # each main path's launches, counted from 0 just before it
     launches = {"int8-kv engine": phase_model_gqsa()}
@@ -685,9 +984,15 @@ def main() -> int:
     launches["gqsa serve"] = phase_serve("gqsa")
     torch.cuda.empty_cache()
     launches["w4 serve"] = phase_serve("w4")
+    torch.cuda.empty_cache()
+    phase_spec_engine()
+    for label in SPEC_SERVE:
+        torch.cuda.empty_cache()
+        launches[label] = phase_serve_spec(label)
     path_of = {"gqsa_gemv": "gqsa serve", "paged_attention": "gqsa serve",
                "w4_matmul": "w4 serve",
-               "paged_attention_int8": "int8-kv engine"}
+               "paged_attention_int8": "int8-kv engine",
+               "paged_attention_tree": "tree serve"}
     kernels = [dict(name=k, route="cuda", source=v["source"],
                     replaces=v["replaces"],
                     launches=launches[path_of[k]][k],

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import importlib
+from typing import List
 
 from repro_torch.configs.base import ModelConfig
 
@@ -20,3 +21,10 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
             f"ROADMAP A.12)")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.reduced() if reduced else mod.full()
+
+
+def list_draft_profiles() -> List[str]:
+    """Draft compression profiles for speculative decoding (the serve
+    CLI's --draft-profile choices)."""
+    from repro_torch.core.model_compress import DRAFT_PROFILES
+    return sorted(DRAFT_PROFILES)

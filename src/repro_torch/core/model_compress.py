@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.core.bsr import BSRMatrix, pack_dense
 from repro_torch.core.gqs_layer import GQSAConfig, pack_w4
-from repro_torch.core.pruning import group_mask
+from repro_torch.core.pruning import PruneConfig, group_mask
 from repro_torch.core.quant import QuantConfig
 from repro_torch.core.saliency import group_saliency, magnitude_saliency
 
@@ -136,3 +136,66 @@ def compress_params(params: Dict, cfg, gqsa: GQSAConfig) -> Dict:
 def compress_params_w4(params: Dict, cfg, qcfg: QuantConfig) -> Dict:
     """Quantization-only baseline (dense W4, no pruning)."""
     return _walk(params, "", lambda node: _pack_stacked(node["w"], qcfg))
+
+
+# ---------------------------------------------------------------------------
+# Draft profiles (self-speculative decoding): one FP checkpoint yields both
+# the deployed target compression and a more aggressive draft compression.
+# The verify step keeps the served distribution exactly the target's, so a
+# profile only trades acceptance rate against draft cost.
+# ---------------------------------------------------------------------------
+
+DRAFT_PROFILES: Dict[str, Dict] = {
+    # dense 4-bit (no pruning): near-target quality, highest acceptance
+    "w4": dict(bits=4, sparsity=0.0),
+    # the paper's deployed setting: as a draft it accepts ~everything
+    "w4s50": dict(bits=4, sparsity=0.5),
+    # settings too lossy to serve, which a drafter may be
+    "w4s75": dict(bits=4, sparsity=0.75),
+    "w2s50": dict(bits=2, sparsity=0.5),
+    "w2s75": dict(bits=2, sparsity=0.75),
+    # depth-pruned (the first 12.5% / 25% / 50% of layers; the shallow
+    # exit shares the target's final norm and unembedding)
+    "w4l12": dict(bits=4, sparsity=0.0, depth=0.125),
+    "w4l25": dict(bits=4, sparsity=0.0, depth=0.25),
+    "w4l50": dict(bits=4, sparsity=0.0, depth=0.5),
+    "w4s50l50": dict(bits=4, sparsity=0.5, depth=0.5),
+}
+
+
+def draft_layers(cfg, profile: str) -> int:
+    """Drafter depth of a profile (>= 1; the full depth without one)."""
+    try:
+        spec = DRAFT_PROFILES[profile]
+    except KeyError:
+        raise ValueError(f"unknown draft profile {profile!r}; "
+                         f"known: {sorted(DRAFT_PROFILES)}") from None
+    return max(1, int(round(cfg.n_layers * spec.get("depth", 1.0))))
+
+
+def draft_compression(profile: str, group_size: int = 16) -> Compression:
+    """The packing of a profile: dense W<bits> at sparsity 0, else GQSA
+    at the profile's (bits, sparsity)."""
+    spec = DRAFT_PROFILES[profile]
+    quant = QuantConfig(bits=spec["bits"], group_size=group_size)
+    if spec["sparsity"] <= 0.0:
+        return quant
+    return GQSAConfig(quant=quant, prune=PruneConfig(
+        sparsity=spec["sparsity"], group_size=group_size))
+
+
+def compress_draft(params: Dict, cfg, profile: str = "w4s75",
+                   group_size: int = 16) -> Dict:
+    """FP param tree -> the draft-profile parameter set of the same
+    checkpoint: depth profiles keep the leading ``draft_layers`` layer
+    slices (embed, final norm and lm_head stay shared), then pack with
+    :func:`draft_compression`. A depth-pruned draft runs at
+    ``draft_layers(cfg, profile)`` layers (``EngineConfig.
+    spec_draft_layers``). ``models/transformer.py:init_params`` packs the
+    same draft from the weights as they are drawn (``draft=``)."""
+    dl = draft_layers(cfg, profile)
+    if dl < cfg.n_layers:
+        params = dict(params, layers=_map(params["layers"],
+                                          lambda t: t[:dl]))
+    return _walk(params, "", lambda node: _pack_stacked(
+        node["w"], draft_compression(profile, group_size)))

@@ -1,9 +1,11 @@
-// Paged decode attention (plain and int8 modes) for Hopper (sm_90a).
+// Paged decode attention (plain, int8 and tree modes) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel
 // src/repro/kernels/paged_attention.py:paged_attention_pallas in its plain
-// mode (bf16/f32 pages) and its int8 mode (int8 pages with f32 per-token
-// scales); the tree and latent modes are not ported yet.
+// mode (bf16/f32 pages), its int8 mode (int8 pages with f32 per-token
+// scales) and its tree mode (ancestor bitmaps over the fed window, which
+// token-tree speculation runs at every draft level and verify); the latent
+// mode is not ported yet.
 //
 // Attention computed in place on the paged KV pool, with no dense page
 // gather. Layouts (one layer's view of the pool):
@@ -14,6 +16,10 @@
 //   lengths      [B, T] int32         query t sees positions < lengths[b,t]
 //   block_tables [B, MP] int32        page ids; entries >= P are sentinels
 //   live         [B] int32            pages to visit (ceil(max_t len / PS))
+//   anc          [B, T] int32         tree mode only (null otherwise): for
+//   anc_base     [B] int32            a position s with 0 <= s - anc_base[b]
+//   window       int                  < window, query t also needs bit
+//                                     s - anc_base[b] of anc[b, t]
 //   out          [B, KH, TR, D] f32
 // Scale 1/sqrt(D). A row whose length is 0 returns exact zeros.
 //
@@ -21,27 +27,42 @@
 // for 2*TR flops per operand, far below the f32 flop/byte balance, so the
 // floor is the live K/V bytes (int8: codes plus scales) over 3.35 TB/s.
 //
-// Design: one block per (slot, KV head), which loads its own block-table
-// row and walks the slot's live pages in order with an online softmax
-// (the TPU grid's sequential page axis becomes a loop in the block, since
-// blocks carry nothing between each other). Each page's [PS, D] K and V
-// tiles are fetched with coalesced 16-byte loads (a head's D values are
-// contiguous in the pool), all issued at once into registers, so a page
-// costs one memory round trip; the next page's loads are issued before
-// the current page is computed, hiding that trip. Tiles are kept in
-// shared memory as f32; warps compute the TR x PS scores with lane-split
-// dot products and the softmax statistics with one warp per row; thread
-// d owns output column d of every row. Sentinel pages are clamped to P-1
-// and masked by length, as the TPU kernel does. The -inf guards of the
-// TPU kernel are kept, so a fully masked row ends with l = 0 and writes 0.
+// Design: one block per (slot, KV head, group of at most kMaxRows query
+// rows), which loads its own block-table row and walks the slot's live
+// pages in order with an online softmax (the TPU grid's sequential page
+// axis becomes a loop in the block, since blocks carry nothing between
+// each other). Each page's [PS, D] K and V tiles are fetched with
+// coalesced 16-byte loads (a head's D values are contiguous in the pool),
+// all issued at once into registers, so a page costs one memory round
+// trip; the next page's loads are issued before the current page is
+// computed, hiding that trip. Tiles are kept in shared memory as f32;
+// warps compute the rows x PS scores with lane-split dot products and the
+// softmax statistics with one warp per row; thread d owns output column d
+// of every row. Sentinel pages are clamped to P-1 and masked by length, as
+// the TPU kernel does. The -inf guards of the TPU kernel are kept, so a
+// fully masked row ends with l = 0 and writes 0.
 // In int8 mode a 16-byte vector holds 16 codes of one token, and the
 // token's K and V scales are loaded with it; each code is dequantised as
 // code * scale while the tile is staged, before the f32 contractions, as
 // the TPU kernel's body does (the reference's jnp path instead
 // re-quantises q and the softmax weights for int8 x int8 products: not
-// this kernel's math). Fewer blocks than SMs at small batch (4 slots x 32
-// heads = 128 blocks) is accepted here: a split over pages with a combine
-// step is later work.
+// this kernel's math).
+// Tree mode is the same walk with one more mask term: each row's ancestor
+// bitmap and the slot's window base are loaded once per block, and a
+// position inside the fed window is visible only if the row's bit for it
+// is set (the shift stays in 0..31). It runs on every page type.
+// Row groups: the TPU kernel takes any T*R rows; here the per-thread
+// accumulator holds kMaxRows rows (about 128 registers, no spill), so a
+// block takes at most kMaxRows rows and a third grid axis covers the rest.
+// Every group walks its slot's pages, so K/V are read once per group: a
+// tree verify of T = 29 rows at R = 1 reads them twice. The groups run as
+// separate blocks at the same time and the second read mostly hits L2: on
+// an H100 (700 W) T = 29 took 1-2% longer than T = 16 at the same lengths
+// (PERF.md). What does cost is the work per page of a 16-row block (one
+// warp reduction per row and position, at 1-2 blocks per SM): 7-8x
+// the T = 1 time per page.
+// Fewer blocks than SMs at small batch (4 slots x 32 heads = 128 blocks)
+// is accepted here: a split over pages with a combine step is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,7 +73,7 @@
 
 namespace {
 
-constexpr int kMaxRows = 16;  // TR = T * R rows per (slot, KV head)
+constexpr int kMaxRows = 16;  // query rows per block (a row group)
 constexpr int kStage = 8;     // 16-byte vectors per thread per K/V tile
 
 __device__ __forceinline__ void unpack16(const uint4& u, float* o, float) {
@@ -101,10 +122,15 @@ __global__ void paged_attention_kernel(
     const Page* __restrict__ v_pages, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int32_t* __restrict__ lengths,
     const int32_t* __restrict__ block_tables,
-    const int32_t* __restrict__ live, float* __restrict__ out, int KH,
-    int TR, int T, int D, int P, int PS, int MP, float scale) {
+    const int32_t* __restrict__ live, const int32_t* __restrict__ anc,
+    const int32_t* __restrict__ anc_base, int window,
+    float* __restrict__ out, int KH, int TR, int T, int D, int P, int PS,
+    int MP, float scale) {
   const int b = blockIdx.x;
   const int kh = blockIdx.y;
+  const int r0 = blockIdx.z * kMaxRows;      // this block's row group
+  const int nr = min(kMaxRows, TR - r0);
+  const bool tree = anc != nullptr;
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int lane = tid & 31;
@@ -113,21 +139,26 @@ __global__ void paged_attention_kernel(
   const int R = TR / T;
 
   extern __shared__ float smem[];
-  float* q_s = smem;              // [TR, D]
-  float* k_s = q_s + TR * D;      // [PS, D]
+  float* q_s = smem;              // [nr, D]
+  float* k_s = q_s + nr * D;      // [PS, D]
   float* v_s = k_s + PS * D;      // [PS, D]
-  float* p_s = v_s + PS * D;      // [TR, PS] scores, then probabilities
-  float* m_s = p_s + TR * PS;     // [TR] running max
-  float* l_s = m_s + TR;          // [TR] running denominator
-  float* c_s = l_s + TR;          // [TR] this page's correction factor
+  float* p_s = v_s + PS * D;      // [nr, PS] scores, then probabilities
+  float* m_s = p_s + nr * PS;     // [nr] running max
+  float* l_s = m_s + nr;          // [nr] running denominator
+  float* c_s = l_s + nr;          // [nr] this page's correction factor
   __shared__ int len_s[kMaxRows];
+  __shared__ int anc_s[kMaxRows];  // tree mode: each row's ancestor bits
+  const int base = tree ? anc_base[b] : 0;
 
-  const float* qb = q + (static_cast<size_t>(b) * KH + kh) * TR * D;
-  for (int e = tid; e < TR * D; e += nthreads) q_s[e] = qb[e];
-  if (tid < TR) {
+  const size_t row0 = (static_cast<size_t>(b) * KH + kh) * TR + r0;
+  const float* qb = q + row0 * D;
+  for (int e = tid; e < nr * D; e += nthreads) q_s[e] = qb[e];
+  if (tid < nr) {
+    const int t = (r0 + tid) / R;
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
-    len_s[tid] = lengths[b * T + tid / R];
+    len_s[tid] = lengths[b * T + t];
+    anc_s[tid] = tree ? anc[b * T + t] : 0;
   }
   float acc[kMaxRows];
 #pragma unroll
@@ -198,7 +229,7 @@ __global__ void paged_attention_kernel(
     __syncthreads();
     if (pi + 1 < n_live) fetch(pi + 1);
 
-    for (int pr = warp; pr < TR * PS; pr += nwarps) {
+    for (int pr = warp; pr < nr * PS; pr += nwarps) {
       const int r = pr / PS;
       const int s = pr - r * PS;
       float dot = 0.f;
@@ -207,13 +238,21 @@ __global__ void paged_attention_kernel(
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      if (lane == 0)
-        p_s[pr] = (pi * PS + s < len_s[r]) ? dot * scale : -INFINITY;
+      if (lane == 0) {
+        const int pos = pi * PS + s;
+        bool ok = pos < len_s[r];
+        if (tree) {  // inside the fed window only the row's ancestors
+          const int fed = pos - base;
+          if (fed >= 0 && fed < window)
+            ok = ok && ((anc_s[r] >> min(fed, 31)) & 1);
+        }
+        p_s[pr] = ok ? dot * scale : -INFINITY;
+      }
     }
     __syncthreads();
 
     // online softmax statistics: one warp per row, lanes over positions
-    for (int r = warp; r < TR; r += nwarps) {
+    for (int r = warp; r < nr; r += nwarps) {
       float* row = p_s + r * PS;
       const float m_old = m_s[r];
       float mx = -INFINITY;
@@ -244,7 +283,7 @@ __global__ void paged_attention_kernel(
     if (tid < D) {
 #pragma unroll
       for (int r = 0; r < kMaxRows; ++r) {
-        if (r < TR) {
+        if (r < nr) {
           float a = acc[r] * c_s[r];
           for (int s = 0; s < PS; ++s)
             a = fmaf(p_s[r * PS + s], v_s[s * D + tid], a);
@@ -256,20 +295,21 @@ __global__ void paged_attention_kernel(
   }
 
   if (tid < D) {
-    float* ob = out + (static_cast<size_t>(b) * KH + kh) * TR * D;
+    float* ob = out + row0 * D;
 #pragma unroll
     for (int r = 0; r < kMaxRows; ++r)
-      if (r < TR) ob[r * D + tid] = acc[r] / fmaxf(l_s[r], 1e-30f);
+      if (r < nr) ob[r * D + tid] = acc[r] / fmaxf(l_s[r], 1e-30f);
   }
 }
 
 template <typename Page>
 void launch(const void* q, const void* k_pages, const void* v_pages,
             const void* k_scales, const void* v_scales, const void* lengths,
-            const void* block_tables, const void* live, void* out, int B,
-            int KH, int TR, int T, int D, int P, int PS, int MP, int threads,
+            const void* block_tables, const void* live, const void* anc,
+            const void* anc_base, int window, void* out, int B, int KH,
+            int TR, int T, int D, int P, int PS, int MP, int threads,
             size_t smem, cudaStream_t s) {
-  const dim3 grid(B, KH);
+  const dim3 grid(B, KH, (TR + kMaxRows - 1) / kMaxRows);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   paged_attention_kernel<Page><<<grid, threads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const Page*>(k_pages),
@@ -277,41 +317,46 @@ void launch(const void* q, const void* k_pages, const void* v_pages,
       static_cast<const float*>(v_scales),
       static_cast<const int32_t*>(lengths),
       static_cast<const int32_t*>(block_tables),
-      static_cast<const int32_t*>(live), static_cast<float*>(out), KH, TR,
-      T, D, P, PS, MP, scale);
+      static_cast<const int32_t*>(live), static_cast<const int32_t*>(anc),
+      static_cast<const int32_t*>(anc_base), window,
+      static_cast<float*>(out), KH, TR, T, D, P, PS, MP, scale);
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
 // page_kind: 0 f32 pages, 1 bf16 pages, 2 int8 pages with f32 scales
-// (k_scales/v_scales, null in the other modes).
+// (k_scales/v_scales, null in the other modes). anc/anc_base non-null
+// select the tree mode (with the fed window's width), on any page kind.
 extern "C" int paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages, int page_kind,
     const void* k_scales, const void* v_scales, const void* lengths,
-    const void* block_tables, const void* live, void* out, int B, int KH,
-    int TR, int T, int D, int P, int PS, int MP, void* stream) {
+    const void* block_tables, const void* live, const void* anc,
+    const void* anc_base, int window, void* out, int B, int KH, int TR,
+    int T, int D, int P, int PS, int MP, void* stream) {
   const int threads = ((D + 31) / 32) * 32;
   const int vec = page_kind == 2 ? 16 : page_kind == 1 ? 8 : 4;
-  if (page_kind < 0 || page_kind > 2 || TR > kMaxRows || TR % T != 0
+  if (page_kind < 0 || page_kind > 2 || TR < 1 || T < 1 || TR % T != 0
       || D > 1024 || D % vec != 0 || PS * D / vec > kStage * threads
-      || (page_kind == 2 && (k_scales == nullptr || v_scales == nullptr)))
+      || (page_kind == 2 && (k_scales == nullptr || v_scales == nullptr))
+      || (anc == nullptr) != (anc_base == nullptr) || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = TR < kMaxRows ? TR : kMaxRows;   // rows per block
   const size_t smem =
-      sizeof(float) * (static_cast<size_t>(TR) * D + 2 * PS * D + TR * PS
-                       + 3 * TR);
+      sizeof(float) * (static_cast<size_t>(rows) * D + 2 * PS * D
+                       + rows * PS + 3 * rows);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (page_kind == 2)
     launch<int8_t>(q, k_pages, v_pages, k_scales, v_scales, lengths,
-                   block_tables, live, out, B, KH, TR, T, D, P, PS, MP,
-                   threads, smem, s);
+                   block_tables, live, anc, anc_base, window, out, B, KH,
+                   TR, T, D, P, PS, MP, threads, smem, s);
   else if (page_kind == 1)
     launch<__nv_bfloat16>(q, k_pages, v_pages, nullptr, nullptr, lengths,
-                          block_tables, live, out, B, KH, TR, T, D, P, PS,
-                          MP, threads, smem, s);
+                          block_tables, live, anc, anc_base, window, out, B,
+                          KH, TR, T, D, P, PS, MP, threads, smem, s);
   else
     launch<float>(q, k_pages, v_pages, nullptr, nullptr, lengths,
-                  block_tables, live, out, B, KH, TR, T, D, P, PS, MP,
-                  threads, smem, s);
+                  block_tables, live, anc, anc_base, window, out, B, KH, TR,
+                  T, D, P, PS, MP, threads, smem, s);
   return static_cast<int>(cudaGetLastError());
 }

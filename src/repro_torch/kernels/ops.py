@@ -56,20 +56,27 @@ def paged_query_prep(lengths, block_tables: torch.Tensor, b: int, t: int,
 
 def paged_decode_attention(q, k_pages, v_pages, lengths, block_tables,
                            k_scale_pages=None, v_scale_pages=None, *,
+                           anc=None, anc_base=None, anc_window: int = 0,
                            plain: bool = False, prep=None):
-    """Decode attention on the paged KV pool (plain or int8 mode).
+    """Decode attention on the paged KV pool (plain, int8 or tree mode).
 
     q: [B, T, H, D] (T=1 decode); k/v_pages: [P, ps, KH, D] bf16/f32, or
     int8 with f32 [P, ps, KH] ``k/v_scale_pages`` (int8 mode: each tile is
     dequantized before the f32 contractions); lengths: [] / [B] / [B, T]
     per-query valid prefix; block_tables: [B, MP] page ids, entries >= P
     are sentinels. Returns [B, T, H, D] f32 (rows of length 0 are zeros).
+    ``anc`` [B, T] / ``anc_base`` [B] / ``anc_window`` switch the fed
+    block to token-TREE semantics (``models/layers.py:ancestor_mask``):
+    query t also needs bit ``s - anc_base[b]`` of ``anc[b, t]`` for cache
+    positions s inside the fed window.
     ``prep``: :func:`paged_query_prep` of these lengths, when the caller
     already has it."""
     if _use_plain(q, plain, "paged_decode_attention"):
         return kref.paged_attention_ref(q, k_pages, v_pages, lengths,
                                         block_tables, k_scale_pages,
-                                        v_scale_pages)
+                                        v_scale_pages, anc=anc,
+                                        anc_base=anc_base,
+                                        anc_window=anc_window)
     b, t, h, d = q.shape
     page_size, khn = k_pages.shape[1], k_pages.shape[2]
     r = h // khn
@@ -78,9 +85,13 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, block_tables,
     # kernel row layout: [B, KH, T*R, D], T-major inside the row dim
     qh = q.reshape(b, t, khn, r, d).permute(0, 2, 1, 3, 4) \
           .reshape(b, khn, t * r, d).float().contiguous()
+    if anc is not None:
+        anc = anc.to(torch.int32).expand(b, t).contiguous()
+        anc_base = anc_base.to(torch.int32).contiguous()
     o = paged_attention_cuda(qh, k_pages, v_pages, lq,
                              block_tables.to(torch.int32).contiguous(),
-                             live, t, k_scale_pages, v_scale_pages)
+                             live, t, k_scale_pages, v_scale_pages, anc,
+                             anc_base, anc_window)
     return o.reshape(b, khn, t, r, d).permute(0, 2, 1, 3, 4) \
             .reshape(b, t, h, d)
 

@@ -1,13 +1,14 @@
-"""Paged decode attention (plain and int8 modes): the wrapper of the
-hand-written CUDA kernel (``repro_torch/csrc/paged_attention.cu``). Its
-plain PyTorch version is ``kernels/ref.py:paged_attention_ref``.
+"""Paged decode attention (plain, int8 and tree modes): the wrapper of
+the hand-written CUDA kernel (``repro_torch/csrc/paged_attention.cu``).
+Its plain PyTorch version is ``kernels/ref.py:paged_attention_ref``.
 
 Replaces the TPU kernel
 ``src/repro/kernels/paged_attention.py:paged_attention_pallas`` in plain
-mode (bf16/f32 pages) and in int8 mode (int8 pages with f32 [P, ps, KH]
+mode (bf16/f32 pages), in int8 mode (int8 pages with f32 [P, ps, KH]
 scale pages, ``kv_cache_dtype="int8"``), which decode attention on the
-paged KV pool reaches every step; its tree and latent modes are not
-ported yet (no tree bitmaps, no latent pool).
+paged KV pool reaches every step, and in tree mode (ancestor bitmaps over
+the fed window), which token-tree speculation reaches at every draft
+level and verify; its latent mode is not ported yet (no latent pool).
 
 Bound on the H100: bytes. Each live K/V element is read once and used for
 two f32 multiply-adds per query row; the floor is the live K/V bytes
@@ -18,8 +19,10 @@ order with an online softmax in f32, staging each page's K and V tiles in
 shared memory; sentinel block-table entries clamp to page P - 1 and are
 masked by length; a row of length 0 returns zeros; int8 tiles are
 dequantized (code * scale) as they are staged (details in the CUDA
-source). At decode batch 4 x 32 heads the grid has fewer blocks than the
-card has SMs; a split over pages is later work.
+source). A block takes at most ``MAX_ROWS`` query rows; more rows (a
+tree verify of up to 31 tokens) take more row groups, each walking the
+slot's pages again. At decode batch 4 x 32 heads the grid has fewer blocks
+than the card has SMs; a split over pages is later work.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ import torch
 
 from repro_torch.kernels.build import load
 
-MAX_ROWS = 16           # T * R query rows per (slot, KV head)
+MAX_ROWS = 16           # query rows per block (more: more row groups)
 MAX_HEAD_DIM = 1024
 SMEM_LIMIT = 48 * 1024  # dynamic shared memory without an opt-in
 STAGE = 8               # 16-byte loads per thread per K/V page tile
@@ -41,7 +44,8 @@ STAGE = 8               # 16-byte loads per thread per K/V page tile
 def _launcher():
     fn = load("paged_attention").paged_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p] * 7 + [ctypes.c_int]
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -67,23 +71,32 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, lengths: torch.Tensor,
                          block_tables: torch.Tensor, live: torch.Tensor,
                          t: int, k_scale_pages: Optional[torch.Tensor] = None,
-                         v_scale_pages: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+                         v_scale_pages: Optional[torch.Tensor] = None,
+                         anc: Optional[torch.Tensor] = None,
+                         anc_base: Optional[torch.Tensor] = None,
+                         window: int = 0) -> torch.Tensor:
     """out [B, KH, T*R, D] f32 on the card.
 
     q: [B, KH, T*R, D] f32 (T-major rows); k/v_pages: [P, ps, KH, D] bf16
     or f32 (plain mode), or int8 with f32 [P, ps, KH] ``k/v_scale_pages``
     (int8 mode); lengths: [B, T] int32; block_tables: [B, MP] int32
     (entries >= P are sentinels); live: [B] int32 live page counts.
+    Tree mode: ``anc`` [B, T] int32 ancestor bitmaps, ``anc_base`` [B]
+    int32 window bases and the fed ``window`` width, on any page type.
     Plain-mode launches count in ``launches``, int8-mode launches in
-    ``int8_launches``."""
+    ``int8_launches``, tree-mode launches (any page type) in
+    ``tree_launches``."""
     b, khn, tr, d = q.shape
     p, ps = k_pages.shape[0], k_pages.shape[1]
     mp = block_tables.shape[1]
-    if tr > MAX_ROWS or tr % t or d > MAX_HEAD_DIM:
-        raise ValueError(f"paged_attention_cuda takes T*R <= {MAX_ROWS} rows "
-                         f"(a multiple of T) and D <= {MAX_HEAD_DIM}, got "
-                         f"T*R={tr}, T={t}, D={d}")
+    if tr % t or d > MAX_HEAD_DIM:
+        raise ValueError(f"paged_attention_cuda takes T*R rows (a multiple "
+                         f"of T) and D <= {MAX_HEAD_DIM}, got T*R={tr}, "
+                         f"T={t}, D={d}")
+    tree = anc is not None
+    if tree != (anc_base is not None) or window < 0:
+        raise ValueError("paged_attention_cuda: the tree mode takes anc, "
+                         "anc_base and a window >= 0 together")
     int8 = k_pages.dtype == torch.int8
     if int8 != (k_scale_pages is not None) \
             or (k_scale_pages is None) != (v_scale_pages is None):
@@ -98,7 +111,11 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     _check(lengths, "lengths", (torch.int32,), (b, t))
     _check(block_tables, "block_tables", (torch.int32,), (b, mp))
     _check(live, "live", (torch.int32,), (b,))
-    smem = 4 * (tr * d + 2 * ps * d + tr * ps + 3 * tr)
+    if tree:
+        _check(anc, "anc", (torch.int32,), (b, t))
+        _check(anc_base, "anc_base", (torch.int32,), (b,))
+    rows = min(tr, MAX_ROWS)
+    smem = 4 * (rows * d + 2 * ps * d + rows * ps + 3 * rows)
     vec = 16 // k_pages.element_size()         # elements per 16-byte load
     threads = -(-d // 32) * 32
     if smem > SMEM_LIMIT or d % vec or ps * d // vec > STAGE * threads:
@@ -115,12 +132,16 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                      k_scale_pages.data_ptr() if int8 else None,
                      v_scale_pages.data_ptr() if int8 else None,
                      lengths.data_ptr(), block_tables.data_ptr(),
-                     live.data_ptr(), out.data_ptr(), b, khn, tr, t, d, p,
-                     ps, mp, torch.cuda.current_stream(q.device).cuda_stream)
+                     live.data_ptr(), anc.data_ptr() if tree else None,
+                     anc_base.data_ptr() if tree else None, window,
+                     out.data_ptr(), b, khn, tr, t, d, p, ps, mp,
+                     torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"paged_attention kernel launch failed: CUDA error {rc}")
-    if int8:
+    if tree:
+        paged_attention_cuda.tree_launches += 1
+    elif int8:
         paged_attention_cuda.int8_launches += 1
     else:
         paged_attention_cuda.launches += 1
@@ -129,3 +150,4 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
 
 paged_attention_cuda.launches = 0        # plain mode (bf16/f32 pages)
 paged_attention_cuda.int8_launches = 0   # int8 mode
+paged_attention_cuda.tree_launches = 0   # tree mode (any page type)

@@ -45,16 +45,19 @@ def attention_scale(d: int) -> float:
 
 
 def paged_attention_ref(q, k_pages, v_pages, lengths, block_tables,
-                        k_scale_pages=None, v_scale_pages=None):
+                        k_scale_pages=None, v_scale_pages=None, *, anc=None,
+                        anc_base=None, anc_window: int = 0):
     """Dense page gather followed by staircase attention, in f32.
 
     q: [B, T, H, D]; k/v_pages: [P, ps, KH, D] (bf16/f32, or int8 with f32
     [P, ps, KH] scale pages, dequantized after the gather as code *
     scale); lengths: [] / [B] / [B, T] per-query valid prefix;
     block_tables: [B, MP] page ids — entries >= P are sentinels and clamp
-    to P - 1, their positions masked by ``lengths``. Returns [B, T, H, D]
-    f32; rows of length 0 are zeros."""
-    from repro_torch.models.layers import staircase_mask
+    to P - 1, their positions masked by ``lengths``. ``anc`` [B, T] /
+    ``anc_base`` [B] / ``anc_window``: the tree mode's ancestor bitmaps
+    (``models/layers.py:ancestor_mask``). Returns [B, T, H, D] f32; rows
+    of length 0 are zeros."""
+    from repro_torch.models.layers import ancestor_mask
     b, t, h, d = q.shape
     num_pages, ps, khn, _ = k_pages.shape
     r = h // khn
@@ -67,10 +70,24 @@ def paged_attention_ref(q, k_pages, v_pages, lengths, block_tables,
     s = k.shape[1]
     qh = q.reshape(b, t, khn, r, d).float()
     sco = torch.einsum("btkrd,bskd->bkrts", qh, k) * attention_scale(d)
-    valid = staircase_mask(lengths, b, t, s)[:, None, None]  # [B,1,1,T,S]
+    valid = ancestor_mask(lengths, anc, anc_base, anc_window, b, t,
+                          s)[:, None, None]                 # [B,1,1,T,S]
     sco = torch.where(valid, sco, -torch.inf)
     # an all-masked row softmaxes to NaN; the mask zeroes it, as the
     # kernels' l = 0 guard does
     p = torch.where(valid, torch.softmax(sco, dim=-1), 0.0)
     o = torch.einsum("bkrts,bskd->btkrd", p, v)
     return o.reshape(b, t, h, d)
+
+
+def tree_attention_ref(q, k_pages, v_pages, lengths, block_tables, anc,
+                       anc_base, anc_window: int, k_scale_pages=None,
+                       v_scale_pages=None):
+    """Token-TREE paged attention: the T fed queries are a flat BFS token
+    tree written at cache positions ``anc_base .. anc_base + anc_window -
+    1``; ``anc`` [B, T] holds each query's root-to-self path as a bitmap
+    over that window. Everything else is :func:`paged_attention_ref` (the
+    staircase is the chain, every bitmap a prefix of ones)."""
+    return paged_attention_ref(q, k_pages, v_pages, lengths, block_tables,
+                               k_scale_pages, v_scale_pages, anc=anc,
+                               anc_base=anc_base, anc_window=anc_window)

@@ -6,6 +6,11 @@
 ``--compress w4`` serves the quantization-only baseline (dense W4, the
 paper's W4A16 rows) instead of GQSA; ``none`` the FP model.
 
+``--spec K`` (chain) or ``--spec-tree F1,F2,..`` (token tree, optionally
+``--spec-adaptive``) serves with self-speculative decoding: a draft
+profile (``--draft-profile``) of the same drawn weights drafts, the
+target verifies; greedy output equals the output without speculation.
+
 Runs on the card (``--device cuda``, the default; it raises when there is
 none) or, when asked, on the CPU (``--device cpu``) through the kernels'
 plain versions. Requests are admitted in FIFO order into a fixed pool of
@@ -24,13 +29,15 @@ from typing import List
 import numpy as np
 
 from repro_torch import resolve_device
-from repro_torch.configs.registry import get_config
+from repro_torch.configs.registry import get_config, list_draft_profiles
+from repro_torch.core.model_compress import draft_layers
 from repro_torch.core.gqs_layer import GQSAConfig
 from repro_torch.core.pruning import PruneConfig
 from repro_torch.core.quant import QuantConfig
 from repro_torch.engine import (EngineConfig, InferenceEngine,
                                 SamplingParams, Telemetry)
 from repro_torch.models.registry import get_model
+from repro_torch.models.transformer import init_params_and_draft
 
 
 def make_requests(n, vocab, rng, lo=4, hi=16):
@@ -38,9 +45,11 @@ def make_requests(n, vocab, rng, lo=4, hi=16):
     return [rng.integers(0, vocab, size=l).astype(np.int32) for l in lens]
 
 
-def compressed_params(cfg, args, device):
+def compressed_params(cfg, args, device, spec: bool = False):
     """Seeded params; with ``--compress gqsa`` or ``w4`` packed layer by
-    layer as they are drawn (the full f32 model never exists)."""
+    layer as they are drawn (the full f32 model never exists). With
+    ``spec`` the draft profile ``--draft-profile`` is packed from the same
+    draws: returns ``(params, draft_params or None)``."""
     t0 = time.time()
     compress = None
     if args.compress == "gqsa":
@@ -50,14 +59,24 @@ def compressed_params(cfg, args, device):
                               group_size=args.group_size))
     elif args.compress == "w4":
         compress = QuantConfig(bits=4, group_size=args.group_size)
-    params = get_model(cfg).init_params(args.seed, cfg, device,
-                                        compress=compress)
+    draft = None
+    if spec:
+        params, draft = init_params_and_draft(
+            args.seed, cfg, args.draft_profile, device, compress=compress,
+            group_size=args.group_size)
+    else:
+        params = get_model(cfg).init_params(args.seed, cfg, device,
+                                            compress=compress)
     if args.compress == "gqsa":
         print(f"packed GQSA W4 S{int(args.sparsity*100)}% "
               f"G{args.group_size} in {time.time()-t0:.1f}s")
     elif args.compress == "w4":
         print(f"packed W4 in {time.time()-t0:.1f}s")
-    return params
+    if spec:
+        print(f"packed draft profile {args.draft_profile} "
+              f"({draft_layers(cfg, args.draft_profile)}/{cfg.n_layers} "
+              f"layers) from the same weights")
+    return params, draft
 
 
 def main(argv=None):
@@ -81,6 +100,22 @@ def main(argv=None):
                     help="0 = greedy")
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--spec", type=int, default=0, metavar="K",
+                    help="speculative decoding: draft K tokens per round "
+                         "(0 = off); lossless — output matches non-spec")
+    ap.add_argument("--spec-tree", default=None, metavar="F1,F2,..",
+                    help="token-TREE drafting: top-k fanout per draft "
+                         "depth (e.g. 4,2,2 = 28 nodes / depth 3); one "
+                         "tree-attention verify call per round; implies "
+                         "--spec; lossless like the chain")
+    ap.add_argument("--spec-adaptive", action="store_true",
+                    help="retune the tree online from the observed "
+                         "acceptance rate (per-slot EWMA: thrash shrinks "
+                         "to a chain K=1, sustained acceptance widens "
+                         "back to the full --spec-tree profile)")
+    ap.add_argument("--draft-profile", default="w4s75",
+                    choices=list_draft_profiles(),
+                    help="draft compression of the same weights")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default; raises without a card) or cpu "
@@ -95,19 +130,37 @@ def main(argv=None):
                          "SEC seconds of serving (0 = off)")
     args = ap.parse_args(argv)
 
+    spec_fanout = None
+    if args.spec_tree:
+        try:
+            spec_fanout = tuple(int(f) for f in args.spec_tree.split(","))
+        except ValueError:
+            ap.error(f"--spec-tree wants a comma list of fanouts, "
+                     f"got {args.spec_tree!r}")
+    spec_on = args.spec > 0 or spec_fanout is not None
+    if args.spec_adaptive and spec_fanout is None:
+        ap.error("--spec-adaptive requires --spec-tree")
+
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
-    params = compressed_params(cfg, args, device)
+    params, draft_params = compressed_params(cfg, args, device, spec_on)
+    if spec_fanout is not None:
+        print(f"token-tree drafting: fanout {spec_fanout}"
+              + (" (adaptive)" if args.spec_adaptive else ""))
     telemetry = Telemetry(trace=args.trace is not None,
                           stats_interval_s=args.stats_interval)
     engine = InferenceEngine(
         cfg, params,
         EngineConfig(num_slots=args.slots, max_seq=args.max_seq,
                      page_size=args.page_size, num_pages=args.num_pages,
-                     seed=args.seed, device=str(device)),
+                     seed=args.seed, device=str(device), spec_k=args.spec,
+                     spec_draft_layers=(draft_layers(cfg, args.draft_profile)
+                                        if spec_on else None),
+                     spec_fanout=spec_fanout,
+                     spec_adaptive=args.spec_adaptive),
         SamplingParams(temperature=args.temperature, top_k=args.top_k,
                        top_p=args.top_p),
-        telemetry=telemetry)
+        draft_params=draft_params, telemetry=telemetry)
 
     nprng = np.random.default_rng(args.seed)
     # prompts must leave room for the generation budget within max_seq

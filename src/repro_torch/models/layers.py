@@ -97,14 +97,51 @@ def staircase_mask(length, b: int, t: int, s: int) -> torch.Tensor:
     return pos[None, None, :] < lq[..., None]
 
 
-def paged_block_geometry(positions: torch.Tensor, t: int):
+def ancestor_mask(length, anc: Optional[torch.Tensor],
+                  base: Optional[torch.Tensor], window: int, b: int, t: int,
+                  s: int) -> torch.Tensor:
+    """[B, T, S] token-tree validity, the generalization of
+    :func:`staircase_mask` (which stays the chain case, ``anc is None``).
+
+    A speculative token tree is fed as one flat BFS block of ``window``
+    tokens written at cache positions ``base .. base + window - 1``. Query
+    (b, t) sees cache position s iff s < length[b, t] and, when s falls
+    inside the fed window, bit ``s - base[b]`` of ``anc[b, t]`` is set
+    (the bitmap holds the query's root-to-self path, so siblings stay
+    invisible)."""
+    m = staircase_mask(length, b, t, s)
+    if anc is None:
+        return m
+    fed = (torch.arange(s, dtype=torch.int32, device=m.device)[None, None, :]
+           - base.to(torch.int32)[:, None, None])           # [B, 1, S]
+    in_win = (fed >= 0) & (fed < window)
+    bits = (anc.to(torch.int32).expand(b, t)[:, :, None]
+            >> fed.clamp(0, 31)) & 1                        # [B, T, S]
+    return m & (~in_win | (bits == 1))
+
+
+def paged_block_geometry(positions: torch.Tensor, t: int,
+                         tree: Optional[Dict] = None):
     """``positions`` [B] is the write position of each slot's first fed
     token (token t lands at positions + t). Returns ``(pos_bt [B, T] write
-    positions, rope_pos [B, T], length [B, T] per-query valid prefix)``:
-    the chain staircase (token trees are a later slice)."""
+    positions, rope_pos [B, T], length [B, T] per-query valid prefix,
+    base [B] | None, anc [B, T] | None, window)``: the chain staircase
+    when ``tree`` is None, else the token-tree block (RoPE at the tree
+    depth ``base + depths``, length ``base + window`` for every query,
+    ancestor bitmaps over the fed window; storage stays slot-sequential).
+    ``tree``: ``{"depths": [T], "anc": [T] int32 tensors, "window": int,
+    "start": int}`` (``engine/spec/tree.py:TreeTemplate``)."""
+    b = positions.shape[0]
     pos_bt = positions[:, None].to(torch.int32) + torch.arange(
         t, dtype=torch.int32, device=positions.device)[None, :]
-    return pos_bt, pos_bt, pos_bt + 1
+    if tree is None:
+        return pos_bt, pos_bt, pos_bt + 1, None, None, 0
+    window = int(tree["window"])
+    base = positions.to(torch.int32) - int(tree["start"])
+    rope_pos = base[:, None] + tree["depths"][None, :].to(torch.int32)
+    length = (base + window)[:, None].expand(b, t)
+    anc = tree["anc"][None, :].to(torch.int32).expand(b, t)
+    return pos_bt, rope_pos, length, base, anc, window
 
 
 def page_slots(block_tables: torch.Tensor, pos: torch.Tensor,
@@ -219,26 +256,36 @@ class PagedStep:
     rope: Tuple[torch.Tensor, torch.Tensor]
     write: PageWrite
     kernel_prep: Tuple[torch.Tensor, torch.Tensor]   # (lengths, live pages)
+    # token-tree block (None / 0 on the chain staircase)
+    anc: Optional[torch.Tensor] = None    # [B, T] int32, contiguous
+    base: Optional[torch.Tensor] = None   # [B] int32
+    window: int = 0
 
 
 def paged_step(block_tables: torch.Tensor, positions: torch.Tensor, t: int,
-               page_size: int, num_pages: int, cfg) -> PagedStep:
+               page_size: int, num_pages: int, cfg,
+               tree: Optional[Dict] = None) -> PagedStep:
+    """``tree``: a token-tree block (:func:`paged_block_geometry`)."""
     block_tables = block_tables.to(torch.int32).contiguous()
-    pos_bt, rope_pos, length = paged_block_geometry(positions, t)
+    pos_bt, rope_pos, length, base, anc, window = paged_block_geometry(
+        positions, t, tree)
     flat, valid = page_slots(block_tables, pos_bt, page_size, num_pages)
     return PagedStep(
         block_tables=block_tables, length=length,
         rope=rope_table(rope_pos, cfg.hd, cfg.rope_theta),
         write=plan_page_write(flat, valid),
         kernel_prep=kops.paged_query_prep(length, block_tables,
-                                          positions.shape[0], t, page_size))
+                                          positions.shape[0], t, page_size),
+        anc=None if anc is None else anc.contiguous(), base=base,
+        window=window)
 
 
 def attention_decode_paged(p: Dict, x: torch.Tensor, cache: Dict,
                            block_tables: torch.Tensor,
                            positions: torch.Tensor, cfg,
                            plain: bool = False,
-                           step: Optional[PagedStep] = None) -> torch.Tensor:
+                           step: Optional[PagedStep] = None,
+                           tree: Optional[Dict] = None) -> torch.Tensor:
     """One decode step of T tokens against one layer's view of the paged
     pool, which it writes IN PLACE: {"k_pages"/"v_pages": [P, ps, KH, D]}
     in bf16 or f32, or int8 codes with {"k_scale_pages"/"v_scale_pages":
@@ -250,19 +297,23 @@ def attention_decode_paged(p: Dict, x: torch.Tensor, cache: Dict,
     dropped, reads clamped and masked by the per-query length). The K/V of
     all T tokens are written before attention reads them, so query t sees
     the earlier fed tokens exactly as a sequential decode would.
+    ``tree`` switches the block to token-tree semantics
+    (:func:`paged_block_geometry`): RoPE at the tree depth, the ancestor
+    mask over the fed window (the kernel's tree mode).
     ``step``: the step's shared operands (:func:`paged_step`), which the
     model computes once for all layers; built here when absent."""
     b, t, _ = x.shape
     kp = cache["k_pages"]
     if step is None:
         step = paged_step(block_tables, positions, t, kp.shape[1],
-                          kp.shape[0], cfg)
+                          kp.shape[0], cfg, tree)
     q, k, v = attn_qkv(p, x, None, cfg, plain, rope=step.rope)
     write_kv_(cache, step.write, k, v)
     o = kops.paged_decode_attention(
         q, kp, cache["v_pages"], step.length, step.block_tables,
-        cache.get("k_scale_pages"), cache.get("v_scale_pages"), plain=plain,
-        prep=step.kernel_prep).to(q.dtype)
+        cache.get("k_scale_pages"), cache.get("v_scale_pages"),
+        anc=step.anc, anc_base=step.base, anc_window=step.window,
+        plain=plain, prep=step.kernel_prep).to(q.dtype)
     return apply_linear(p["wo"], o.reshape(b, t, -1), plain=plain)
 
 

@@ -10,7 +10,7 @@ Python loop over slices of those leaves.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -18,6 +18,7 @@ from repro_torch import resolve_device
 from repro_torch.core.bsr import BSRMatrix
 from repro_torch.core.gqs_layer import apply_linear
 from repro_torch.core.model_compress import (Compression, StackedPacker,
+                                             draft_compression, draft_layers,
                                              slice_packer)
 from repro_torch.models import layers as L
 
@@ -48,6 +49,29 @@ def init_params(seed: int, cfg, device=None,
     time, so the full f32 model (26 GB at llama2-7b width) never exists;
     the result equals ``compress_params(init_params(seed, cfg, device),
     cfg, gqsa)`` or ``compress_params_w4(..., qcfg)``."""
+    return _draw(seed, cfg, device, [(compress, cfg.n_layers)])[0]
+
+
+def init_params_and_draft(seed: int, cfg, profile: str, device=None,
+                          compress: Optional[Compression] = None,
+                          group_size: int = 16) -> Tuple[Dict, Dict]:
+    """``(params, draft_params)``: :func:`init_params` and the draft
+    profile ``profile`` of the same weights, packed from each slice as it
+    is drawn (``compress_draft(init_params(seed, cfg, device), cfg,
+    profile, group_size)`` without the f32 model). The draft keeps the
+    first ``draft_layers(cfg, profile)`` layers and shares ``embed``,
+    ``final_norm`` and ``lm_head`` with the target (drawing them again
+    would give another ``lm_head``: it is drawn after every layer)."""
+    return tuple(_draw(seed, cfg, device, [
+        (compress, cfg.n_layers),
+        (draft_compression(profile, group_size),
+         draft_layers(cfg, profile))]))
+
+
+def _draw(seed: int, cfg, device, targets) -> List[Dict]:
+    """One draw of the weights, packed into one tree per ``(compression
+    or None, layer count)`` of ``targets``; every tree holds the leading
+    layers of the same draw and the same embedding and head tensors."""
     if cfg.family != "dense" or cfg.qk_norm or cfg.tie_embeddings:
         raise NotImplementedError(
             f"init for family {cfg.family!r} (qk_norm={cfg.qk_norm}, "
@@ -64,30 +88,36 @@ def init_params(seed: int, cfg, device=None,
 
     embed = normal((cfg.vocab, d), 0.02)
     shapes = _linear_shapes(cfg)
-    pack = slice_packer(compress) if compress is not None else None
-    stacks = {blk: {name: (StackedPacker(n_layers, pack) if pack else
-                           torch.empty((n_layers,) + nk, dtype=dt,
-                                       device=dev))
-                    for name, nk in lin.items()}
-              for blk, lin in shapes.items()}
+    packs = [slice_packer(c) if c is not None else None for c, _ in targets]
+    stacks = [{blk: {name: (StackedPacker(nl, pack) if pack else
+                            torch.empty((nl,) + nk, dtype=dt, device=dev))
+                     for name, nk in lin.items()}
+               for blk, lin in shapes.items()}
+              for pack, (_, nl) in zip(packs, targets)]
     for i in range(n_layers):
         for blk, lin in shapes.items():
             for name, (n, k) in lin.items():
                 w = normal((n, k), 1.0 / math.sqrt(k))
-                dst = stacks[blk][name]
-                if pack:
-                    dst.put(i, w)
-                else:
-                    dst[i].copy_(w)
+                for pack, (_, nl), st in zip(packs, targets, stacks):
+                    if i >= nl:
+                        continue
+                    if pack:
+                        st[blk][name].put(i, w)
+                    else:
+                        st[blk][name][i].copy_(w)
                 del w
-    layers = {"ln1": torch.ones((n_layers, d), dtype=dt, device=dev),
-              "ln2": torch.ones((n_layers, d), dtype=dt, device=dev)}
-    for blk, lin in stacks.items():
-        layers[blk] = {name: (s.result((n_layers,)) if pack else {"w": s})
-                       for name, s in lin.items()}
-    return {"embed": embed, "layers": layers,
-            "final_norm": torch.ones((d,), dtype=dt, device=dev),
-            "lm_head": {"w": normal((cfg.vocab, d), 0.02)}}
+    final_norm = torch.ones((d,), dtype=dt, device=dev)
+    lm_head = {"w": normal((cfg.vocab, d), 0.02)}
+    trees = []
+    for pack, (_, nl), st in zip(packs, targets, stacks):
+        layers = {"ln1": torch.ones((nl, d), dtype=dt, device=dev),
+                  "ln2": torch.ones((nl, d), dtype=dt, device=dev)}
+        for blk, lin in st.items():
+            layers[blk] = {name: (s.result((nl,)) if pack else {"w": s})
+                           for name, s in lin.items()}
+        trees.append({"embed": embed, "layers": layers,
+                      "final_norm": final_norm, "lm_head": lm_head})
+    return trees
 
 
 def layer_params(tree, i: int):
@@ -192,9 +222,17 @@ def prefill(params: Dict, cache: Dict, tokens: torch.Tensor,
 def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
                 pos: torch.Tensor, cfg, block_tables: torch.Tensor,
                 max_live_pages: Optional[int] = None,
-                plain: bool = False) -> Tuple[torch.Tensor, Dict]:
+                plain: bool = False,
+                tree: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
     """tokens: [B, T]; pos: [B] per-slot write positions (token t lands at
     pos + t); block_tables: [B, MP]. Writes the pool in place.
+
+    ``tree`` switches the T fed tokens to token-tree semantics:
+    ``{"depths": [T], "anc": [T], "window": int, "start": int}`` — RoPE at
+    the tree depth, ancestor-bitmap masking over the fed window
+    (``layers.paged_block_geometry``). Only the first ``cfg.n_layers``
+    layers of ``cache`` are read and written (a depth-pruned draft passes
+    its own shallower config).
 
     ``max_live_pages`` clamps the block tables to the batch's max occupied
     page count: every slot's reservation fits in the leading entries, so
@@ -206,7 +244,7 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     num_pages, page_size = cache["k_pages"].shape[1:3]
     # positions, rotations and pool rows are the same in every layer
     step = L.paged_step(block_tables, pos, tokens.shape[1], page_size,
-                        num_pages, cfg)
+                        num_pages, cfg, tree)
     h = embed_tokens(params, tokens, cfg)
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)

@@ -126,6 +126,77 @@ def test_paged_attention_kernel_int8_matches_plain(cuda, t, kh, r, d):
     assert (o[3] == 0).all() and (o[4, 0] == 0).all()
 
 
+@pytest.mark.parametrize("t", [20, 9])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_paged_attention_kernel_rows_above_one_group(cuda, t, dtype):
+    """Plain and int8 modes past the 16 rows one block holds: T*R = 40 and
+    18 rows take three and two row groups."""
+    q, kp, vp, lens, bt = _attn_case(cuda, t, 4, 2, 64, dtype)
+    sc = ()
+    if dtype == torch.int8:
+        sc = tuple(torch.rand(kp.shape[:3], generator=cuda, device="cuda")
+                   / 64 + 1e-3 for _ in range(2))
+    o = ops.paged_decode_attention(q, kp, vp, lens, bt, *sc)
+    _close(o, ops.paged_decode_attention(q, kp, vp, lens, bt, *sc,
+                                         plain=True))
+    assert (o[3] == 0).all() and (o[4, 0] == 0).all()
+
+
+@pytest.mark.parametrize("t,window", [(2, 2), (5, 5), (29, 29), (31, 31),
+                                      (5, 13), (13, 5), (4, 0)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.int8])
+@pytest.mark.parametrize("kh,r,d", [(32, 1, 128), (4, 2, 64)])
+def test_paged_attention_kernel_tree_matches_plain(cuda, t, window, dtype,
+                                                   kh, r, d):
+    """Tree mode: random ancestor bitmaps over a fed window equal to T, as
+    wide as a draft level's (window > T), narrower than T and empty;
+    lengths base + window as the model sets them, slot 3 all-sentinel with
+    length 0 and a length-0 row in slot 4."""
+    q, kp, vp, lens, bt = _attn_case(cuda, t, kh, r, d, dtype)
+    sc = ()
+    if dtype == torch.int8:
+        sc = tuple(torch.rand(kp.shape[:3], generator=cuda, device="cuda")
+                   / 64 + 1e-3 for _ in range(2))
+    base = torch.tensor([0, 11, 64 - max(t, window), 0, 30],
+                        dtype=torch.int32, device="cuda")
+    lens = (base + window)[:, None].expand(-1, t).contiguous()
+    lens[3] = 0
+    lens[4, 0] = 0
+    anc = torch.randint(0, 2 ** 31 - 1, (5, t), generator=cuda,
+                        device="cuda", dtype=torch.int32)
+    before = (paged_attention_cuda.launches,
+              paged_attention_cuda.int8_launches,
+              paged_attention_cuda.tree_launches)
+    o = ops.paged_decode_attention(q, kp, vp, lens, bt, *sc, anc=anc,
+                                   anc_base=base, anc_window=window)
+    assert (paged_attention_cuda.launches,
+            paged_attention_cuda.int8_launches,
+            paged_attention_cuda.tree_launches) == (before[0], before[1],
+                                                    before[2] + 1)
+    ref = ops.paged_decode_attention(q, kp, vp, lens, bt, *sc, anc=anc,
+                                     anc_base=base, anc_window=window,
+                                     plain=True)
+    _close(o, ref)
+    assert (o[3] == 0).all() and (o[4, 0] == 0).all()
+
+
+def test_paged_attention_kernel_tree_of_prefix_bitmaps_is_the_staircase(
+        cuda):
+    """A chain's bitmaps (prefixes of ones) over the window give exactly
+    the staircase's result."""
+    t = 5
+    q, kp, vp, lens, bt = _attn_case(cuda, t, 4, 2, 64, torch.float32)
+    base = lens[:, 0] - 1
+    anc = ((1 << (torch.arange(t, device="cuda") + 1)) - 1).to(torch.int32)
+    o = ops.paged_decode_attention(q, kp, vp, (base + t)[:, None]
+                                   .expand(-1, t).contiguous(), bt,
+                                   anc=anc[None].expand(5, t),
+                                   anc_base=base.clamp_min(0), anc_window=t)
+    live = [0, 1, 2]
+    _close(o[live], ops.paged_decode_attention(q, kp, vp, lens, bt)[live])
+
+
 def _w4(cuda, n, k, g):
     w = torch.randn((n, k), generator=cuda, device="cuda") / k ** 0.5
     return pack_w4(w, QuantConfig(bits=4, group_size=g))

@@ -65,7 +65,9 @@ def test_serve_on_cpu_prints_digest(capsys):
     assert all(len(r["tokens"]) == 4 for r in res["results"])
 
 
-@pytest.mark.parametrize("later", [dict(spec_k=2), dict(prefix_cache=True),
+@pytest.mark.parametrize("later", [dict(resilience=ResilienceConfig(
+                                       deadline_ttft_ms=50.0)),
+                                   dict(prefix_cache=True),
                                    dict(prefill_chunk_tokens=4),
                                    dict(resilience=ResilienceConfig(
                                        chaos=ChaosConfig(alloc_fail=0.5)))])
