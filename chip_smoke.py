@@ -35,7 +35,18 @@ Phases (any failure exits non-zero before the result line is printed):
  12. the speculative main paths of the serve CLI at full width, bf16:
      ``--spec 4 --draft-profile w4s75``, ``--spec-tree 4,2,2
      --draft-profile w4l25`` and ``--spec-tree 4,2,2 --spec-adaptive
-     --draft-profile w4s75``.
+     --draft-profile w4s75``;
+ 13. the latent mode of paged attention against its plain version at
+     DeepSeek-V2 width (B=4 slots plus two of length 0, H=128, D=576,
+     v_rank 512, ps=16; bf16 and f32 pages; serve lengths, 256, the T=2
+     staircase and a tree block), and the expert axis of gqsa_gemv (160
+     experts at the w_g/w_u and w_d shapes, C in {1, 3}, with and without
+     ``rows``; idle rows exact zeros); both timed;
+ 14. DeepSeek-V2 (``deepseek_v2_236b``) at full width and 8 of its 60
+     layers, GQSA W4 S50 G16 packed on the card expert by expert: kernel
+     vs plain logits on 2 of the 8 layers (prefill + 4 decode steps, f32
+     and bf16), a profiled decode step, and its main path: the engine
+     serves 8 requests x 32 new tokens on 4 slots.
 Each main path is driven with every kernel's launch count set to 0 just
 before it and read just after. The line before the last is a JSON object
 with every kernel's numbers; the last line is {"ok": true, "device": {...}}.
@@ -479,25 +490,31 @@ def check_model(params, full, label, tol_f32=LOGITS_TOL_F32):
 
 
 def reset_launches():
-    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda
+    from repro_torch.kernels.gqsa_gemv import (gqsa_gemv_cuda,
+                                               gqsa_gemv_experts_cuda)
     from repro_torch.kernels.paged_attention import paged_attention_cuda
     from repro_torch.kernels.w4_matmul import w4_matmul_cuda
     gqsa_gemv_cuda.launches = 0
+    gqsa_gemv_experts_cuda.launches = 0
     paged_attention_cuda.launches = 0
     paged_attention_cuda.int8_launches = 0
     paged_attention_cuda.tree_launches = 0
+    paged_attention_cuda.latent_launches = 0
     w4_matmul_cuda.launches = 0
 
 
 def read_launches():
-    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda
+    from repro_torch.kernels.gqsa_gemv import (gqsa_gemv_cuda,
+                                               gqsa_gemv_experts_cuda)
     from repro_torch.kernels.paged_attention import paged_attention_cuda
     from repro_torch.kernels.w4_matmul import w4_matmul_cuda
     return {"gqsa_gemv": gqsa_gemv_cuda.launches,
             "paged_attention": paged_attention_cuda.launches,
             "w4_matmul": w4_matmul_cuda.launches,
             "paged_attention_int8": paged_attention_cuda.int8_launches,
-            "paged_attention_tree": paged_attention_cuda.tree_launches}
+            "paged_attention_tree": paged_attention_cuda.tree_launches,
+            "gqsa_gemv_experts": gqsa_gemv_experts_cuda.launches,
+            "paged_attention_latent": paged_attention_cuda.latent_launches}
 
 
 def phase_model_gqsa():
@@ -583,7 +600,8 @@ def phase_model_w4():
         f"GB")
     del params
 
-def profile_decode(params, cfg, toks, lens, bt, num_pages, ps, steps=8):
+def profile_decode(params, cfg, toks, lens, bt, num_pages, ps, steps=8,
+                   label="bf16 decode step at 4 slots"):
     """Where a full-width bf16 decode step's time goes: wall time per step
     (host clock around synchronised steps, no profiler), then device time
     by kernel from a torch.profiler trace of as many steps; the device's
@@ -621,13 +639,13 @@ def profile_decode(params, cfg, toks, lens, bt, num_pages, ps, steps=8):
                   if e.device_type == DeviceType.CUDA)[::-1]
     busy = sum(r[0] for r in rows)
     if busy == 0:
-        log(f"[profile] bf16 decode step at 4 slots: wall {wall * 1e3:.2f} "
+        log(f"[profile] {label}: wall {wall * 1e3:.2f} "
             f"ms; the profiler traced no kernel: device time not measured")
         return
-    log(f"[profile] bf16 decode step at 4 slots: wall {wall * 1e3:.2f} ms, "
+    log(f"[profile] {label}: wall {wall * 1e3:.2f} ms, "
         f"device busy {busy:.2f} ms ({busy / (wall * 1e3):.0%}), "
         f"{sum(r[1] for r in rows)} kernels per step")
-    for ms, n, name in rows[:8]:
+    for ms, n, name in rows[:12]:
         log(f"[profile]   {ms:8.3f} ms  x{n:<5d} {name[:70]}")
 
 
@@ -931,6 +949,370 @@ def phase_serve_spec(label):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# DeepSeek-V2 (mla_moe): the latent mode and the expert axis
+# ---------------------------------------------------------------------------
+
+DS_H, DS_D, DS_R = 128, 576, 512      # heads, latent row, value rank
+DS_EXPERT_SHAPES = {"wg/wu": (1536, 5120), "wd": (5120, 1536)}
+
+
+def _latent_case(b, t, lens, dtype, g, ps=16, mp=16):
+    """Full-width latent pool over a shuffled table: slot i owns
+    ceil(max len / ps) pages in table order, the rest are sentinels."""
+    num_pages = b * mp
+    q = torch.randn((b, t, DS_H, DS_D), generator=g, device="cuda")
+    lat = torch.randn((num_pages, ps, DS_D), generator=g,
+                      device="cuda").to(dtype)
+    perm = torch.randperm(num_pages, generator=g, device="cuda")
+    bt = torch.full((b, mp), num_pages, dtype=torch.int32, device="cuda")
+    for i in range(b):
+        occ = -(-int(lens[i].max()) // ps)
+        bt[i, :occ] = perm[i * mp:i * mp + occ].to(torch.int32)
+    return q, lat, lens.to("cuda"), bt
+
+
+def phase_latent_check():
+    """The latent mode at full width: 6 slots (slot 3 all-sentinel with
+    length 0, slot 4 a real table row but length 0), serve lengths, 256,
+    the T=2 staircase and a (2,2) tree verify block. Returns the worst
+    max-abs error."""
+    from repro_torch.engine.spec import TreeTemplate
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    worst = 0.0
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    spec = TreeTemplate((2, 2)).verify_tree("cuda")
+    cases = [("serve", 1, [20, 25, 31, 0, 0, 29]),
+             ("256", 1, [256, 256, 256, 0, 0, 256]),
+             ("staircase", 2, [1, 37, 254, 0, 0, 129]),
+             ("tree (2,2)", spec["anc"].shape[0], [9, 40, 250, 0, 0, 120])]
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, t, base in cases:
+            base = torch.tensor(base)
+            tree = label.startswith("tree")
+            if tree:
+                lens = base[:, None].expand(6, t).contiguous()
+            else:
+                lens = base[:, None] + torch.arange(t)[None, :]
+                lens[:, :] = torch.where(base[:, None] > 0, lens, 0)
+            lens = lens.to(torch.int32)
+            q, lat, lq, bt = _latent_case(6, t, lens, dtype, g)
+            bt[4, :2] = bt[1, :2]
+            kw = {}
+            if tree:
+                anc = spec["anc"][None].expand(6, t).contiguous()
+                kw = dict(anc=anc, anc_base=(lq[:, 0] - t).clamp_min(0),
+                          anc_window=t)
+            before = paged_attention_cuda.latent_launches
+            o = ops.paged_latent_attention(q, lat, lq, bt, v_rank=DS_R,
+                                           **kw)
+            ref = ops.paged_latent_attention(q, lat, lq, bt, v_rank=DS_R,
+                                             plain=True, **kw)
+            torch.cuda.synchronize()
+            require(paged_attention_cuda.latent_launches == before + 1,
+                    "one latent-mode launch")
+            require(o.shape == (6, t, DS_H, DS_R), "latent output shape")
+            require(bool((o[3:5] == 0).all()), "length-0 rows are zeros")
+            require(bool(torch.isfinite(o).all()), "latent attention finite")
+            err = (o - ref).abs().max().item()
+            rel = err / ref.abs().max().item()
+            worst = max(worst, err)
+            log(f"[latent check] pages={str(dtype)[6:]} {label} T={t} "
+                f"H={DS_H} D={DS_D} v_rank={DS_R} ps=16: max_abs_err "
+                f"{err:.3e} rel {rel:.3e}")
+            require(rel <= TOL, f"paged_attention (latent) disagrees: "
+                                f"rel {rel}")
+    return worst
+
+
+def _experts_packed(n, k, seed, e=160):
+    """E experts of GQSA W4 S50 G16 stacked [E, ...], packed on the card
+    one expert at a time (random N(0, 1/K) weights)."""
+    from repro_torch.core.gqs_layer import GQSAConfig
+    from repro_torch.core.model_compress import StackedPacker, slice_packer
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    packer = StackedPacker(e, slice_packer(GQSAConfig()))
+    for i in range(e):
+        packer.put(i, torch.randn((n, k), generator=g, device="cuda")
+                   / k ** 0.5)
+    return packer.result((e,))["bsr"]
+
+
+def _decode_rows(g, e=160, tokens=4, top_k=6):
+    """rows [E] of one 4-slot decode step's dispatch: each token's top-6
+    distinct experts, capacity 1 (so rows are 0 or 1)."""
+    ids = torch.stack([torch.randperm(e, generator=g, device="cuda")[:top_k]
+                       for _ in range(tokens)]).reshape(-1)
+    return torch.bincount(ids, minlength=e).clamp(max=1).to(torch.int32)
+
+
+def phase_experts_check():
+    """The expert axis at the DeepSeek-V2 expert shapes: 160 experts,
+    C in {1, 3}, bf16 and f32 x, ``rows`` absent and given (idle experts
+    and partly filled buffers). Returns the worst max-abs error."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_experts_cuda
+    worst = 0.0
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    for label, (n, k) in DS_EXPERT_SHAPES.items():
+        bsr = _experts_packed(n, k, SEED + 10)
+        for c in (1, 3):
+            rows = torch.randint(0, c + 1, (160,), generator=g,
+                                 device="cuda", dtype=torch.int32)
+            rows[:40] = 0
+            for dt in (torch.bfloat16, torch.float32):
+                x = torch.randn((160, c, k), generator=g,
+                                device="cuda").to(dt)
+                for r in (None, rows):
+                    before = gqsa_gemv_experts_cuda.launches
+                    y = ops.gqsa_gemv_experts(x, bsr, r)
+                    ref = ops.gqsa_gemv_experts(x, bsr, r, plain=True)
+                    torch.cuda.synchronize()
+                    require(gqsa_gemv_experts_cuda.launches == before + 1,
+                            "one expert-axis launch")
+                    require(y.shape == (160, c, n)
+                            and bool(torch.isfinite(y).all()),
+                            "experts output shape/finite")
+                    if r is not None:
+                        idle = (torch.arange(c, device="cuda")[None, :]
+                                >= r[:, None])
+                        require(bool((y[idle] == 0).all()),
+                                "idle expert rows are exact zeros")
+                    err = (y - ref).abs().max().item()
+                    rel = err / ref.abs().max().item()
+                    worst = max(worst, err)
+                    log(f"[experts check] {label} E=160 N={n} K={k} C={c} "
+                        f"x={str(dt)[6:]} rows="
+                        f"{'none' if r is None else int(r.sum())}: "
+                        f"max_abs_err {err:.3e} rel {rel:.3e}")
+                    require(rel <= TOL, f"gqsa_gemv experts disagree: "
+                                        f"rel {rel}")
+        del bsr
+    return worst
+
+
+def phase_mla_moe_timing(timer):
+    """Both kernels at the 4-slot DeepSeek-V2 decode shapes: the latent
+    mode at serve lengths and at 256 (bf16 pages), the expert axis for one
+    layer's three expert projections at C = 1 with one decode step's
+    occupied experts. Bound: the larger of the bytes the function must
+    move over 3.35 TB/s and its f32 operations over 67 TFLOP/s."""
+    import torch.nn.functional as F
+    from repro_torch.core.bsr import to_dense
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_experts_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    b = 4
+    out = {}
+    for label, lens in (("serve", [20, 25, 31, 29]),
+                        ("256", [256, 256, 256, 256])):
+        lq = torch.tensor(lens, dtype=torch.int32)[:, None]
+        q, lat, lq, bt = _latent_case(b, 1, lq, torch.bfloat16, g)
+        tot = int(sum(lens))
+        nbytes = tot * DS_D * 2 + b * DS_H * DS_D * 4 + b * DS_H * DS_R * 4
+        flops = 2 * DS_H * tot * (DS_D + DS_R)
+        bound = _bound_ms(nbytes, flops)
+        by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOP_PER_S
+              else "operations")
+        lq2, live = ops.paged_query_prep(lq, bt, b, 1, lat.shape[1])
+        qh = q.reshape(b, 1, DS_H, DS_D).contiguous()
+        lat4 = lat[:, :, None, :]
+        t_k = timer.ms(lambda: paged_attention_cuda(
+            qh, lat4, None, lq2, bt, live, 1, v_rank=DS_R))
+        t_p = timer.ms(lambda: ops.paged_latent_attention(
+            q, lat, lq, bt, v_rank=DS_R, plain=True))
+        # library yardstick: SDPA on the latent rows gathered contiguous
+        # beforehand, the 128 heads as 128 query rows of the one KV head
+        smax = max(lens)
+        kk = lat[bt.clamp(max=lat.shape[0] - 1).long()].reshape(
+            b, -1, DS_D)[:, None, :smax].contiguous()
+        vv = kk[..., :DS_R].contiguous()
+        mask = (torch.arange(smax, device="cuda")[None, :]
+                < lq.to("cuda"))[:, None, None, :]
+        qs = qh.to(torch.bfloat16)
+        t_l = timer.ms(lambda: F.scaled_dot_product_attention(
+            qs, kk, vv, attn_mask=mask))
+        log(f"[latent time] {label} lengths={lens} B=4 H=128 D=576 "
+            f"v_rank=512 bf16 pages: kernel {t_k * 1e3:.1f}us plain "
+            f"{t_p * 1e3:.1f}us sdpa {t_l * 1e3:.1f}us bound "
+            f"{bound * 1e3:.2f}us by {by} ({nbytes / 1e6:.2f} MB, "
+            f"{flops / 1e6:.1f} MFLOP) -> {bound / t_k:.0%} of bound")
+        if "paged_attention_latent" not in out:
+            out["paged_attention_latent"] = dict(
+                ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound,
+                bound_by=by)
+
+    rows = _decode_rows(g)
+    occ = torch.nonzero(rows).flatten()
+    n_occ = int(occ.numel())
+    ex = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    nbytes_all = flops_all = 0
+    for label, (n, k) in DS_EXPERT_SHAPES.items():
+        bsr = _experts_packed(n, k, SEED + 12)
+        x = torch.zeros((160, 1, k), device="cuda", dtype=torch.bfloat16)
+        x[occ] = torch.randn((n_occ, 1, k), generator=g, device="cuda",
+                             dtype=torch.bfloat16)
+        m = bsr.idx.shape[-1]
+        nbytes = n_occ * (n * m * 20 + k * 2) + 160 * n * 4
+        flops = 2 * n_occ * n * m * 16
+        bound = _bound_ms(nbytes, flops)
+        # library yardstick: torch.bmm over the occupied experts' dense
+        # bf16 weights, gathered beforehand
+        dense = torch.stack([to_dense(bsr.layer(int(i))).to(torch.bfloat16)
+                             for i in occ])
+        xo = x[occ].contiguous()
+        t_k = timer.ms(lambda: gqsa_gemv_experts_cuda(x, bsr, rows))
+        t_p = timer.ms(lambda: ops.gqsa_gemv_experts(x, bsr, rows,
+                                                     plain=True), iters=3)
+        t_l = timer.ms(lambda: torch.bmm(xo, dense.transpose(1, 2)))
+        log(f"[experts time] {label} E=160 N={n} K={k} M={m} C=1, "
+            f"{n_occ} occupied experts, bf16 x: kernel {t_k * 1e3:.1f}us "
+            f"plain {t_p * 1e3:.1f}us torch.bmm(dense bf16, occupied) "
+            f"{t_l * 1e3:.1f}us bound {bound * 1e3:.2f}us "
+            f"({nbytes / 1e6:.1f} MB) -> {bound / t_k:.0%} of bound")
+        c = 2 if label == "wg/wu" else 1
+        for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
+                          (t_k, t_p, t_l, bound)):
+            ex[key] += c * v
+        nbytes_all += c * nbytes
+        flops_all += c * flops
+        del bsr, dense
+    ex["bound_by"] = ("bytes" if nbytes_all / HBM_BYTES_PER_S
+                      >= flops_all / F32_FLOP_PER_S else "operations")
+    log(f"[experts time] one decode layer (3 expert projections, C=1, "
+        f"{n_occ} occupied): kernel {ex['ms']:.4f}ms plain "
+        f"{ex['plain_ms']:.4f}ms bmm {ex['library_ms']:.4f}ms bound "
+        f"{ex['bound_ms']:.4f}ms")
+    out["gqsa_gemv_experts"] = ex
+    return out
+
+
+DS_LAYERS = 8           # of the published 60: 2.36 GB of experts a layer
+DS_CHECK_LAYERS = 2     # the kernel-vs-plain check's depth
+
+
+def _route_gaps(gaps):
+    """A wrapper of ``moe.route`` that records, per call, the smallest gap
+    between the k-th and (k+1)-th router probability of any row (where a
+    tiny difference between two paths can swap an expert)."""
+    from repro_torch.models import moe
+    inner = moe.route
+
+    def spy(router_p, x, cfg_moe):
+        gates, ids = inner(router_p, x, cfg_moe)
+        probs = torch.softmax(x.float() @ router_p["w"].float().T, dim=-1)
+        top = probs.topk(cfg_moe.top_k + 1, dim=-1).values
+        gaps.append((top[:, -2] - top[:, -1]).min().item())
+        return gates, ids
+    return inner, spy
+
+
+def phase_model_deepseek():
+    """DeepSeek-V2 at full width and 8 layers: the kernel-vs-plain logits
+    check on its first 2 layers (the plain experts dequantize 160 experts
+    per projection per step), the profiled decode step, and the main path:
+    the engine serves 8 requests x 32 new tokens on 4 slots."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.gqs_layer import GQSAConfig
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    full = dataclasses.replace(get_config("deepseek_v2_236b"),
+                               n_layers=DS_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = tf.init_params(SEED, full, "cuda", compress=GQSAConfig())
+    torch.cuda.synchronize()
+    packed = sum(t.nbytes_packed() if hasattr(t, "nbytes_packed") else 0
+                 for t in _leaves(params["layers"]))
+    log(f"[model] deepseek-v2-236b full width, {DS_LAYERS} of 60 layers, "
+        f"GQSA W4 S50 G16 packed on the card expert by expert in "
+        f"{time.time() - t0:.1f}s: {packed / 1e9:.3f} GB of packed linears; "
+        f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    cut = dataclasses.replace(full, n_layers=DS_CHECK_LAYERS)
+    sub = dict(params, layers=tf.layer_params(params["layers"],
+                                              slice(0, DS_CHECK_LAYERS)))
+    gaps = []
+    inner, spy = _route_gaps(gaps)
+
+    def log_gaps(when):
+        log(f"[model deepseek] smallest gap between the k-th and next "
+            f"router probability {when}: "
+            f"{min(gaps, default=float('nan')):.3e} "
+            f"({sum(x < 1e-5 for x in gaps)} of {len(gaps)} routings under "
+            f"1e-5)")
+
+    moe.route = spy
+    try:
+        toks, lens, bt, num_pages, ps = check_model(
+            sub, cut, f"deepseek {DS_CHECK_LAYERS} of {DS_LAYERS} layers")
+    except AssertionError:
+        log_gaps("in the failing check")
+        raise
+    finally:
+        moe.route = inner
+    log_gaps("over the check")
+    log(f"[model] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB")
+    profile_decode(params, full, toks, lens, bt, num_pages, ps,
+                   label=f"deepseek bf16 decode step at 4 slots, "
+                         f"{DS_LAYERS} layers")
+    launches = engine_deepseek(params, full)
+    del params, sub
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def engine_deepseek(params, full):
+    """The DeepSeek-V2 main path: the engine serves 8 requests (4-15
+    prompt tokens, 32 new) on 4 slots, max_seq 256, greedy, bf16."""
+    from repro_torch.engine import EngineConfig, InferenceEngine
+    from repro_torch.launch.serve import make_requests
+    prompts = make_requests(8, full.vocab, np.random.default_rng(SEED))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    eng = InferenceEngine(full, params, EngineConfig(
+        num_slots=4, max_seq=256, seed=SEED, device="cuda"))
+    require(set(eng.kv.data) == {"lat_pages"}, "one latent pool")
+    for p in prompts:
+        eng.submit(p, 32)
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches()
+    log(f"[engine deepseek] {eng.metrics.format_summary()}")
+    log(f"[engine deepseek] {DS_LAYERS} of 60 layers (host work is a larger "
+        f"share of a step than at full depth); wall {wall:.1f}s; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+        f"launches {launches}")
+    require(len(res["results"]) == 8, "all 8 requests answered")
+    require(all(len(r["tokens"]) == 32 for r in res["results"]),
+            "every request got 32 tokens")
+    require(all(0 <= int(t) < full.vocab for r in res["results"]
+                for t in r["tokens"]), "tokens in the vocabulary")
+    require(launches["gqsa_gemv_experts"] > 0
+            and launches["paged_attention_latent"] > 0
+            and launches["gqsa_gemv"] > 0,
+            "the expert axis, the latent mode and gqsa_gemv launched on "
+            "the DeepSeek path")
+    require(launches["paged_attention"] == 0
+            and launches["paged_attention_int8"] == 0
+            and launches["paged_attention_tree"] == 0
+            and launches["w4_matmul"] == 0,
+            "no other attention mode and no w4_matmul on the DeepSeek path")
+    return launches
+
+
 KERNELS = {
     "gqsa_gemv": dict(
         source="src/repro_torch/csrc/gqsa_gemv.cu",
@@ -955,6 +1337,18 @@ KERNELS = {
         replaces="src/repro/kernels/paged_attention.py:181",
         unit="one layer's tree verify attention, fanout (4,2,2): 4 slots, "
              "T=29, lengths ~64, KH=32, D=128, bf16 pages"),
+    "gqsa_gemv_experts": dict(
+        source="src/repro_torch/csrc/gqsa_gemv.cu",
+        replaces="src/repro/kernels/gqsa_gemv.py:71",
+        unit="one DeepSeek-V2 decode layer's routed experts (w_g, w_u, "
+             "w_d; the Pallas kernel under the vmap at "
+             "src/repro/models/moe.py:73): 160 experts, C=1, the occupied "
+             "experts of one 4-slot step, bf16 x"),
+    "paged_attention_latent": dict(
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:181",
+        unit="one DeepSeek-V2 layer's latent decode attention: 4 slots, "
+             "lengths 20/25/31/29, H=128, D=576, v_rank 512, bf16 pages"),
 }
 
 
@@ -989,16 +1383,25 @@ def main() -> int:
     for label in SPEC_SERVE:
         torch.cuda.empty_cache()
         launches[label] = phase_serve_spec(label)
+    torch.cuda.empty_cache()
+    errs["paged_attention_latent"] = phase_latent_check()
+    errs["gqsa_gemv_experts"] = phase_experts_check()
+    times.update(phase_mla_moe_timing(timer))
+    torch.cuda.empty_cache()
+    launches["deepseek engine"] = phase_model_deepseek()
     path_of = {"gqsa_gemv": "gqsa serve", "paged_attention": "gqsa serve",
                "w4_matmul": "w4 serve",
                "paged_attention_int8": "int8-kv engine",
-               "paged_attention_tree": "tree serve"}
+               "paged_attention_tree": "tree serve",
+               "gqsa_gemv_experts": "deepseek engine",
+               "paged_attention_latent": "deepseek engine"}
     kernels = [dict(name=k, route="cuda", source=v["source"],
                     replaces=v["replaces"],
                     launches=launches[path_of[k]][k],
                     max_abs_err=errs[k], ms=times[k]["ms"],
                     plain_ms=times[k]["plain_ms"],
-                    bound_ms=times[k]["bound_ms"], bound_by="bytes",
+                    bound_ms=times[k]["bound_ms"],
+                    bound_by=times[k].get("bound_by", "bytes"),
                     library_ms=times[k]["library_ms"], unit=v["unit"],
                     path=path_of[k])
                for k, v in KERNELS.items()]

@@ -6,9 +6,10 @@ from typing import List
 
 from repro_torch.configs.base import ModelConfig
 
-# the paper's own benchmark model; the reference's other architectures
-# are later slices of the port (ROADMAP queue A)
-ARCH_IDS = ["llama2_7b"]
+# the paper's own benchmark model and the MLA + MoE family's one config;
+# the reference's other architectures are later slices of the port
+# (ROADMAP queue A)
+ARCH_IDS = ["llama2_7b", "deepseek_v2_236b"]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 

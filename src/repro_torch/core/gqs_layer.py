@@ -8,6 +8,9 @@ present:
     gqsa        {"bsr": BSRMatrix}                                  quant+sparse
     w4          {"qw" packed u8 [N,K/2], "scale","zero" [N,K/G]}   dense quant
     fake_quant  {"w", "gmask", ...}         (not yet ported)
+
+The routed experts of an MoE layer stack these per expert ([E, ...]
+leaves) and go through :func:`apply_linear_experts`.
 """
 from __future__ import annotations
 
@@ -59,6 +62,30 @@ def apply_linear(p: Dict, x: torch.Tensor, *,
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y.reshape(*lead, -1)
+
+
+def apply_linear_experts(p: Dict, x: torch.Tensor,
+                         rows: torch.Tensor = None, *,
+                         plain: bool = False) -> torch.Tensor:
+    """The expert-stacked linear of an MoE layer: x [E, C, K] -> [E, C, N]
+    in x's dtype, expert e's weights on row e of x (the reference's
+    ``vmap`` of :func:`apply_linear` over the stacked experts).
+
+    ``{"bsr"}`` (stacked [E, N, M] leaves) goes through the kernel's
+    expert axis, ``rows`` [E] telling it how many leading rows of each
+    expert hold tokens (the others come out as zeros); ``{"w"}`` [E, N, K]
+    is one batched product in x's dtype (the reference's FP path), where
+    the empty rows, zeros in x, give zeros too."""
+    if "bsr" in p:
+        return kops.gqsa_gemv_experts(x, p["bsr"], rows,
+                                      plain=plain).to(x.dtype)
+    if "qw" in p:
+        raise NotImplementedError(
+            "dense-W4 MoE experts are not yet ported (ROADMAP A.12)")
+    if "gmask" in p or "q" in p:
+        raise NotImplementedError(
+            "fake-quant layers are not yet ported (ROADMAP A.6)")
+    return torch.bmm(x, p["w"].to(x.dtype).transpose(1, 2))
 
 
 def pack_w4(w: torch.Tensor, qcfg: QuantConfig) -> Dict:

@@ -27,6 +27,21 @@
 // The kernel pads nothing: the ragged edge of N is a warp-uniform exit,
 // ragged M a lane loop bound. The work list of the Stream-K design (paper
 // §3.5) is not read: every row of a row-balanced packing has the same M.
+//
+// Expert axis (gqsa_gemv_experts_launch): the routed experts of an MoE
+// layer, which the reference runs as a vmap of the same Pallas kernel
+// over its stacked weights (src/repro/models/moe.py:_expert_ffn). Grid
+// axis y is the expert: leaves [E, N, M] (idx, scale, zero) and
+// [E, N, M, 8] (vals), x [E, C, K], y [E, C, N] f32, one launch per
+// chunk of <= 8 of the C buffer rows. An optional rows [E] int32 says how
+// many leading buffer rows of each expert hold tokens: the kernel writes
+// zeros for rows >= rows[e], and a block whose expert holds none writes
+// its zeros and returns without reading that expert's weights. At 4-slot
+// DeepSeek-V2 decode (24 routed entries, capacity 1) at most 24 of the
+// 160 experts hold a row, so a layer's three expert projections stream
+// at most 24 experts' payload (14.7 MB each) instead of all 160
+// (2.36 GB). The reference computes every expert on its zero rows; those
+// products are masked by its keep mask, so the skip changes no number.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,16 +80,39 @@ __device__ __forceinline__ void load_group(const __nv_bfloat16* p,
   }
 }
 
-template <typename T, int B>
+// One matrix (kExperts false: the offsets below are not computed, so the
+// single-matrix path is the code it was before the expert axis), or one
+// chunk of the expert axis: blockIdx.y is the expert, whose x rows start
+// at x + e * x_stride, its y rows at y + e * y_stride and its weights at
+// e * N * M; rows[e] - c0 of this chunk's B rows hold tokens (all B when
+// rows is null).
+template <typename T, int B, bool kExperts>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 gqsa_gemv_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
                  const uint2* __restrict__ vals,
                  const float* __restrict__ scale,
                  const float* __restrict__ zero, float* __restrict__ y,
-                 int N, int M, int K) {
+                 int N, int M, int K, size_t x_stride, size_t y_stride,
+                 const int32_t* __restrict__ rows, int c0) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= N) return;  // warp-uniform: the ragged edge of N
+  int nrows = B;
+  if (kExperts) {
+    const int e = blockIdx.y;
+    if (rows != nullptr) nrows = min(max(rows[e] - c0, 0), B);
+    x += e * x_stride;
+    y += e * y_stride;
+    if (nrows == 0) {  // an idle expert: zeros, and no weight is read
+      if (lane < B) y[static_cast<size_t>(lane) * N + row] = 0.f;
+      return;
+    }
+    const size_t eoff = static_cast<size_t>(e) * N * M;
+    idx += eoff;
+    vals += eoff;
+    scale += eoff;
+    zero += eoff;
+  }
 
   float acc[B];
 #pragma unroll
@@ -113,38 +151,58 @@ gqsa_gemv_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
     for (int off = 16; off > 0; off >>= 1)
       acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], off);
   }
+  // rows past nrows hold no token: their products are computed (x has
+  // them) but written as zeros
 #pragma unroll
   for (int b = 0; b < B; ++b)
-    if (lane == b) y[static_cast<size_t>(b) * N + row] = acc[b];
+    if (lane == b) y[static_cast<size_t>(b) * N + row] = b < nrows ? acc[b]
+                                                                   : 0.f;
 }
 
+struct Args {
+  const void *x, *idx, *vals, *scale, *zero;
+  void* y;
+  int N, M, K, E;
+  size_t x_stride, y_stride;
+  const int32_t* rows;
+  int c0;
+  bool experts;  // the expert axis (else one matrix)
+};
+
 template <typename T, int B>
-void launch(const void* x, const void* idx, const void* vals,
-            const void* scale, const void* zero, void* y, int N, int M,
-            int K, cudaStream_t stream) {
-  const dim3 grid((N + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  gqsa_gemv_kernel<T, B><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const int32_t*>(idx),
-      static_cast<const uint2*>(vals), static_cast<const float*>(scale),
-      static_cast<const float*>(zero), static_cast<float*>(y), N, M, K);
+void launch(const Args& a, cudaStream_t stream) {
+  const dim3 grid((a.N + kWarpsPerBlock - 1) / kWarpsPerBlock, a.E);
+  auto kernel = a.experts ? gqsa_gemv_kernel<T, B, true>
+                          : gqsa_gemv_kernel<T, B, false>;
+  kernel<<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const T*>(a.x), static_cast<const int32_t*>(a.idx),
+      static_cast<const uint2*>(a.vals), static_cast<const float*>(a.scale),
+      static_cast<const float*>(a.zero), static_cast<float*>(a.y), a.N, a.M,
+      a.K, a.x_stride, a.y_stride, a.rows, a.c0);
 }
 
 template <typename T>
-int dispatch(const void* x, const void* idx, const void* vals,
-             const void* scale, const void* zero, void* y, int B, int N,
-             int M, int K, cudaStream_t s) {
+int dispatch(const Args& a, int B, cudaStream_t s) {
   switch (B) {
-    case 1: launch<T, 1>(x, idx, vals, scale, zero, y, N, M, K, s); break;
-    case 2: launch<T, 2>(x, idx, vals, scale, zero, y, N, M, K, s); break;
-    case 3: launch<T, 3>(x, idx, vals, scale, zero, y, N, M, K, s); break;
-    case 4: launch<T, 4>(x, idx, vals, scale, zero, y, N, M, K, s); break;
-    case 5: launch<T, 5>(x, idx, vals, scale, zero, y, N, M, K, s); break;
-    case 6: launch<T, 6>(x, idx, vals, scale, zero, y, N, M, K, s); break;
-    case 7: launch<T, 7>(x, idx, vals, scale, zero, y, N, M, K, s); break;
-    case 8: launch<T, 8>(x, idx, vals, scale, zero, y, N, M, K, s); break;
+    case 1: launch<T, 1>(a, s); break;
+    case 2: launch<T, 2>(a, s); break;
+    case 3: launch<T, 3>(a, s); break;
+    case 4: launch<T, 4>(a, s); break;
+    case 5: launch<T, 5>(a, s); break;
+    case 6: launch<T, 6>(a, s); break;
+    case 7: launch<T, 7>(a, s); break;
+    case 8: launch<T, 8>(a, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+int run(const Args& a, int x_is_bf16, int B, void* stream) {
+  if (a.E < 1 || a.E > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return x_is_bf16 ? dispatch<__nv_bfloat16>(a, B, s)
+                   : dispatch<float>(a, B, s);
 }
 
 }  // namespace
@@ -154,9 +212,27 @@ extern "C" int gqsa_gemv_launch(const void* x, int x_is_bf16,
                                 const void* idx, const void* vals,
                                 const void* scale, const void* zero, void* y,
                                 int B, int N, int M, int K, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_is_bf16)
-    return dispatch<__nv_bfloat16>(x, idx, vals, scale, zero, y, B, N, M, K,
-                                   s);
-  return dispatch<float>(x, idx, vals, scale, zero, y, B, N, M, K, s);
+  const Args a{x, idx, vals, scale, zero, y, N, M, K, 1, 0, 0, nullptr, 0,
+               false};
+  return run(a, x_is_bf16, B, stream);
+}
+
+// The expert axis: x [E, C, K], y [E, C, N], stacked leaves [E, N, M(, 8)];
+// this launch covers buffer rows c0 .. c0 + B - 1 (B <= 8) of every
+// expert. rows [E] int32 or null (every row holds a token).
+extern "C" int gqsa_gemv_experts_launch(const void* x, int x_is_bf16,
+                                        const void* idx, const void* vals,
+                                        const void* scale, const void* zero,
+                                        void* y, const void* rows, int E,
+                                        int C, int c0, int B, int N, int M,
+                                        int K, void* stream) {
+  if (c0 < 0 || B < 1 || c0 + B > C)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t esz = x_is_bf16 ? 2 : 4;
+  const Args a{static_cast<const char*>(x) + esz * c0 * K, idx, vals, scale,
+               zero, static_cast<float*>(y) + static_cast<size_t>(c0) * N,
+               N, M, K, E, static_cast<size_t>(C) * K,
+               static_cast<size_t>(C) * N,
+               static_cast<const int32_t*>(rows), c0, true};
+  return run(a, x_is_bf16, B, stream);
 }

@@ -1,11 +1,13 @@
-// Paged decode attention (plain, int8 and tree modes) for Hopper (sm_90a).
+// Paged decode attention (plain, int8, tree and latent modes) for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel
 // src/repro/kernels/paged_attention.py:paged_attention_pallas in its plain
 // mode (bf16/f32 pages), its int8 mode (int8 pages with f32 per-token
-// scales) and its tree mode (ancestor bitmaps over the fed window, which
-// token-tree speculation runs at every draft level and verify); the latent
-// mode is not ported yet.
+// scales), its tree mode (ancestor bitmaps over the fed window, which
+// token-tree speculation runs at every draft level and verify) and its
+// latent mode (v_pages = None: the MLA latent pool, which every
+// DeepSeek-V2 decode step runs in every layer).
 //
 // Attention computed in place on the paged KV pool, with no dense page
 // gather. Layouts (one layer's view of the pool):
@@ -20,7 +22,7 @@
 //   anc_base     [B] int32            a position s with 0 <= s - anc_base[b]
 //   window       int                  < window, query t also needs bit
 //                                     s - anc_base[b] of anc[b, t]
-//   out          [B, KH, TR, D] f32
+//   out          [B, KH, TR, DV] f32   (DV = D outside the latent mode)
 // Scale 1/sqrt(D). A row whose length is 0 returns exact zeros.
 //
 // Bound on the card: bytes. Each live K/V element is read once and used
@@ -63,6 +65,29 @@
 // the T = 1 time per page.
 // Fewer blocks than SMs at small batch (4 slots x 32 heads = 128 blocks)
 // is accepted here: a split over pages with a combine step is later work.
+//
+// Latent mode (v_pages null, bf16/f32 pages): the pool holds one logical
+// KV head, KH = 1, of D = kv_lora_rank + qk_rope_dim = 576 at DeepSeek-V2
+// width, and a token's value is the leading DV = kv_lora_rank = 512 dims
+// of its own row. So a page costs one tile fetch, not two, and the V tile
+// is the K tile read with the same stride. Only the DV value columns are
+// accumulated and written (each is independent of the others). Bound:
+// operations at long lengths, since every page byte serves all T*H = 128
+// query rows (2 x 128 x (576 + 512) flops per 1152 bytes of a bf16 row).
+// Three limits of the plain-mode layout change here:
+//   registers: one thread per column would be 576 threads of ~128
+//     registers, over the 65,536 of a block, so a thread owns
+//     kLatentCols = 2 value columns (256 threads at DV = 512); the freed
+//     V staging registers stage twice as many K vectors;
+//   shared memory: one f32 tile is ~37 KB and the launcher raises the
+//     kernel's dynamic shared memory limit past the default 48 KB when
+//     the rows need it (Hopper allows 227 KB a block);
+//   row groups: decode has T*H = 128 rows on the one head. A block takes
+//     kLatentRows = 4 of them, so a slot's pages are walked by 32 blocks
+//     (128 at 4 slots, about one per SM): each re-stages every page (the
+//     re-reads hit L2), but the walks run side by side. With the plain
+//     modes' 16 rows a block, 32 blocks left 100 SMs idle and ran 3.1-3.5x
+//     slower on an H100 (700 W; scripts/latent_rows.py, PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,7 +99,11 @@
 namespace {
 
 constexpr int kMaxRows = 16;  // query rows per block (a row group)
+constexpr int kLatentRows = 4;  // latent mode: rows per block
 constexpr int kStage = 8;     // 16-byte vectors per thread per K/V tile
+constexpr int kLatentCols = 2;  // latent mode: value columns per thread
+constexpr int kDefaultSmem = 48 * 1024;  // dynamic smem without opting in
+constexpr int kMaxSmem = 232448;         // Hopper's opt-in limit a block
 
 __device__ __forceinline__ void unpack16(const uint4& u, float* o, float) {
   const float* f = reinterpret_cast<const float*>(&u);
@@ -116,7 +145,7 @@ struct TileLoader {
   }
 };
 
-template <typename Page>
+template <typename Page, bool kLatent>
 __global__ void paged_attention_kernel(
     const float* __restrict__ q, const Page* __restrict__ k_pages,
     const Page* __restrict__ v_pages, const float* __restrict__ k_scales,
@@ -124,12 +153,17 @@ __global__ void paged_attention_kernel(
     const int32_t* __restrict__ block_tables,
     const int32_t* __restrict__ live, const int32_t* __restrict__ anc,
     const int32_t* __restrict__ anc_base, int window,
-    float* __restrict__ out, int KH, int TR, int T, int D, int P, int PS,
-    int MP, float scale) {
+    float* __restrict__ out, int KH, int TR, int T, int D, int DV, int P,
+    int PS, int MP, float scale) {
+  // value columns per thread; vectors per thread per tile (the latent
+  // mode stages one tile, so it takes the V tile's registers too)
+  constexpr int kCols = kLatent ? kLatentCols : 1;
+  constexpr int kStg = kLatent ? 2 * kStage : kStage;
+  constexpr int kRows = kLatent ? kLatentRows : kMaxRows;  // a row group
   const int b = blockIdx.x;
   const int kh = blockIdx.y;
-  const int r0 = blockIdx.z * kMaxRows;      // this block's row group
-  const int nr = min(kMaxRows, TR - r0);
+  const int r0 = blockIdx.z * kRows;         // this block's row group
+  const int nr = min(kRows, TR - r0);
   const bool tree = anc != nullptr;
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
@@ -141,7 +175,8 @@ __global__ void paged_attention_kernel(
   extern __shared__ float smem[];
   float* q_s = smem;              // [nr, D]
   float* k_s = q_s + nr * D;      // [PS, D]
-  float* v_s = k_s + PS * D;      // [PS, D]
+  // [PS, D]; the latent mode's value is the K tile (row stride D)
+  float* v_s = kLatent ? k_s : k_s + PS * D;
   float* p_s = v_s + PS * D;      // [nr, PS] scores, then probabilities
   float* m_s = p_s + nr * PS;     // [nr] running max
   float* l_s = m_s + nr;          // [nr] running denominator
@@ -160,9 +195,9 @@ __global__ void paged_attention_kernel(
     len_s[tid] = lengths[b * T + t];
     anc_s[tid] = tree ? anc[b * T + t] : 0;
   }
-  float acc[kMaxRows];
+  float acc[kCols * kRows];  // [column c][row r]
 #pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) acc[r] = 0.f;
+  for (int r = 0; r < kCols * kRows; ++r) acc[r] = 0.f;
   const int n_live = min(max(live[b], 0), MP);
 
   const TileLoader<Page> ld{PS * D / TileLoader<Page>::E, D, KH};
@@ -170,8 +205,8 @@ __global__ void paged_attention_kernel(
   const uint4* vv4 = reinterpret_cast<const uint4*>(v_pages);
   constexpr int E = TileLoader<Page>::E;
   constexpr bool kInt8 = std::is_same<Page, int8_t>::value;
-  uint4 kr[kStage], vr[kStage];
-  float ksr[kStage], vsr[kStage];   // int8 mode: each vector's token scale
+  uint4 kr[kStg], vr[kStg];
+  float ksr[kStg], vsr[kStg];   // int8 mode: each vector's token scale
   // issue every load of page pi's tiles at once (register staging), so a
   // page costs one memory round trip, and the next page's loads are in
   // flight while the current page is computed
@@ -182,12 +217,12 @@ __global__ void paged_attention_kernel(
                              0), P - 1);
     const size_t pbase = (static_cast<size_t>(page) * PS * KH + kh) * D;
 #pragma unroll
-    for (int j = 0; j < kStage; ++j) {
+    for (int j = 0; j < kStg; ++j) {
       const int v = j * nthreads + tid;
       if (v < ld.nvec) {
         const size_t o = ld.offset(v, pbase) / E;
         kr[j] = __ldg(kv4 + o);
-        vr[j] = __ldg(vv4 + o);
+        if (!kLatent) vr[j] = __ldg(vv4 + o);
         if (kInt8) {
           const size_t so = (static_cast<size_t>(page) * PS + v * E / D) * KH
                             + kh;
@@ -202,12 +237,12 @@ __global__ void paged_attention_kernel(
 
   for (int pi = 0; pi < n_live; ++pi) {
 #pragma unroll
-    for (int j = 0; j < kStage; ++j) {
+    for (int j = 0; j < kStg; ++j) {
       const int v = j * nthreads + tid;
       if (v < ld.nvec) {
         float kf[E], vf[E];
         unpack16(kr[j], kf, Page());
-        unpack16(vr[j], vf, Page());
+        if (!kLatent) unpack16(vr[j], vf, Page());
         if (kInt8) {  // dequantise before the f32 contractions
 #pragma unroll
           for (int e = 0; e < E; ++e) {
@@ -221,8 +256,9 @@ __global__ void paged_attention_kernel(
         for (int e = 0; e < E / 4; ++e) {
           kd[e] = make_float4(kf[4 * e], kf[4 * e + 1], kf[4 * e + 2],
                               kf[4 * e + 3]);
-          vd[e] = make_float4(vf[4 * e], vf[4 * e + 1], vf[4 * e + 2],
-                              vf[4 * e + 3]);
+          if (!kLatent)
+            vd[e] = make_float4(vf[4 * e], vf[4 * e + 1], vf[4 * e + 2],
+                                vf[4 * e + 3]);
         }
       }
     }
@@ -280,38 +316,56 @@ __global__ void paged_attention_kernel(
     }
     __syncthreads();
 
-    if (tid < D) {
+    // thread tid owns value columns tid + c * nthreads
 #pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) {
-        if (r < nr) {
-          float a = acc[r] * c_s[r];
-          for (int s = 0; s < PS; ++s)
-            a = fmaf(p_s[r * PS + s], v_s[s * D + tid], a);
-          acc[r] = a;
+    for (int c = 0; c < kCols; ++c) {
+      const int col = tid + c * nthreads;
+      if (col < DV) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          if (r < nr) {
+            float a = acc[c * kRows + r] * c_s[r];
+            for (int s = 0; s < PS; ++s)
+              a = fmaf(p_s[r * PS + s], v_s[s * D + col], a);
+            acc[c * kRows + r] = a;
+          }
         }
       }
     }
     __syncthreads();  // the next page overwrites k_s, v_s and p_s
   }
 
-  if (tid < D) {
-    float* ob = out + row0 * D;
+  float* ob = out + row0 * DV;
 #pragma unroll
-    for (int r = 0; r < kMaxRows; ++r)
-      if (r < nr) ob[r * D + tid] = acc[r] / fmaxf(l_s[r], 1e-30f);
+  for (int c = 0; c < kCols; ++c) {
+    const int col = tid + c * nthreads;
+    if (col < DV) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        if (r < nr)
+          ob[r * DV + col] = acc[c * kRows + r] / fmaxf(l_s[r], 1e-30f);
+    }
   }
 }
 
-template <typename Page>
-void launch(const void* q, const void* k_pages, const void* v_pages,
-            const void* k_scales, const void* v_scales, const void* lengths,
-            const void* block_tables, const void* live, const void* anc,
-            const void* anc_base, int window, void* out, int B, int KH,
-            int TR, int T, int D, int P, int PS, int MP, int threads,
-            size_t smem, cudaStream_t s) {
-  const dim3 grid(B, KH, (TR + kMaxRows - 1) / kMaxRows);
+template <typename Page, bool kLatent>
+int launch(const void* q, const void* k_pages, const void* v_pages,
+           const void* k_scales, const void* v_scales, const void* lengths,
+           const void* block_tables, const void* live, const void* anc,
+           const void* anc_base, int window, void* out, int B, int KH,
+           int TR, int T, int D, int DV, int P, int PS, int MP, int threads,
+           size_t smem, cudaStream_t s) {
+  if (smem > static_cast<size_t>(kDefaultSmem)) {
+    // above 48 KB only after opting in (per kernel, per device)
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_attention_kernel<Page, kLatent>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int rows = kLatent ? kLatentRows : kMaxRows;   // a row group
+  const dim3 grid(B, KH, (TR + rows - 1) / rows);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  paged_attention_kernel<Page><<<grid, threads, smem, s>>>(
+  paged_attention_kernel<Page, kLatent><<<grid, threads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const Page*>(k_pages),
       static_cast<const Page*>(v_pages), static_cast<const float*>(k_scales),
       static_cast<const float*>(v_scales),
@@ -319,7 +373,8 @@ void launch(const void* q, const void* k_pages, const void* v_pages,
       static_cast<const int32_t*>(block_tables),
       static_cast<const int32_t*>(live), static_cast<const int32_t*>(anc),
       static_cast<const int32_t*>(anc_base), window,
-      static_cast<float*>(out), KH, TR, T, D, P, PS, MP, scale);
+      static_cast<float*>(out), KH, TR, T, D, DV, P, PS, MP, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -328,35 +383,58 @@ void launch(const void* q, const void* k_pages, const void* v_pages,
 // page_kind: 0 f32 pages, 1 bf16 pages, 2 int8 pages with f32 scales
 // (k_scales/v_scales, null in the other modes). anc/anc_base non-null
 // select the tree mode (with the fed window's width), on any page kind.
+// v_pages null selects the latent mode (KH = 1, bf16/f32 pages, the
+// leading DV <= D columns of each row are its value); elsewhere DV = D.
 extern "C" int paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages, int page_kind,
     const void* k_scales, const void* v_scales, const void* lengths,
     const void* block_tables, const void* live, const void* anc,
     const void* anc_base, int window, void* out, int B, int KH, int TR,
-    int T, int D, int P, int PS, int MP, void* stream) {
-  const int threads = ((D + 31) / 32) * 32;
+    int T, int D, int DV, int P, int PS, int MP, void* stream) {
+  const bool latent = v_pages == nullptr;
+  const int threads = latent
+      ? ((DV + kLatentCols - 1) / kLatentCols + 31) / 32 * 32
+      : ((D + 31) / 32) * 32;
+  const int stage = latent ? 2 * kStage : kStage;
   const int vec = page_kind == 2 ? 16 : page_kind == 1 ? 8 : 4;
   if (page_kind < 0 || page_kind > 2 || TR < 1 || T < 1 || TR % T != 0
-      || D > 1024 || D % vec != 0 || PS * D / vec > kStage * threads
+      || D > 1024 || D % vec != 0 || PS * D / vec > stage * threads
       || (page_kind == 2 && (k_scales == nullptr || v_scales == nullptr))
-      || (anc == nullptr) != (anc_base == nullptr) || window < 0)
+      || (anc == nullptr) != (anc_base == nullptr) || window < 0
+      || (latent ? (page_kind == 2 || KH != 1 || DV < 1 || DV > D)
+                 : DV != D))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = TR < kMaxRows ? TR : kMaxRows;   // rows per block
+  const int group = latent ? kLatentRows : kMaxRows;
+  const int rows = TR < group ? TR : group;   // rows per block
   const size_t smem =
-      sizeof(float) * (static_cast<size_t>(rows) * D + 2 * PS * D
-                       + rows * PS + 3 * rows);
+      sizeof(float) * (static_cast<size_t>(rows) * D
+                       + (latent ? 1 : 2) * PS * D + rows * PS + 3 * rows);
+  if (smem > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (latent) {
+    if (page_kind == 1)
+      return launch<__nv_bfloat16, true>(
+          q, k_pages, nullptr, nullptr, nullptr, lengths, block_tables,
+          live, anc, anc_base, window, out, B, KH, TR, T, D, DV, P, PS, MP,
+          threads, smem, s);
+    return launch<float, true>(q, k_pages, nullptr, nullptr, nullptr,
+                               lengths, block_tables, live, anc, anc_base,
+                               window, out, B, KH, TR, T, D, DV, P, PS, MP,
+                               threads, smem, s);
+  }
   if (page_kind == 2)
-    launch<int8_t>(q, k_pages, v_pages, k_scales, v_scales, lengths,
-                   block_tables, live, anc, anc_base, window, out, B, KH,
-                   TR, T, D, P, PS, MP, threads, smem, s);
-  else if (page_kind == 1)
-    launch<__nv_bfloat16>(q, k_pages, v_pages, nullptr, nullptr, lengths,
-                          block_tables, live, anc, anc_base, window, out, B,
-                          KH, TR, T, D, P, PS, MP, threads, smem, s);
-  else
-    launch<float>(q, k_pages, v_pages, nullptr, nullptr, lengths,
-                  block_tables, live, anc, anc_base, window, out, B, KH, TR,
-                  T, D, P, PS, MP, threads, smem, s);
-  return static_cast<int>(cudaGetLastError());
+    return launch<int8_t, false>(q, k_pages, v_pages, k_scales, v_scales,
+                                 lengths, block_tables, live, anc, anc_base,
+                                 window, out, B, KH, TR, T, D, DV, P, PS,
+                                 MP, threads, smem, s);
+  if (page_kind == 1)
+    return launch<__nv_bfloat16, false>(
+        q, k_pages, v_pages, nullptr, nullptr, lengths, block_tables, live,
+        anc, anc_base, window, out, B, KH, TR, T, D, DV, P, PS, MP, threads,
+        smem, s);
+  return launch<float, false>(q, k_pages, v_pages, nullptr, nullptr,
+                              lengths, block_tables, live, anc, anc_base,
+                              window, out, B, KH, TR, T, D, DV, P, PS, MP,
+                              threads, smem, s);
 }

@@ -124,6 +124,12 @@ class InferenceEngine:
                 f"family {cfg.family!r} lacks prefill/paged-cache support")
         self._spec_tree = engine_cfg.spec_fanout is not None
         self.spec = engine_cfg.spec_k > 0 or self._spec_tree
+        if self.spec and cfg.family != "dense":
+            # the draft/verify rounds and the accepted-path compaction
+            # move K/V pages; the latent pool's are a later slice
+            raise NotImplementedError(
+                f"speculative decoding on family {cfg.family!r} is not yet "
+                f"ported (ROADMAP A.12)")
         if self.spec and draft_params is None:
             raise ValueError("speculative decoding requires draft_params "
                              "(the same weights under a draft profile: "

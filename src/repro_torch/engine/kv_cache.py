@@ -2,7 +2,8 @@
 tables + a refcounted free-list allocator (DESIGN.md §3.2).
 
 The device pool is allocated ONCE (``api.init_paged_cache``: torch tensors
-[L, P, page_size, KH, D] on the model's device) and never resized; the
+[L, P, page_size, ...] on the model's device: K and V pages, or the MLA
+latent pages) and never resized; the
 prefill and decode steps write it IN PLACE. Requests borrow pages and
 return them on completion, so cache memory is bounded and fragmentation-
 free regardless of how many requests stream through. Block-table entries
@@ -130,7 +131,7 @@ class PagedKVCache:
         self.sentinel = self.num_pages
         self.data = api.init_paged_cache(cfg, self.num_pages, page_size,
                                          device=device)
-        self.device = self.data["k_pages"].device
+        self.device = next(iter(self.data.values())).device
         self.allocator = PageAllocator(self.num_pages)
         self.block_tables = np.full((num_slots, self.max_pages_per_slot),
                                     self.sentinel, np.int32)

@@ -11,7 +11,8 @@ import torch
 
 from repro_torch.core.bsr import BSRMatrix
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels.gqsa_gemv import MAX_GEMV_BATCH, gqsa_gemv_cuda
+from repro_torch.kernels.gqsa_gemv import (MAX_GEMV_BATCH, gqsa_gemv_cuda,
+                                           gqsa_gemv_experts_cuda)
 from repro_torch.kernels.paged_attention import paged_attention_cuda
 from repro_torch.kernels.w4_matmul import w4_matmul_cuda
 
@@ -38,6 +39,30 @@ def gqsa_gemv(x: torch.Tensor, bsr: BSRMatrix, *,
         return gqsa_gemv_cuda(x, bsr)
     return torch.cat([gqsa_gemv_cuda(x[i:i + MAX_GEMV_BATCH], bsr)
                       for i in range(0, b, MAX_GEMV_BATCH)], dim=0)
+
+
+def gqsa_gemv_experts(x: torch.Tensor, bsr: BSRMatrix,
+                      rows: torch.Tensor = None, *,
+                      plain: bool = False) -> torch.Tensor:
+    """The routed experts' products: y [E, C, N] f32 with y[e] = x[e]
+    [C, K] @ dense(expert e of the stacked bsr).T, any C.
+
+    ``rows`` [E]: how many leading buffer rows of each expert hold
+    tokens; the others come out as zeros, and on the card an expert with
+    none is not read. On the card the C rows go through the kernel's
+    expert axis in chunks of ``MAX_GEMV_BATCH``, one launch each, all
+    writing one output."""
+    if _use_plain(x, plain, "gqsa_gemv_experts"):
+        return kref.gqsa_gemv_experts_ref(x, bsr, rows)
+    x = x.contiguous()
+    if rows is not None:
+        rows = rows.to(torch.int32).contiguous()
+    c = x.shape[1]
+    y = None
+    for c0 in range(0, c, MAX_GEMV_BATCH):
+        y = gqsa_gemv_experts_cuda(x, bsr, rows, y, c0,
+                                   min(MAX_GEMV_BATCH, c - c0))
+    return y
 
 
 def paged_query_prep(lengths, block_tables: torch.Tensor, b: int, t: int,
@@ -109,9 +134,39 @@ def w4_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
     return w4_matmul_cuda(x.contiguous(), qw, scale, zero, group_size)
 
 
-def paged_latent_attention(*args, **kwargs):
-    raise NotImplementedError(
-        "paged latent (MLA) attention is not yet ported (ROADMAP B.6)")
+def paged_latent_attention(q, lat_pages, lengths, block_tables, *,
+                           v_rank: int, anc=None, anc_base=None,
+                           anc_window: int = 0, plain: bool = False,
+                           prep=None):
+    """Decode attention on the paged MLA latent pool (the kernel's latent
+    mode).
+
+    q: [B, T, H, R + rope] absorbed-W_UK queries, pre-scaled by
+    sqrt(fake/true) (``models/mla.py:absorbed_q``; the kernel divides by
+    sqrt(R + rope)); lat_pages: [P, ps, R + rope], one logical KV head of
+    post-norm c_kv ++ post-RoPE k_rope per token; lengths / block_tables
+    / ``anc`` as :func:`paged_decode_attention`. Returns the latent
+    context [B, T, H, v_rank] f32: a token's value is the leading
+    ``v_rank`` (= kv_lora_rank) dims of its row, and W_UV is applied by
+    the caller after attention. ``prep``: :func:`paged_query_prep` of
+    these lengths, when the caller already has it."""
+    if _use_plain(q, plain, "paged_latent_attention"):
+        return kref.paged_latent_attention_ref(
+            q, lat_pages, lengths, block_tables, v_rank, anc=anc,
+            anc_base=anc_base, anc_window=anc_window)
+    b, t, h, d = q.shape
+    lq, live = prep if prep is not None else paged_query_prep(
+        lengths, block_tables, b, t, lat_pages.shape[1])
+    # kernel row layout: [B, KH=1, T*H, D], T-major inside the row dim
+    qh = q.reshape(b, 1, t * h, d).float().contiguous()
+    if anc is not None:
+        anc = anc.to(torch.int32).expand(b, t).contiguous()
+        anc_base = anc_base.to(torch.int32).contiguous()
+    o = paged_attention_cuda(qh, lat_pages[:, :, None, :], None, lq,
+                             block_tables.to(torch.int32).contiguous(),
+                             live, t, anc=anc, anc_base=anc_base,
+                             window=anc_window, v_rank=v_rank)
+    return o.reshape(b, t, h, v_rank)
 
 
 def kv_decode_attention(*args, **kwargs):

@@ -1,18 +1,23 @@
-"""Paged decode attention (plain, int8 and tree modes): the wrapper of
-the hand-written CUDA kernel (``repro_torch/csrc/paged_attention.cu``).
-Its plain PyTorch version is ``kernels/ref.py:paged_attention_ref``.
+"""Paged decode attention (plain, int8, tree and latent modes): the
+wrapper of the hand-written CUDA kernel
+(``repro_torch/csrc/paged_attention.cu``). Its plain PyTorch versions are
+``kernels/ref.py:paged_attention_ref`` and ``paged_latent_attention_ref``.
 
 Replaces the TPU kernel
 ``src/repro/kernels/paged_attention.py:paged_attention_pallas`` in plain
 mode (bf16/f32 pages), in int8 mode (int8 pages with f32 [P, ps, KH]
 scale pages, ``kv_cache_dtype="int8"``), which decode attention on the
-paged KV pool reaches every step, and in tree mode (ancestor bitmaps over
+paged KV pool reaches every step, in tree mode (ancestor bitmaps over
 the fed window), which token-tree speculation reaches at every draft
-level and verify; its latent mode is not ported yet (no latent pool).
+level and verify, and in latent mode (``v_pages=None``: the MLA latent
+pool, one KV head of D = 576 whose value is its leading ``v_rank`` = 512
+dims), which every DeepSeek-V2 decode step reaches in every layer.
 
-Bound on the H100: bytes. Each live K/V element is read once and used for
-two f32 multiply-adds per query row; the floor is the live K/V bytes
-(int8: codes plus scales) over 3.35 TB/s.
+Bound on the H100: bytes in the plain, int8 and tree modes. Each live K/V
+element is read once and used for two f32 multiply-adds per query row;
+the floor is the live K/V bytes (int8: codes plus scales) over 3.35 TB/s.
+The latent mode is bound by operations at long lengths: each 1152-byte
+bf16 row serves all T*H = 128 query rows (~0.28 MFLOP per row).
 
 Design: one block per (slot, KV head) walks that slot's live pages in
 order with an online softmax in f32, staging each page's K and V tiles in
@@ -22,7 +27,16 @@ dequantized (code * scale) as they are staged (details in the CUDA
 source). A block takes at most ``MAX_ROWS`` query rows; more rows (a
 tree verify of up to 31 tokens) take more row groups, each walking the
 slot's pages again. At decode batch 4 x 32 heads the grid has fewer blocks
-than the card has SMs; a split over pages is later work.
+than the card has SMs; a split over pages is later work. The launcher
+opts in past 48 KB of shared memory for any mode whose tiles need it, up
+to ``SMEM_LIMIT``.
+
+The latent mode stages one tile per page (V is K), gives each thread
+``LATENT_COLS`` value columns (576 threads of one column each would
+exceed a block's registers) and takes ``LATENT_ROWS`` rows a block (46 KB
+of shared memory at D = 576): decode's 128 rows make 32 row groups a
+slot, 128 blocks at 4 slots, so the slots' page walks fill the card (16
+rows a block left 100 of its 132 SMs idle and ran 3.1-3.5x slower).
 """
 from __future__ import annotations
 
@@ -36,8 +50,10 @@ from repro_torch.kernels.build import load
 
 MAX_ROWS = 16           # query rows per block (more: more row groups)
 MAX_HEAD_DIM = 1024
-SMEM_LIMIT = 48 * 1024  # dynamic shared memory without an opt-in
+SMEM_LIMIT = 232448     # dynamic shared memory a block may opt in to
 STAGE = 8               # 16-byte loads per thread per K/V page tile
+LATENT_COLS = 2         # latent mode: value columns per thread
+LATENT_ROWS = 4         # latent mode: query rows per block
 
 
 @functools.lru_cache(maxsize=None)
@@ -45,7 +61,7 @@ def _launcher():
     fn = load("paged_attention").paged_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 7 + [ctypes.c_int]
-                   + [ctypes.c_void_p] + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -68,14 +84,16 @@ PAGE_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
-                         v_pages: torch.Tensor, lengths: torch.Tensor,
+                         v_pages: Optional[torch.Tensor],
+                         lengths: torch.Tensor,
                          block_tables: torch.Tensor, live: torch.Tensor,
                          t: int, k_scale_pages: Optional[torch.Tensor] = None,
                          v_scale_pages: Optional[torch.Tensor] = None,
                          anc: Optional[torch.Tensor] = None,
                          anc_base: Optional[torch.Tensor] = None,
-                         window: int = 0) -> torch.Tensor:
-    """out [B, KH, T*R, D] f32 on the card.
+                         window: int = 0, v_rank: int = 0) -> torch.Tensor:
+    """out [B, KH, T*R, D] f32 on the card ([B, 1, T*H, v_rank] in the
+    latent mode).
 
     q: [B, KH, T*R, D] f32 (T-major rows); k/v_pages: [P, ps, KH, D] bf16
     or f32 (plain mode), or int8 with f32 [P, ps, KH] ``k/v_scale_pages``
@@ -83,16 +101,28 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     (entries >= P are sentinels); live: [B] int32 live page counts.
     Tree mode: ``anc`` [B, T] int32 ancestor bitmaps, ``anc_base`` [B]
     int32 window bases and the fed ``window`` width, on any page type.
+    Latent mode: ``v_pages=None``, k_pages the latent pool [P, ps, 1, D]
+    (bf16 or f32), each row's value its leading ``v_rank`` dims; it takes
+    the tree mode's operands too.
     Plain-mode launches count in ``launches``, int8-mode launches in
     ``int8_launches``, tree-mode launches (any page type) in
-    ``tree_launches``."""
+    ``tree_launches``, latent-mode launches (tree or not) in
+    ``latent_launches``."""
     b, khn, tr, d = q.shape
     p, ps = k_pages.shape[0], k_pages.shape[1]
     mp = block_tables.shape[1]
+    latent = v_pages is None
+    dv = v_rank if latent else d
     if tr % t or d > MAX_HEAD_DIM:
         raise ValueError(f"paged_attention_cuda takes T*R rows (a multiple "
                          f"of T) and D <= {MAX_HEAD_DIM}, got T*R={tr}, "
                          f"T={t}, D={d}")
+    if latent and (k_pages.dtype == torch.int8 or khn != 1
+                   or not 1 <= v_rank <= d):
+        raise NotImplementedError(
+            "paged_attention_cuda: the latent mode takes one KV head of "
+            "bf16/f32 pages and 1 <= v_rank <= D (int8 latent pages are "
+            "not supported, as in the reference)")
     tree = anc is not None
     if tree != (anc_base is not None) or window < 0:
         raise ValueError("paged_attention_cuda: the tree mode takes anc, "
@@ -104,7 +134,8 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          "pages, bf16/f32 pages take none")
     _check(q, "q", (torch.float32,), (b, khn, tr, d))
     _check(k_pages, "k_pages", tuple(PAGE_KINDS), (p, ps, khn, d))
-    _check(v_pages, "v_pages", (k_pages.dtype,), (p, ps, khn, d))
+    if not latent:
+        _check(v_pages, "v_pages", (k_pages.dtype,), (p, ps, khn, d))
     if int8:
         _check(k_scale_pages, "k_scale_pages", (torch.float32,), (p, ps, khn))
         _check(v_scale_pages, "v_scale_pages", (torch.float32,), (p, ps, khn))
@@ -114,32 +145,41 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     if tree:
         _check(anc, "anc", (torch.int32,), (b, t))
         _check(anc_base, "anc_base", (torch.int32,), (b,))
-    rows = min(tr, MAX_ROWS)
-    smem = 4 * (rows * d + 2 * ps * d + rows * ps + 3 * rows)
+    rows = min(tr, LATENT_ROWS if latent else MAX_ROWS)
+    tiles = 1 if latent else 2                 # the latent V is the K tile
+    smem = 4 * (rows * d + tiles * ps * d + rows * ps + 3 * rows)
     vec = 16 // k_pages.element_size()         # elements per 16-byte load
-    threads = -(-d // 32) * 32
-    if smem > SMEM_LIMIT or d % vec or ps * d // vec > STAGE * threads:
+    if latent:
+        cols = -(-dv // LATENT_COLS)       # threads holding value columns
+        threads, stage = -(-cols // 32) * 32, 2 * STAGE
+    else:
+        threads, stage = -(-d // 32) * 32, STAGE
+    if smem > SMEM_LIMIT or d % vec or ps * d // vec > stage * threads:
         raise ValueError(f"paged_attention_cuda: page size {ps} x head dim "
                          f"{d} does not fit the kernel's staging "
                          f"({smem} bytes of shared memory, {vec}-element "
                          f"vectors)")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+    if k_pages.data_ptr() % 16 or (not latent and v_pages.data_ptr() % 16):
         raise ValueError("paged_attention_cuda: pages must be 16-byte "
                          "aligned (vector loads)")
-    out = torch.empty((b, khn, tr, d), dtype=torch.float32, device=q.device)
-    rc = _launcher()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+    out = torch.empty((b, khn, tr, dv), dtype=torch.float32,
+                      device=q.device)
+    rc = _launcher()(q.data_ptr(), k_pages.data_ptr(),
+                     None if latent else v_pages.data_ptr(),
                      PAGE_KINDS[k_pages.dtype],
                      k_scale_pages.data_ptr() if int8 else None,
                      v_scale_pages.data_ptr() if int8 else None,
                      lengths.data_ptr(), block_tables.data_ptr(),
                      live.data_ptr(), anc.data_ptr() if tree else None,
                      anc_base.data_ptr() if tree else None, window,
-                     out.data_ptr(), b, khn, tr, t, d, p, ps, mp,
+                     out.data_ptr(), b, khn, tr, t, d, dv, p, ps, mp,
                      torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"paged_attention kernel launch failed: CUDA error {rc}")
-    if tree:
+    if latent:
+        paged_attention_cuda.latent_launches += 1
+    elif tree:
         paged_attention_cuda.tree_launches += 1
     elif int8:
         paged_attention_cuda.int8_launches += 1
@@ -151,3 +191,4 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
 paged_attention_cuda.launches = 0        # plain mode (bf16/f32 pages)
 paged_attention_cuda.int8_launches = 0   # int8 mode
 paged_attention_cuda.tree_launches = 0   # tree mode (any page type)
+paged_attention_cuda.latent_launches = 0  # latent mode (tree or not)

@@ -2,9 +2,9 @@
 oracles that the CUDA kernels are held against on the card.
 
 Same math as the reference's oracles (``src/repro/kernels/ref.py``), with
-one deliberate difference: a paged-attention row whose length is 0 returns
-exact zeros, as both the TPU and the CUDA kernels do, where the
-reference's oracle returns NaN.
+one deliberate difference: a paged-attention row (plain or latent) whose
+length is 0 returns exact zeros, as both the TPU and the CUDA kernels do,
+where the reference's oracle returns NaN.
 """
 from __future__ import annotations
 
@@ -13,6 +13,26 @@ import torch
 
 from repro_torch.core.bsr import BSRMatrix, to_dense
 from repro_torch.core.quant import unpack_int4
+
+
+def gqsa_gemv_experts_ref(x: torch.Tensor, bsr: BSRMatrix,
+                          rows: torch.Tensor = None) -> torch.Tensor:
+    """The routed experts' products: x [E, C, K] -> y [E, C, N] f32 with
+    y[e] = :func:`gqsa_gemv_ref` (x[e], expert e of the stacked ``bsr``
+    ([E, N, M] leaves)). One expert at a time, so at most one expert's
+    dense f32 operand exists (31 MB at DeepSeek-V2 width; all 160 at once
+    would be 5 GB per projection). ``rows`` [E]: rows at or past
+    ``rows[e]`` are zeros (the kernel skips them); every expert is
+    computed either way."""
+    e, c, _ = x.shape
+    y = torch.empty((e, c, bsr.shape[0]), dtype=torch.float32,
+                    device=x.device)
+    for i in range(e):
+        y[i] = gqsa_gemv_ref(x[i], bsr.layer(i))
+    if rows is not None:
+        keep = torch.arange(c, device=x.device)[None, :] < rows[:, None]
+        y = torch.where(keep[..., None], y, 0.0)
+    return y
 
 
 def gqsa_gemv_ref(x: torch.Tensor, bsr: BSRMatrix) -> torch.Tensor:
@@ -78,6 +98,31 @@ def paged_attention_ref(q, k_pages, v_pages, lengths, block_tables,
     p = torch.where(valid, torch.softmax(sco, dim=-1), 0.0)
     o = torch.einsum("bkrts,bskd->btkrd", p, v)
     return o.reshape(b, t, h, d)
+
+
+def paged_latent_attention_ref(q, lat_pages, lengths, block_tables,
+                               v_rank: int, *, anc=None, anc_base=None,
+                               anc_window: int = 0):
+    """The MLA latent pool's attention: one logical KV head whose value is
+    the leading ``v_rank`` dims of the same row (no V pool).
+
+    q: [B, T, H, D] absorbed, pre-scaled queries (D = R + rope); lat_pages:
+    [P, ps, D]; lengths / block_tables / ``anc`` as in
+    :func:`paged_attention_ref` (sentinels clamp to P - 1, scale
+    1/sqrt(D)). Returns [B, T, H, v_rank] f32; rows of length 0 are zeros
+    (the reference's oracle returns NaN there, its kernel zeros)."""
+    from repro_torch.models.layers import ancestor_mask
+    b, t, h, d = q.shape
+    num_pages = lat_pages.shape[0]
+    bt = block_tables.long().clamp(0, num_pages - 1)
+    k = lat_pages[bt].reshape(b, -1, d).float()             # [B, S, D]
+    s = k.shape[1]
+    sco = torch.einsum("bthd,bsd->bhts", q.float(), k) * attention_scale(d)
+    valid = ancestor_mask(lengths, anc, anc_base, anc_window, b, t,
+                          s)[:, None]                       # [B,1,T,S]
+    sco = torch.where(valid, sco, -torch.inf)
+    p = torch.where(valid, torch.softmax(sco, dim=-1), 0.0)
+    return torch.einsum("bhts,bsd->bthd", p, k[..., :v_rank])
 
 
 def tree_attention_ref(q, k_pages, v_pages, lengths, block_tables, anc,

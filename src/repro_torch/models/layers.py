@@ -34,6 +34,13 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
+def rope_dim(cfg) -> int:
+    """Width of the rotated part of a head: the whole head of the dense
+    family, the ``qk_rope`` parts of MLA (64 at DeepSeek-V2 width, where
+    ``cfg.hd`` = d_model / n_heads = 40 is not a head width at all)."""
+    return cfg.mla.qk_rope_dim if cfg.family == "mla_moe" else cfg.hd
+
+
 def rope_table(positions: torch.Tensor, head_dim: int,
                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """(cos, sin), each [..., S, 1, D/2], for :func:`apply_rope`. Every
@@ -62,10 +69,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor) -> torch.Tensor:
-    """q: [B, S, H, D]; k, v: [B, S, KH, D]; H % KH == 0. Returns
-    [B, S, H, D] in q's dtype; scores, softmax and sums in f32."""
+    """q, k: [B, S, H | KH, D]; v: [B, S, KH, Dv]; H % KH == 0. Returns
+    [B, S, H, Dv] in q's dtype; scores, softmax and sums in f32, scale
+    1/sqrt(D) (MLA prefill: D = nope + rope = 192, Dv = 128)."""
     b, s, h, d = q.shape
-    kh = k.shape[2]
+    kh, dv = k.shape[2], v.shape[-1]
     r = h // kh
     qh = q.reshape(b, s, kh, r, d).permute(0, 2, 3, 1, 4).float()
     kk = k.permute(0, 2, 1, 3).float()[:, :, None]           # [B,KH,1,S,D]
@@ -73,8 +81,8 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor,
     sco = (qh @ kk.transpose(-1, -2)) * attention_scale(d)   # [B,KH,R,S,S]
     causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
     sco = sco.masked_fill(~causal, -torch.inf)
-    o = torch.softmax(sco, dim=-1) @ vv                      # [B,KH,R,S,D]
-    return o.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+    o = torch.softmax(sco, dim=-1) @ vv                      # [B,KH,R,S,Dv]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, s, h, dv).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -272,7 +280,7 @@ def paged_step(block_tables: torch.Tensor, positions: torch.Tensor, t: int,
     flat, valid = page_slots(block_tables, pos_bt, page_size, num_pages)
     return PagedStep(
         block_tables=block_tables, length=length,
-        rope=rope_table(rope_pos, cfg.hd, cfg.rope_theta),
+        rope=rope_table(rope_pos, rope_dim(cfg), cfg.rope_theta),
         write=plan_page_write(flat, valid),
         kernel_prep=kops.paged_query_prep(length, block_tables,
                                           positions.shape[0], t, page_size),

@@ -6,8 +6,8 @@
     logits, cache = api.prefill(params, cache, tokens, lengths, tables, cfg)
     logits, cache = api.decode_step(params, cache, tok, pos, cfg, tables)
 
-Only the dense family is ported so far; the reference's other families are
-later slices (ROADMAP A.12, A.14).
+The dense and MLA + MoE (``mla_moe``) families are ported; the
+reference's other families are later slices (ROADMAP A.12, A.14).
 """
 from __future__ import annotations
 
@@ -31,11 +31,10 @@ class ModelAPI:
         return self.init_paged_cache is not None and self.prefill is not None
 
 
-_FAMILIES: Dict[str, ModelAPI] = {
-    "dense": ModelAPI(transformer.init_params, transformer.decode_step,
-                      init_paged_cache=transformer.init_paged_cache,
-                      prefill=transformer.prefill),
-}
+_DECODER = ModelAPI(transformer.init_params, transformer.decode_step,
+                    init_paged_cache=transformer.init_paged_cache,
+                    prefill=transformer.prefill)
+_FAMILIES: Dict[str, ModelAPI] = {"dense": _DECODER, "mla_moe": _DECODER}
 
 
 def paged_families() -> List[str]:

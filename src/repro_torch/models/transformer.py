@@ -1,11 +1,13 @@
-"""Decoder-only LM, dense family: init, batched prefill into the paged KV
-pool, and the fused decode step.
+"""Decoder-only LM, dense and MLA + MoE (``mla_moe``) families: init,
+batched prefill into the paged pool, and the fused decode step.
 
 Parameters keep the reference's tree layout: nested dicts whose per-layer
 leaves are stacked [L, ...] (``params["layers"]["attn"]["wq"]["w"]`` is
 [L, N, K]; a packed layer holds ``{"bsr": BSRMatrix}`` or dense W4
-``{"qw", "scale", "zero"}`` with stacked leaves). The layer loop is a
-Python loop over slices of those leaves.
+``{"qw", "scale", "zero"}`` with stacked leaves; the routed experts of
+``params["layers"]["moe"]["experts"]`` are stacked [L, E, ...]). The layer
+loop is a Python loop over slices of those leaves. ``mla_moe`` pages one
+latent pool (``{"lat_pages"}``), the dense family a K and a V pool.
 """
 from __future__ import annotations
 
@@ -21,20 +23,72 @@ from repro_torch.core.model_compress import (Compression, StackedPacker,
                                              draft_compression, draft_layers,
                                              slice_packer)
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _linear_shapes(cfg) -> Dict[str, Dict[str, Tuple[int, int]]]:
-    d, h, khn, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    mlp = {"wg": (cfg.d_ff, d), "wu": (cfg.d_ff, d), "wd": (d, cfg.d_ff)}
-    if cfg.mlp_type != "swiglu":
-        del mlp["wg"]
-    return {"attn": {"wq": (h * hd, d), "wk": (khn * hd, d),
-                     "wv": (khn * hd, d), "wo": (d, h * hd)},
-            "mlp": mlp}
+def _layer_weights(cfg) -> List[Tuple[Tuple[str, ...], Tuple[int, ...],
+                                        float, str]]:
+    """``(path, per-layer shape, init scale, kind)`` of every drawn
+    per-layer weight, in draw order (the reference's layout and scales).
+    kind: "linear" ({"w"}, packed under a compression), "experts" (an
+    [E, N, K] stack of linears, packed one expert at a time), "fp" (a
+    linear that stays FP: the router), "raw" (a bare tensor: MLA's
+    w_uk / w_uv)."""
+    d, h = cfg.d_model, cfg.n_heads
+
+    def lin(path, n, k, kind="linear"):
+        return (path, (n, k), 1.0 / math.sqrt(k), kind)
+
+    if cfg.family == "mla_moe":
+        m, moe = cfg.mla, cfg.moe
+        r, de = m.kv_lora_rank, moe.d_expert
+        ds = moe.n_shared * de
+        out = [lin(("attn", "w_qa"), m.q_lora_rank, d),
+               lin(("attn", "w_qb"), h * (m.qk_nope_dim + m.qk_rope_dim),
+                   m.q_lora_rank),
+               lin(("attn", "w_kva"), r + m.qk_rope_dim, d),
+               (("attn", "w_uk"), (h, m.qk_nope_dim, r), 1.0 / math.sqrt(r),
+                "raw"),
+               (("attn", "w_uv"), (h, m.v_dim, r), 1.0 / math.sqrt(r),
+                "raw"),
+               lin(("attn", "wo"), d, h * m.v_dim),
+               lin(("moe", "router"), moe.n_experts, d, "fp")]
+        # every expert stack, wd included, at 1/sqrt(d_model)
+        out += [(("moe", "experts", name), (moe.n_experts,) + nk,
+                 1.0 / math.sqrt(d), "experts")
+                for name, nk in (("wg", (de, d)), ("wu", (de, d)),
+                                 ("wd", (d, de)))]
+        if moe.n_shared:
+            out += [lin(("moe", "shared", "wg"), ds, d),
+                    lin(("moe", "shared", "wu"), ds, d),
+                    lin(("moe", "shared", "wd"), d, ds)]
+        return out
+    khn, hd = cfg.n_kv_heads, cfg.hd
+    out = [lin(("attn", "wq"), h * hd, d), lin(("attn", "wk"), khn * hd, d),
+           lin(("attn", "wv"), khn * hd, d), lin(("attn", "wo"), d, h * hd)]
+    if cfg.mlp_type == "swiglu":
+        out.append(lin(("mlp", "wg"), cfg.d_ff, d))
+    return out + [lin(("mlp", "wu"), cfg.d_ff, d),
+                  lin(("mlp", "wd"), d, cfg.d_ff)]
+
+
+def _layer_norms(cfg) -> Dict[Tuple[str, ...], int]:
+    """Per-layer norm weights (ones) beside ln1 / ln2."""
+    if cfg.family == "mla_moe":
+        return {("attn", "q_norm"): cfg.mla.q_lora_rank,
+                ("attn", "kv_norm"): cfg.mla.kv_lora_rank}
+    return {}
+
+
+def _set(tree: Dict, path: Tuple[str, ...], value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
 
 
 def init_params(seed: int, cfg, device=None,
@@ -43,12 +97,14 @@ def init_params(seed: int, cfg, device=None,
     device: other numbers than the reference's ``PRNGKey`` init, whose
     trees the tests carry over through ``repro_torch.bridge`` instead).
 
-    Linear weights are N(0, 1/K) like the reference's. With ``compress``
-    (a ``GQSAConfig``: packed GQSA; a ``QuantConfig``: dense W4) each
-    layer's linears are packed as soon as they are drawn, one layer at a
-    time, so the full f32 model (26 GB at llama2-7b width) never exists;
-    the result equals ``compress_params(init_params(seed, cfg, device),
-    cfg, gqsa)`` or ``compress_params_w4(..., qcfg)``."""
+    Linear weights are N(0, 1/K) like the reference's (routed experts
+    N(0, 1/d_model), MLA's w_uk / w_uv N(0, 1/kv_lora_rank)). With
+    ``compress`` (a ``GQSAConfig``: packed GQSA; a ``QuantConfig``: dense
+    W4) each layer's linears are packed as soon as they are drawn, one
+    layer (and one routed expert) at a time, so the full f32 model (26 GB
+    at llama2-7b width; one f32 expert stack of DeepSeek-V2 is 5 GB) never
+    exists; the result equals ``compress_params(init_params(seed, cfg,
+    device), cfg, gqsa)`` or ``compress_params_w4(..., qcfg)``."""
     return _draw(seed, cfg, device, [(compress, cfg.n_layers)])[0]
 
 
@@ -72,7 +128,8 @@ def _draw(seed: int, cfg, device, targets) -> List[Dict]:
     """One draw of the weights, packed into one tree per ``(compression
     or None, layer count)`` of ``targets``; every tree holds the leading
     layers of the same draw and the same embedding and head tensors."""
-    if cfg.family != "dense" or cfg.qk_norm or cfg.tie_embeddings:
+    if cfg.family not in ("dense", "mla_moe") or cfg.qk_norm \
+            or cfg.tie_embeddings:
         raise NotImplementedError(
             f"init for family {cfg.family!r} (qk_norm={cfg.qk_norm}, "
             f"tie_embeddings={cfg.tie_embeddings}) is not yet ported")
@@ -87,34 +144,52 @@ def _draw(seed: int, cfg, device, targets) -> List[Dict]:
                            device=dev) * scale
 
     embed = normal((cfg.vocab, d), 0.02)
-    shapes = _linear_shapes(cfg)
+    weights = _layer_weights(cfg)
     packs = [slice_packer(c) if c is not None else None for c, _ in targets]
-    stacks = [{blk: {name: (StackedPacker(nl, pack) if pack else
-                            torch.empty((nl,) + nk, dtype=dt, device=dev))
-                     for name, nk in lin.items()}
-               for blk, lin in shapes.items()}
+
+    def holder(pack, nl, shape, kind):
+        """Where one target keeps a weight: a packer of its slices, or
+        the f32 stack."""
+        if pack and kind == "linear":
+            return StackedPacker(nl, pack)
+        if pack and kind == "experts":
+            return StackedPacker(nl * shape[0], pack)
+        return torch.empty((nl,) + shape, dtype=dt, device=dev)
+
+    stacks = [{path: holder(pack, nl, shape, kind)
+               for path, shape, _, kind in weights}
               for pack, (_, nl) in zip(packs, targets)]
     for i in range(n_layers):
-        for blk, lin in shapes.items():
-            for name, (n, k) in lin.items():
-                w = normal((n, k), 1.0 / math.sqrt(k))
-                for pack, (_, nl), st in zip(packs, targets, stacks):
+        for path, shape, scale, kind in weights:
+            # a routed expert stack is drawn one expert at a time
+            parts = range(shape[0]) if kind == "experts" else [None]
+            for e in parts:
+                w = normal(shape if e is None else shape[1:], scale)
+                for (_, nl), st in zip(targets, stacks):
                     if i >= nl:
                         continue
-                    if pack:
-                        st[blk][name].put(i, w)
+                    h = st[path]
+                    if isinstance(h, StackedPacker):
+                        h.put(i if e is None else i * shape[0] + e, w)
                     else:
-                        st[blk][name][i].copy_(w)
+                        (h[i] if e is None else h[i, e]).copy_(w)
                 del w
     final_norm = torch.ones((d,), dtype=dt, device=dev)
     lm_head = {"w": normal((cfg.vocab, d), 0.02)}
     trees = []
-    for pack, (_, nl), st in zip(packs, targets, stacks):
+    for (_, nl), st in zip(targets, stacks):
         layers = {"ln1": torch.ones((nl, d), dtype=dt, device=dev),
                   "ln2": torch.ones((nl, d), dtype=dt, device=dev)}
-        for blk, lin in st.items():
-            layers[blk] = {name: (s.result((nl,)) if pack else {"w": s})
-                           for name, s in lin.items()}
+        for path, dim in _layer_norms(cfg).items():
+            _set(layers, path, torch.ones((nl, dim), dtype=dt, device=dev))
+        for path, shape, _, kind in weights:
+            h = st[path]
+            if isinstance(h, StackedPacker):
+                node = h.result((nl,) if kind == "linear"
+                                else (nl, shape[0]))
+            else:
+                node = h if kind == "raw" else {"w": h}
+            _set(layers, path, node)
         trees.append({"embed": embed, "layers": layers,
                       "final_norm": final_norm, "lm_head": lm_head})
     return trees
@@ -165,9 +240,18 @@ def init_paged_cache(cfg, num_pages: int, page_size: int,
                      device=None) -> Dict:
     """Paged KV pool [L, P, ps, KH, D], zeroed: in the compute dtype, or,
     with ``cfg.kv_cache_dtype == "int8"``, int8 codes beside f32
-    per-token x head scale pages [L, P, ps, KH]. The steps below write it
-    in place (the reference updates it functionally)."""
+    per-token x head scale pages [L, P, ps, KH]. ``mla_moe`` pages the
+    latent instead: ``{"lat_pages": [L, P, ps, kv_lora_rank +
+    qk_rope_dim]}`` in the compute dtype whatever ``kv_cache_dtype`` says,
+    as in the reference. The steps below write it in place (the reference
+    updates it functionally)."""
     dev = resolve_device(device)
+    if cfg.family == "mla_moe":
+        m = cfg.mla
+        return {"lat_pages": torch.zeros(
+            (cfg.n_layers, num_pages, page_size,
+             m.kv_lora_rank + m.qk_rope_dim), dtype=cfg.compute_dtype,
+            device=dev)}
     shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.hd)
     if cfg.kv_cache_dtype == "int8":
         return {"k_pages": torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -186,6 +270,20 @@ def layer_cache(cache: Dict, i: int) -> Dict:
     return {k: v[i] for k, v in cache.items()}
 
 
+def pool_geometry(cache: Dict) -> Tuple[int, int]:
+    """(num_pages, page_size) of a paged pool of either family."""
+    num_pages, page_size = next(iter(cache.values())).shape[1:3]
+    return num_pages, page_size
+
+
+def _mixer(lp: Dict, hn: torch.Tensor, cfg, plain: bool) -> torch.Tensor:
+    """The layer's feed-forward half: routed + shared experts, or the
+    MLP."""
+    if cfg.moe is not None:
+        return MOE.moe_block(lp["moe"], hn, cfg, plain)
+    return L.mlp_block(lp["mlp"], hn, cfg.mlp_type, plain)
+
+
 def prefill(params: Dict, cache: Dict, tokens: torch.Tensor,
             lengths: torch.Tensor, block_tables: torch.Tensor, cfg,
             plain: bool = False) -> Tuple[torch.Tensor, Dict]:
@@ -196,24 +294,33 @@ def prefill(params: Dict, cache: Dict, tokens: torch.Tensor,
     the compute dtype, as in the reference.
     Returns (logits at each row's last valid token [B, 1, V], cache)."""
     b, s = tokens.shape
-    num_pages, page_size = cache["k_pages"].shape[1:3]
+    num_pages, page_size = pool_geometry(cache)
     h = embed_tokens(params, tokens, cfg)
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None, :].expand(b, s)
     write = L.plan_page_write(*L.page_slots(
         block_tables, positions, page_size, num_pages,
         keep=positions < lengths[:, None]))
-    rope = L.rope_table(positions, cfg.hd, cfg.rope_theta)
+    rope = L.rope_table(positions, L.rope_dim(cfg), cfg.rope_theta)
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         hn = L.rmsnorm(h, lp["ln1"], cfg.norm_eps)
-        q, k, v = L.attn_qkv(lp["attn"], hn, positions, cfg, plain, rope)
-        o = L.causal_attention(q, k, v)
-        h = h + apply_linear(lp["attn"]["wo"], o.reshape(b, s, -1),
-                             plain=plain)
-        L.write_kv_(layer_cache(cache, i), write, k, v)
+        if cfg.family == "mla_moe":
+            # the latent row (post-norm c_kv ++ post-RoPE k_rope) pages
+            # as the one pool
+            a, latent = MLA.mla_prefill_paged(lp["attn"], hn, cfg, rope,
+                                              plain)
+            L.write_pages_(cache["lat_pages"][i], write, latent)
+            h = h + a
+        else:
+            q, k, v = L.attn_qkv(lp["attn"], hn, positions, cfg, plain,
+                                 rope)
+            o = L.causal_attention(q, k, v)
+            h = h + apply_linear(lp["attn"]["wo"], o.reshape(b, s, -1),
+                                 plain=plain)
+            L.write_kv_(layer_cache(cache, i), write, k, v)
         hn = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)
-        h = h + L.mlp_block(lp["mlp"], hn, cfg.mlp_type, plain)
+        h = h + _mixer(lp, hn, cfg, plain)
     last = (lengths.long() - 1).clamp_min(0)
     h_last = h[torch.arange(b, device=h.device), last][:, None]
     return unembed(params, h_last, cfg), cache
@@ -241,7 +348,7 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     if max_live_pages is not None:
         block_tables = block_tables[
             :, :max(1, min(max_live_pages, block_tables.shape[1]))]
-    num_pages, page_size = cache["k_pages"].shape[1:3]
+    num_pages, page_size = pool_geometry(cache)
     # positions, rotations and pool rows are the same in every layer
     step = L.paged_step(block_tables, pos, tokens.shape[1], page_size,
                         num_pages, cfg, tree)
@@ -249,10 +356,15 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         hn = L.rmsnorm(h, lp["ln1"], cfg.norm_eps)
-        h = h + L.attention_decode_paged(lp["attn"], hn,
-                                         layer_cache(cache, i),
-                                         step.block_tables, pos, cfg, plain,
-                                         step)
+        if cfg.family == "mla_moe":
+            h = h + MLA.mla_decode_paged(lp["attn"], hn,
+                                         layer_cache(cache, i), cfg, step,
+                                         plain)
+        else:
+            h = h + L.attention_decode_paged(lp["attn"], hn,
+                                             layer_cache(cache, i),
+                                             step.block_tables, pos, cfg,
+                                             plain, step)
         hn = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)
-        h = h + L.mlp_block(lp["mlp"], hn, cfg.mlp_type, plain)
+        h = h + _mixer(lp, hn, cfg, plain)
     return unembed(params, h, cfg), cache

@@ -248,3 +248,117 @@ def test_w4_matmul_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="shape"):
         w4_matmul_cuda(torch.randn((2, 64), device="cuda"), *args)
     assert w4_matmul_cuda.launches == before
+
+
+def _latent_case(cuda, b, t, h, d, dtype, ps=16, mp=16):
+    """Latent pool over a shuffled table with sentinel tails; slot 1 is
+    all-sentinel with length 0 when b > 2, and a length-0 row sits in the
+    last slot."""
+    num_pages = b * mp + 3
+    q = torch.randn((b, t, h, d), generator=cuda, device="cuda")
+    lat = torch.randn((num_pages, ps, d), generator=cuda,
+                      device="cuda").to(dtype)
+    perm = torch.randperm(num_pages, generator=cuda, device="cuda")
+    bt = perm[:b * mp].reshape(b, mp).to(torch.int32)
+    bt[:, mp - 2:] = num_pages
+    lens = torch.tensor([37, 0, 200, 256 - t - 2 * ps][:b], device="cuda")
+    lens = lens[:, None] + torch.arange(t, device="cuda")[None, :]
+    if b > 2:
+        bt[1] = num_pages
+        lens[1] = 0
+    lens[-1, 0] = 0
+    return q, lat, lens.to(torch.int32), bt
+
+
+@pytest.mark.parametrize("t", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,d,v_rank", [(128, 576, 512), (4, 40, 32),
+                                        (4, 160, 140)])
+def test_paged_attention_kernel_latent_matches_plain(cuda, t, dtype, h, d,
+                                                     v_rank):
+    """Latent mode: one KV head of D = 576 (DeepSeek-V2: 128 rows per
+    decode token, 8 row groups, ~75 KB of shared memory), value = the
+    leading 512 dims; small and ragged widths too."""
+    q, lat, lens, bt = _latent_case(cuda, 4, t, h, d, dtype)
+    before = (paged_attention_cuda.launches,
+              paged_attention_cuda.tree_launches,
+              paged_attention_cuda.latent_launches)
+    o = ops.paged_latent_attention(q, lat, lens, bt, v_rank=v_rank)
+    assert (paged_attention_cuda.launches,
+            paged_attention_cuda.tree_launches,
+            paged_attention_cuda.latent_launches) == (before[0], before[1],
+                                                      before[2] + 1)
+    assert o.shape == (4, t, h, v_rank) and o.dtype == torch.float32
+    ref = ops.paged_latent_attention(q, lat, lens, bt, v_rank=v_rank,
+                                     plain=True)
+    _close(o, ref)
+    assert (o[1] == 0).all() and (o[3, 0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_attention_kernel_latent_tree_matches_plain(cuda, dtype):
+    """The latent mode takes the tree mode's operands, as the reference
+    kernel does: random bitmaps over a (4,2,2)-verify-wide window."""
+    t = 29
+    q, lat, _, bt = _latent_case(cuda, 4, t, 8, 576, dtype)
+    base = torch.tensor([3, 0, 100, 160], dtype=torch.int32, device="cuda")
+    lens = (base + t)[:, None].expand(-1, t).contiguous()
+    lens[1] = 0
+    anc = torch.randint(0, 2 ** 31 - 1, (4, t), generator=cuda,
+                        device="cuda", dtype=torch.int32)
+    kw = dict(v_rank=512, anc=anc, anc_base=base, anc_window=t)
+    o = ops.paged_latent_attention(q, lat, lens, bt, **kw)
+    _close(o, ops.paged_latent_attention(q, lat, lens, bt, plain=True,
+                                         **kw))
+    assert (o[1] == 0).all()
+
+
+def test_paged_attention_kernel_latent_refuses_int8(cuda):
+    q, lat, lens, bt = _latent_case(cuda, 2, 1, 4, 64, torch.float32)
+    with pytest.raises(NotImplementedError, match="int8"):
+        ops.paged_latent_attention(q, lat.to(torch.int8), lens, bt,
+                                   v_rank=32)
+
+
+def _experts(cuda, e, n, k):
+    from repro_torch.core.model_compress import StackedPacker, slice_packer
+    packer = StackedPacker(e, slice_packer(GQSAConfig()))
+    for i in range(e):
+        packer.put(i, torch.randn((n, k), generator=cuda, device="cuda")
+                   / k ** 0.5)
+    return packer.result((e,))["bsr"]
+
+
+@pytest.mark.parametrize("e,n,k", [(160, 5120, 1536), (160, 1536, 5120),
+                                   (8, 96, 64), (5, 300, 512)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gqsa_gemv_experts_kernel_matches_plain(cuda, e, n, k, dtype):
+    """The expert axis: C = 1, 3 and 13 (two launches) buffer rows, with
+    ``rows`` absent and given (idle experts and partly filled buffers):
+    rows at or past rows[e] are exact zeros."""
+    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_experts_cuda
+    bsr = _experts(cuda, e, n, k)
+    for c in (1, 3, 13):
+        x = torch.randn((e, c, k), generator=cuda, device="cuda").to(dtype)
+        rows = torch.randint(0, c + 1, (e,), generator=cuda, device="cuda",
+                             dtype=torch.int32)
+        rows[:2] = 0
+        rows[2] = c
+        for r in (None, rows):
+            before = gqsa_gemv_experts_cuda.launches
+            y = ops.gqsa_gemv_experts(x, bsr, r)
+            assert gqsa_gemv_experts_cuda.launches - before == -(-c // 8)
+            assert y.shape == (e, c, n) and y.dtype == torch.float32
+            _close(y, ops.gqsa_gemv_experts(x, bsr, r, plain=True))
+            if r is not None:
+                idle = torch.arange(c, device="cuda")[None, :] >= r[:, None]
+                assert (y[idle] == 0).all()
+
+
+def test_paged_attention_kernel_above_48kb_of_shared_memory(cuda):
+    """Plain mode at D = 256 with 16 rows a block needs 50 KB of shared
+    memory: the launcher opts in past the default 48 KB."""
+    q, kp, vp, lens, bt = _attn_case(cuda, 2, 2, 8, 256, torch.float32)
+    o = ops.paged_decode_attention(q, kp, vp, lens, bt)
+    _close(o, ops.paged_decode_attention(q, kp, vp, lens, bt, plain=True))
+    assert (o[3] == 0).all() and (o[4, 0] == 0).all()
