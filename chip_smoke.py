@@ -57,6 +57,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -230,6 +231,17 @@ def _attn_case(b, t, lens, dtype, g, kh=32, d=128, ps=16, mp=16):
     return q, kp, vp, lens.to("cuda"), bt, ks, vs
 
 
+def split_note(b, kh, tr, mp, d):
+    """The split walk's plan for these shapes (bf16/f32 pages of 16, plain
+    and tree modes): its split count and workspace, as the wrapper picks
+    them from the shapes alone."""
+    from repro_torch.kernels.paged_attention import (split_count,
+                                                     workspace_floats)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n = split_count(b, kh, tr, mp, sms, 16)
+    return f"split S={n} workspace {4 * workspace_floats(b, kh, tr, d, n)} B"
+
+
 def phase_attention_check():
     """Both modes; returns the worst max-abs error of (plain, int8)."""
     from repro_torch.kernels import ops
@@ -255,8 +267,10 @@ def phase_attention_check():
             err = (o - ref).abs().max().item()
             rel = err / ref.abs().max().item()
             worst[mode] = max(worst[mode], err)
+            plan = ("int8 walk" if mode == "int8"
+                    else split_note(6, 32, t, bt.shape[1], 128))
             log(f"[attn check] pages={str(dtype)[6:]} T={t} KH=32 D=128 "
-                f"ps=16: max_abs_err {err:.3e} rel {rel:.3e}")
+                f"ps=16 ({plan}): max_abs_err {err:.3e} rel {rel:.3e}")
             require(rel <= TOL, f"paged_attention ({mode}) disagrees: "
                                 f"rel {rel}")
     return worst
@@ -412,8 +426,11 @@ def phase_timing(timer):
                 q, kp, vp, lq, bt, ks, vs, plain=True))
             t_l = timer.ms(lambda: F.scaled_dot_product_attention(
                 qs, kk, vv, attn_mask=mask))
+            plan = ("int8 walk" if dtype == torch.int8
+                    else split_note(b, 32, 1, bt.shape[1], 128))
             log(f"[attn time] {label} lengths={lens} B=4 KH=32 D=128 "
-                f"{str(dtype)[6:]} pages: kernel {t_k * 1e3:.1f}us plain "
+                f"{str(dtype)[6:]} pages ({plan}): kernel "
+                f"{t_k * 1e3:.1f}us plain "
                 f"{t_p * 1e3:.1f}us sdpa {t_l * 1e3:.1f}us bound "
                 f"{bound * 1e3:.2f}us ({nbytes / 1e6:.2f} MB) -> "
                 f"{bound / t_k:.0%} of bound")
@@ -646,7 +663,12 @@ def profile_decode(params, cfg, toks, lens, bt, num_pages, ps, steps=8,
         f"device busy {busy:.2f} ms ({busy / (wall * 1e3):.0%}), "
         f"{sum(r[1] for r in rows)} kernels per step")
     for ms, n, name in rows[:12]:
-        log(f"[profile]   {ms:8.3f} ms  x{n:<5d} {name[:70]}")
+        # drop the anonymous namespace of a kernel of the port's csrc
+        short = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+\d+", "", name)
+        log(f"[profile]   {ms:8.3f} ms  x{n:<5d} {short[:70]}")
+    attn = [(ms, n) for ms, n, name in rows if "paged_attention" in name]
+    log(f"[profile]   paged attention, every kernel: "
+        f"{sum(a[0] for a in attn):.3f} ms x{sum(a[1] for a in attn)}")
 
 
 def phase_serve(compress):
@@ -747,7 +769,7 @@ def phase_tree_check():
 def phase_tree_timing(timer):
     """The tree mode at the verify shape of fanout (4, 2, 2): B=4, KH=32,
     D=128, ps=16, T=29, bf16 pages, lengths (base + 29) about 64 and 256;
-    beside it the same slots at T=16 (one row group), the plain version,
+    beside it the same slots at T=16, the plain version,
     SDPA with the boolean ancestor mask on pre-gathered K/V, and the
     bound."""
     import torch.nn.functional as F
@@ -793,8 +815,9 @@ def phase_tree_timing(timer):
         t_l = timer.ms(lambda: F.scaled_dot_product_attention(
             qs, kk, vv, attn_mask=mask))
         log(f"[tree time] verify (4,2,2) T={t} lengths {label} "
-            f"({lens[:, 0].tolist()}) B=4 KH=32 D=128 bf16 pages: kernel "
-            f"{t_k * 1e3:.1f}us (T=16, one row group: {t_16 * 1e3:.1f}us) "
+            f"({lens[:, 0].tolist()}) B=4 KH=32 D=128 bf16 pages "
+            f"({split_note(b, kh, t, bt.shape[1], d)}): kernel "
+            f"{t_k * 1e3:.1f}us (T=16: {t_16 * 1e3:.1f}us) "
             f"plain {t_p * 1e3:.1f}us sdpa(mask) {t_l * 1e3:.1f}us bound "
             f"{bound * 1e3:.2f}us ({nbytes / 1e6:.2f} MB) -> "
             f"{bound / t_k:.0%} of bound")

@@ -1,0 +1,176 @@
+"""Greedy tokens of the main paths of two checkouts, compared on one card.
+
+    python3 scripts/ab_tokens.py parent=/path/to/parent change=. \\
+        [--out build/ab_tokens]
+
+Each checkout runs in a fresh process that imports its own ``repro_torch``
+(so each builds its own kernels) and generates, from full-width llama2-7b
+GQSA W4 S50 G16 with seed 0, 8 requests x 32 new tokens on 4 slots
+(max_seq 256), on five paths:
+  * the serve CLI in bf16 compute, as ``chip_smoke.py`` drives it: plain
+    decode (``--compress gqsa``), tree speculation (``--spec-tree 4,2,2
+    --draft-profile w4l25``) and adaptive tree speculation (``--spec-tree
+    4,2,2 --spec-adaptive --draft-profile w4s75``);
+  * the engine in f32 compute, as ``chip_smoke.py``'s speculation check
+    drives it: plain decode and tree speculation (4,2,2) with draft w4l25.
+It writes each request's tokens to ``<out>/<name>.json``. Then the last
+named checkout, for every request whose tokens differ from the first's,
+finds the first differing token and measures the top-2 logit margin there
+on its own kernel path, teacher-forced on the common prefix
+(``chip_smoke.greedy_margin``, in the path's compute dtype). An f32 path is
+held to ``chip_smoke.SPEC_MARGIN_REL`` x max |logit|. A bf16 path's logits
+are rounded to bf16 (steps of 1/32 at |logit| 4-8), so it is held to the
+bf16 logits bar ``chip_smoke.LOGITS_TOL_BF16`` x max |logit| and its
+margin is also printed in bf16 steps. Prints one ``TOKENS`` line a path and
+one ``DIFF`` line a differing request; exits 1 if a request differs at a
+margin above its path's bound.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+BASE = ["--full", "--compress", "gqsa", "--slots", "4", "--requests", "8",
+        "--max-new", "32", "--max-seq", "256", "--seed", "0"]
+SERVE = {"gqsa bf16 serve": [],
+         "tree bf16 serve": ["--spec-tree", "4,2,2", "--draft-profile",
+                             "w4l25"],
+         "adaptive bf16 serve": ["--spec-tree", "4,2,2", "--spec-adaptive",
+                                 "--draft-profile", "w4s75"]}
+ENGINE = {"gqsa f32 engine": {},
+          "tree f32 engine": {"spec_fanout": (4, 2, 2)}}
+
+
+def _import(root: str):
+    root = os.path.abspath(root)
+    sys.path[:0] = [os.path.join(root, "src"), root]
+    import chip_smoke as cs
+    if not cs.__file__.startswith(root):
+        raise RuntimeError(f"imported {cs.__file__}, not {root}")
+    return cs
+
+
+def _f32_config():
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config("llama2_7b"), dtype="float32")
+
+
+def serve_tokens(name: str, root: str, out: str) -> None:
+    import contextlib
+    import io
+    import torch
+    cs = _import(root)
+    from repro_torch.core.gqs_layer import GQSAConfig
+    from repro_torch.core.model_compress import draft_layers
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    tokens = {}
+    for path, extra in SERVE.items():
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = serve.main(BASE + extra)
+        by = sorted(res["results"], key=lambda r: r["rid"])
+        tokens[path] = [[int(x) for x in r["tokens"]] for r in by]
+        print(f"TOKENS {name} {path}: {len(by)} requests", flush=True)
+    cfg = _f32_config()
+    params, draft = tf.init_params_and_draft(0, cfg, "w4l25", "cuda",
+                                             compress=GQSAConfig())
+    for path, spec in ENGINE.items():
+        kw = dict(spec, spec_draft_layers=draft_layers(cfg, "w4l25")) \
+            if spec else {}
+        _, toks, _, _, _ = cs._engine_run(cfg, params,
+                                          draft if spec else None, **kw)
+        tokens[path] = [[int(x) for x in t] for t in toks]
+        print(f"TOKENS {name} {path}: {len(toks)} requests", flush=True)
+    del params, draft
+    torch.cuda.empty_cache()
+    with open(os.path.join(out, f"{name}.json"), "w") as f:
+        json.dump(tokens, f)
+
+
+def compare(first: str, name: str, root: str, out: str) -> int:
+    import argparse as ap
+    import numpy as np
+    cs = _import(root)
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.gqs_layer import GQSAConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    with open(os.path.join(out, f"{first}.json")) as f:
+        ref = json.load(f)
+    with open(os.path.join(out, f"{name}.json")) as f:
+        got = json.load(f)
+    models = {}
+
+    def model(f32):
+        if f32 not in models:
+            models.clear()
+            if f32:
+                cfg = _f32_config()
+                models[f32] = (cfg, tf.init_params_and_draft(
+                    0, cfg, "w4l25", "cuda", compress=GQSAConfig())[0])
+            else:
+                cfg = get_config("llama2_7b", reduced=False)
+                models[f32] = (cfg, serve.compressed_params(
+                    cfg, ap.Namespace(compress="gqsa", group_size=16,
+                                      sparsity=0.5, seed=0,
+                                      draft_profile="w4s75"), "cuda")[0])
+        return models[f32]
+
+    prompts = serve.make_requests(8, get_config("llama2_7b").vocab,
+                                  np.random.default_rng(0))
+    bad = 0
+    for path in list(SERVE) + list(ENGINE):
+        f32 = path in ENGINE
+        same = sum(a == b for a, b in zip(ref[path], got[path]))
+        print(f"TOKENS {path}: {same} of {len(got[path])} requests equal "
+              f"({first} vs {name})", flush=True)
+        for i, (a, b) in enumerate(zip(ref[path], got[path])):
+            if a == b:
+                continue
+            at = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            cfg, params = model(f32)
+            margin, scale = cs.greedy_margin(params, cfg, prompts[i],
+                                             np.asarray(b), at)
+            bound = (cs.SPEC_MARGIN_REL if f32 else cs.LOGITS_TOL_BF16)
+            ok = margin <= bound * scale
+            bad += not ok
+            steps = ("" if f32 else
+                     f", {margin * 32:.0f} bf16 steps of 1/32")
+            print(f"DIFF {path} request {i} first differs at token {at}: "
+                  f"top-2 margin {margin:.4e} (max |logit| {scale:.3f}, "
+                  f"rel {margin / scale:.2e}{steps}; bound {bound:.0e} x "
+                  f"max |logit|; SPEC_MARGIN_REL {cs.SPEC_MARGIN_REL:.0e}) "
+                  f"{'within' if ok else 'ABOVE'}", flush=True)
+    return 1 if bad else 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("trees", nargs="+", metavar="NAME=PATH")
+    p.add_argument("--out", default="build/ab_tokens")
+    p.add_argument("--one", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--compare", default=None, help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    trees = dict(t.split("=", 1) for t in args.trees)
+    out = os.path.abspath(args.out)
+    if args.one is not None:
+        serve_tokens(args.one, trees[args.one], out)
+        return 0
+    if args.compare is not None:
+        return compare(list(trees)[0], args.compare, trees[args.compare],
+                       out)
+    os.makedirs(out, exist_ok=True)
+    me = os.path.abspath(__file__)
+    for name in trees:
+        subprocess.run([sys.executable, me, *args.trees, "--out", out,
+                        "--one", name], check=True)
+    return subprocess.run([sys.executable, me, *args.trees, "--out", out,
+                           "--compare", list(trees)[-1]]).returncode
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -27,6 +27,7 @@ sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
 
 def build_variants(rows):
     from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention import LAUNCH_ARGTYPES
     src = (build.CSRC / "paged_attention.cu").read_text()
     out = os.path.join(ROOT, "build", "exp")
     os.makedirs(out, exist_ok=True)
@@ -49,10 +50,7 @@ def build_variants(rows):
                 if "registers" in l]
         print(f"rows {n}: latent instantiations {regs[-2:]}", flush=True)
         fn = ctypes.CDLL(lib).paged_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 7 + [ctypes.c_int]
-                       + [ctypes.c_void_p] + [ctypes.c_int] * 9
-                       + [ctypes.c_void_p])
+        fn.argtypes = LAUNCH_ARGTYPES
         fn.restype = ctypes.c_int
         fns[n] = fn
     return fns

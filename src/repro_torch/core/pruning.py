@@ -25,10 +25,14 @@ def groups_kept_per_row(k: int, cfg: PruneConfig) -> int:
 
 
 def row_balanced_mask(gsal: torch.Tensor, cfg: PruneConfig) -> torch.Tensor:
-    """Per-row top-M group mask. gsal: [N, K/G] -> bool [N, K/G]."""
+    """Per-row top-M group mask. gsal: [N, K/G] -> bool [N, K/G].
+
+    Ties keep the lower group index, as the reference's stable descending
+    ``argsort`` does (``torch.topk`` promises no order among ties)."""
     n, ngroups = gsal.shape
     m = groups_kept_per_row(ngroups * cfg.group_size, cfg)
-    idx = torch.topk(gsal, m, dim=-1).indices
+    idx = torch.sort(gsal, dim=-1, descending=True, stable=True) \
+        .indices[:, :m]
     mask = torch.zeros_like(gsal, dtype=torch.bool)
     return mask.scatter_(1, idx, True)
 

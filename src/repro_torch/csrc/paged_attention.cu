@@ -23,48 +23,82 @@
 //   window       int                  < window, query t also needs bit
 //                                     s - anc_base[b] of anc[b, t]
 //   out          [B, KH, TR, DV] f32   (DV = D outside the latent mode)
+//   workspace    [B, KH, S, TR, D] f32 partial acc, then [B, KH, S, TR]
+//                float2 (m, l): the split path with S > 1 only
 // Scale 1/sqrt(D). A row whose length is 0 returns exact zeros.
 //
 // Bound on the card: bytes. Each live K/V element is read once and used
 // for 2*TR flops per operand, far below the f32 flop/byte balance, so the
 // floor is the live K/V bytes (int8: codes plus scales) over 3.35 TB/s.
+// A tree verify of T = 29 rows does 29x the operations on the same bytes
+// and is bound by f32 operations instead.
 //
-// Design: one block per (slot, KV head, group of at most kMaxRows query
-// rows), which loads its own block-table row and walks the slot's live
-// pages in order with an online softmax (the TPU grid's sequential page
-// axis becomes a loop in the block, since blocks carry nothing between
-// each other). Each page's [PS, D] K and V tiles are fetched with
-// coalesced 16-byte loads (a head's D values are contiguous in the pool),
-// all issued at once into registers, so a page costs one memory round
-// trip; the next page's loads are issued before the current page is
-// computed, hiding that trip. Tiles are kept in shared memory as f32;
-// warps compute the rows x PS scores with lane-split dot products and the
-// softmax statistics with one warp per row; thread d owns output column d
-// of every row. Sentinel pages are clamped to P-1 and masked by length, as
-// the TPU kernel does. The -inf guards of the TPU kernel are kept, so a
-// fully masked row ends with l = 0 and writes 0.
-// In int8 mode a 16-byte vector holds 16 codes of one token, and the
+// bf16/f32 pages, plain and tree modes (the split page walk,
+// paged_attention_split_kernel; every decode step and every tree verify
+// and draft level of the main path):
+//   Split. The grid is (split x row group, KV head, slot). Split s of S
+//     takes the slot's live pages s, s+S, s+2S, ... (strided, so a 2-page
+//     request still uses two splits) and writes, per query row, its
+//     partial (m, l, acc[D]) to a workspace the wrapper allocates; a
+//     second small kernel (paged_attention_combine_kernel, one block a
+//     row) merges the S partials in split order: m = max m_i,
+//     l = sum l_i e^(m_i - m), o = sum acc_i e^(m_i - m) / l. No atomics
+//     touch the data, so two launches give bit-identical output. S comes
+//     from host-known shapes only (slots, KV heads, row groups and the
+//     block-table width; kernels/paged_attention.py:split_count), never
+//     from live or lengths, so the decode step stays free of host syncs.
+//     With S = 1 the split kernel normalises and writes the output itself.
+//   Whole dot products. Warps go over query rows and lanes over positions
+//     (lane and lane + 32 of a chunk): a thread computes whole q.k
+//     products over D with no shuffles, q a broadcast read from shared
+//     memory, each staged K row padded by 16 bytes and read as 16-byte
+//     vectors, so the eight threads of a quarter-warp hit distinct banks.
+//     The softmax statistics are computed once per chunk of pages, in
+//     registers of the warp that owns the row (two 5-step shuffles a row
+//     a chunk). A block takes up to 32 rows (kSplitRows; 256 threads, else
+//     128), so a tree verify of T <= 31 walks K/V once per split, not once
+//     per row group.
+//   Several pages in flight. A chunk of up to 64 positions (4 pages of
+//     16) is staged raw (bf16 stays bf16) with cp.async 16-byte copies,
+//     into a double-buffered ring when a split has more than one chunk,
+//     and converted to f32 where it is read. In P.V a thread owns a pair
+//     of adjacent output columns of a group of rows, so a V row is read
+//     as pairs and each probability (a float4 broadcast of 4 positions)
+//     serves two columns.
+//   The contractions stay in f32 on CUDA cores. With 29 rows the score
+//     and P.V loops issue about one shared-memory read (the broadcast q
+//     and probabilities) per two to four FMA instructions, so by count
+//     they are bound by shared memory, not by the f32 rate; tensor cores
+//     are the next step there. Sentinel pages clamp to P-1 and are masked
+//     by length; the -inf guards of the TPU kernel are kept: a split with
+//     no visible position for a row writes m = -inf, l = 0, which the
+//     combine skips, and a row of length 0 ends as zeros.
+//
+// int8 mode (paged_attention_kernel<int8_t, false>, plain and tree):
+// one block per (slot, KV head, group of at most kMaxRows query rows),
+// which loads its own block-table row and walks the slot's live pages in
+// order with an online softmax (the TPU grid's sequential page axis
+// becomes a loop in the block, since blocks carry nothing between each
+// other). Each page's [PS, D] K and V tiles are fetched with coalesced
+// 16-byte loads (a head's D values are contiguous in the pool), all
+// issued at once into registers, so a page costs one memory round trip;
+// the next page's loads are issued before the current page is computed,
+// hiding that trip. Tiles are kept in shared memory as f32; warps compute
+// the rows x PS scores with lane-split dot products and the softmax
+// statistics with one warp per row; thread d owns output column d of
+// every row. A 16-byte vector holds 16 codes of one token, and the
 // token's K and V scales are loaded with it; each code is dequantised as
 // code * scale while the tile is staged, before the f32 contractions, as
 // the TPU kernel's body does (the reference's jnp path instead
 // re-quantises q and the softmax weights for int8 x int8 products: not
-// this kernel's math).
-// Tree mode is the same walk with one more mask term: each row's ancestor
-// bitmap and the slot's window base are loaded once per block, and a
-// position inside the fed window is visible only if the row's bit for it
-// is set (the shift stays in 0..31). It runs on every page type.
-// Row groups: the TPU kernel takes any T*R rows; here the per-thread
-// accumulator holds kMaxRows rows (about 128 registers, no spill), so a
-// block takes at most kMaxRows rows and a third grid axis covers the rest.
-// Every group walks its slot's pages, so K/V are read once per group: a
-// tree verify of T = 29 rows at R = 1 reads them twice. The groups run as
-// separate blocks at the same time and the second read mostly hits L2: on
-// an H100 (700 W) T = 29 took 1-2% longer than T = 16 at the same lengths
-// (PERF.md). What does cost is the work per page of a 16-row block (one
-// warp reduction per row and position, at 1-2 blocks per SM): 7-8x
-// the T = 1 time per page.
-// Fewer blocks than SMs at small batch (4 slots x 32 heads = 128 blocks)
-// is accepted here: a split over pages with a combine step is later work.
+// this kernel's math). Tree mode is the same walk with one more mask
+// term: each row's ancestor bitmap and the slot's window base are loaded
+// once per block, and a position inside the fed window is visible only
+// if the row's bit for it is set (the shift stays in 0..31). Row groups:
+// the per-thread accumulator holds kMaxRows rows (about 128 registers, no
+// spill), so a block takes at most kMaxRows rows and a third grid axis
+// covers the rest; every group walks its slot's pages. This walk moves to
+// the split design in a later change.
 //
 // Latent mode (v_pages null, bf16/f32 pages): the pool holds one logical
 // KV head, KH = 1, of D = kv_lora_rank + qk_rope_dim = 576 at DeepSeek-V2
@@ -94,6 +128,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -377,6 +412,477 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------
+// The split page walk: bf16/f32 pages, plain and tree modes.
+// ---------------------------------------------------------------------
+
+constexpr int kSplitRows = 32;      // query rows a block (a row group)
+constexpr int kSplitPos = 64;       // positions a chunk: lane, lane + 32
+constexpr int kSplitMaxDim = 256;   // head dim: a column pair a thread
+constexpr int kCombineThreads = 128;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// two adjacent values of a staged row (4- or 8-byte aligned)
+__device__ __forceinline__ float2 load_pair(const unsigned char* p, float) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const unsigned char* p,
+                                            __nv_bfloat16) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// threads of a split block: 256 for the 32-row template, else 128
+template <int kRows>
+__host__ __device__ constexpr int split_threads() {
+  return kRows > 8 ? 256 : 128;
+}
+
+// One block per (split, row group) x KV head x slot, of
+// split_threads<kRows>() threads. Scores: warps over rows, lanes over
+// positions. P.V: thread t owns the column pair 2 * (t % n2), 2 * (t % n2)
+// + 1 (n2 = threads / kGroups >= D / 2) of the rows r with r % kGroups ==
+// t / n2, so a staged V row is read as pairs and each probability read
+// serves two columns. Shared memory:
+// [n_stages][K, V][cpos][rowb] raw page rows (rowb = D * size + 16 bytes),
+// then q [kRows][D] f32, probabilities [kRows][kSplitPos] f32, and the
+// per-row correction factor and denominator [kRows] each.
+template <typename Page, int kRows, int kGroups>
+__global__ void __launch_bounds__(split_threads<kRows>(), 1)
+paged_attention_split_kernel(
+    const float* __restrict__ q, const Page* __restrict__ k_pages,
+    const Page* __restrict__ v_pages, const int32_t* __restrict__ lengths,
+    const int32_t* __restrict__ block_tables,
+    const int32_t* __restrict__ live, const int32_t* __restrict__ anc,
+    const int32_t* __restrict__ anc_base, int window,
+    float* __restrict__ out, float* __restrict__ part_acc,
+    float2* __restrict__ part_ml, int KH, int TR, int T, int D, int P,
+    int PS, int MP, int n_split, int chunk_pages, int n_stages,
+    float scale) {
+  constexpr int E = 16 / sizeof(Page);   // elements a 16-byte vector
+  constexpr int kThreads = split_threads<kRows>();
+  constexpr int kRPW = (kRows + kThreads / 32 - 1) / (kThreads / 32);
+  constexpr int kAcc = kRows / kGroups;  // rows a thread accumulates
+  const int b = blockIdx.z;
+  const int kh = blockIdx.y;
+  const int split = blockIdx.x % n_split;
+  const int r0 = (blockIdx.x / n_split) * kSplitRows;
+  const int nr = min(kSplitRows, TR - r0);       // <= kRows
+  const bool tree = anc != nullptr;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nthreads = kThreads;
+  const int nwarps = kThreads / 32;
+  constexpr int kPairs = kThreads / kGroups;     // >= D / 2
+  const int col = 2 * (tid % kPairs);            // this thread's columns
+  const int grp = tid / kPairs;                  // and its rows' residue
+  const int R = TR / T;
+  const size_t row0 = (static_cast<size_t>(b) * KH + kh) * TR + r0;
+  const size_t part0 =
+      ((static_cast<size_t>(b) * KH + kh) * n_split + split) * TR + r0;
+
+  const int n_live = min(max(live[b], 0), MP);
+  // this split's pages: split, split + S, ... below n_live
+  const int n_mine =
+      split < n_live ? (n_live - split + n_split - 1) / n_split : 0;
+  if (n_mine == 0) {
+    if (n_split == 1) {
+      for (int e = tid; e < nr * D; e += nthreads) out[row0 * D + e] = 0.f;
+    } else if (tid < nr) {
+      part_ml[part0 + tid] = make_float2(-INFINITY, 0.f);
+    }
+    return;
+  }
+
+  const int rowb = D * static_cast<int>(sizeof(Page)) + 16;
+  const int cpos = chunk_pages * PS;
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  unsigned char* ring = split_smem;
+  float* q_s = reinterpret_cast<float*>(
+      ring + static_cast<size_t>(n_stages) * 2 * cpos * rowb);
+  float* p_s = q_s + kRows * D;          // [kRows][kSplitPos]
+  float* c_s = p_s + kRows * kSplitPos;  // [kRows] correction factor
+  float* l_s = c_s + kRows;              // [kRows] denominator
+  __shared__ int len_s[kRows];
+  __shared__ int anc_s[kRows];
+
+  const int vrow = D * static_cast<int>(sizeof(Page)) / 16;  // vectors a row
+  const unsigned char* kg = reinterpret_cast<const unsigned char*>(k_pages);
+  const unsigned char* vg = reinterpret_cast<const unsigned char*>(v_pages);
+  const int32_t* table = block_tables + static_cast<size_t>(b) * MP;
+  // stage chunk c (this split's pages c*chunk_pages ...) raw into `stage`
+  auto issue = [&](int c, int stage) {
+    const int j0 = c * chunk_pages;
+    const int nvec = min(chunk_pages, n_mine - j0) * PS * vrow;
+    unsigned char* kd = ring + static_cast<size_t>(stage) * 2 * cpos * rowb;
+    unsigned char* vd = kd + static_cast<size_t>(cpos) * rowb;
+    for (int v = tid; v < nvec; v += nthreads) {
+      const int p = v / vrow;           // position in the chunk
+      const int x = v - p * vrow;       // vector in the row
+      const int jj = p / PS;
+      const int s = p - jj * PS;
+      // sentinel entries (>= P) clamp to the last page; their positions
+      // are masked by the length below
+      const int page =
+          min(max(__ldg(table + split + (j0 + jj) * n_split), 0), P - 1);
+      const size_t off =
+          ((static_cast<size_t>(page) * PS + s) * KH + kh) * D
+              * sizeof(Page) + static_cast<size_t>(x) * 16;
+      cp_async16(kd + p * rowb + x * 16, kg + off);
+      cp_async16(vd + p * rowb + x * 16, vg + off);
+    }
+  };
+  issue(0, 0);
+  cp_async_commit();
+
+  for (int e = tid; e < nr * D; e += nthreads) q_s[e] = q[row0 * D + e];
+  if (tid < nr) {
+    const int t = (r0 + tid) / R;
+    len_s[tid] = lengths[b * T + t];
+    anc_s[tid] = tree ? anc[b * T + t] : 0;
+  }
+  const int base = tree ? anc_base[b] : 0;
+
+  float m_r[kRPW], l_r[kRPW];   // rows warp + i * nwarps, lane-replicated
+#pragma unroll
+  for (int i = 0; i < kRPW; ++i) {
+    m_r[i] = -INFINITY;
+    l_r[i] = 0.f;
+  }
+  float2 acc[kAcc];             // columns col, col + 1 of rows grp + kGroups a
+#pragma unroll
+  for (int a = 0; a < kAcc; ++a) acc[a] = make_float2(0.f, 0.f);
+
+  const int n_chunks = (n_mine + chunk_pages - 1) / chunk_pages;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int stage = n_stages == 2 ? (c & 1) : 0;
+    if (n_stages == 2) {        // the next chunk's copies fly meanwhile
+      if (c + 1 < n_chunks) issue(c + 1, (c + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const unsigned char* ks =
+        ring + static_cast<size_t>(stage) * 2 * cpos * rowb;
+    const unsigned char* vs = ks + static_cast<size_t>(cpos) * rowb;
+    const int j0 = c * chunk_pages;
+    const int npos = min(chunk_pages, n_mine - j0) * PS;
+
+    // scores: lane holds positions lane and lane + 32 of the chunk for
+    // each of its warp's rows; whole dot products over D. A lane past the
+    // chunk reads the chunk's last row and is masked below.
+    bool in[2];
+    int pos[2];
+    const unsigned char* krow[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int p = lane + 32 * j;
+      in[j] = p < npos;
+      const int jj = p / PS;
+      pos[j] = (split + (j0 + jj) * n_split) * PS + (p - jj * PS);
+      krow[j] = ks + min(p, npos - 1) * rowb;
+    }
+    float sc[kRPW][2];
+#pragma unroll
+    for (int i = 0; i < kRPW; ++i) sc[i][0] = sc[i][1] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += E) {
+      float kf[2][E];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        unpack16(*reinterpret_cast<const uint4*>(krow[j] + d0 * sizeof(Page)),
+                 kf[j], Page());
+#pragma unroll
+      for (int i = 0; i < kRPW; ++i) {
+        const int r = warp + i * nwarps;
+        if (r < nr) {           // warp-uniform
+          const float4* qv = reinterpret_cast<const float4*>(q_s + r * D + d0);
+#pragma unroll
+          for (int e4 = 0; e4 < E / 4; ++e4) {
+            const float4 qq = qv[e4];
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              float a = sc[i][j];
+              a = fmaf(qq.x, kf[j][4 * e4], a);
+              a = fmaf(qq.y, kf[j][4 * e4 + 1], a);
+              a = fmaf(qq.z, kf[j][4 * e4 + 2], a);
+              a = fmaf(qq.w, kf[j][4 * e4 + 3], a);
+              sc[i][j] = a;
+            }
+          }
+        }
+      }
+    }
+
+    // online softmax statistics, once a chunk, in the owning warp
+#pragma unroll
+    for (int i = 0; i < kRPW; ++i) {
+      const int r = warp + i * nwarps;
+      if (r < nr) {
+        float s2[2];
+        bool ok[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          bool v = in[j] && pos[j] < len_s[r];
+          if (tree) {  // inside the fed window only the row's ancestors
+            const int fed = pos[j] - base;
+            if (fed >= 0 && fed < window)
+              v = v && ((anc_s[r] >> min(fed, 31)) & 1);
+          }
+          ok[j] = v;
+          s2[j] = v ? sc[i][j] * scale : -INFINITY;
+        }
+        float mx = fmaxf(s2[0], s2[1]);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_old = m_r[i];
+        const float m_new = fmaxf(m_old, mx);
+        const float m_safe = isinf(m_new) ? 0.f : m_new;
+        const float e0 = ok[0] ? expf(s2[0] - m_safe) : 0.f;
+        const float e1 = ok[1] ? expf(s2[1] - m_safe) : 0.f;
+        float sum = e0 + e1;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        const float corr = isinf(m_old) ? 0.f : expf(m_old - m_safe);
+        l_r[i] = l_r[i] * corr + sum;
+        m_r[i] = m_new;
+        p_s[r * kSplitPos + lane] = e0;
+        p_s[r * kSplitPos + lane + 32] = e1;
+        if (lane == 0) {
+          c_s[r] = corr;
+          l_s[r] = l_r[i];
+        }
+      }
+    }
+    __syncthreads();
+
+    // P.V (rows past nr carry values nothing stores)
+    if (col < D) {
+#pragma unroll
+      for (int a = 0; a < kAcc; ++a) {
+        const float c = c_s[grp + kGroups * a];
+        acc[a].x *= c;
+        acc[a].y *= c;
+      }
+      const unsigned char* vcol = vs + col * sizeof(Page);
+      int p = 0;
+      for (; p + 4 <= npos; p += 4) {
+        float2 v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          v[u] = load_pair(vcol + (p + u) * rowb, Page());
+#pragma unroll
+        for (int a = 0; a < kAcc; ++a) {
+          const float4 pp = *reinterpret_cast<const float4*>(
+              p_s + (grp + kGroups * a) * kSplitPos + p);
+          float2 x = acc[a];
+          x.x = fmaf(pp.x, v[0].x, x.x);
+          x.y = fmaf(pp.x, v[0].y, x.y);
+          x.x = fmaf(pp.y, v[1].x, x.x);
+          x.y = fmaf(pp.y, v[1].y, x.y);
+          x.x = fmaf(pp.z, v[2].x, x.x);
+          x.y = fmaf(pp.z, v[2].y, x.y);
+          x.x = fmaf(pp.w, v[3].x, x.x);
+          x.y = fmaf(pp.w, v[3].y, x.y);
+          acc[a] = x;
+        }
+      }
+      for (; p < npos; ++p) {
+        const float2 v = load_pair(vcol + p * rowb, Page());
+#pragma unroll
+        for (int a = 0; a < kAcc; ++a) {
+          const float pr = p_s[(grp + kGroups * a) * kSplitPos + p];
+          acc[a].x = fmaf(pr, v.x, acc[a].x);
+          acc[a].y = fmaf(pr, v.y, acc[a].y);
+        }
+      }
+    }
+    __syncthreads();  // the next chunk overwrites the ring and p_s
+    if (n_stages == 1 && c + 1 < n_chunks) {
+      issue(c + 1, 0);
+      cp_async_commit();
+    }
+  }
+
+  if (n_split == 1) {
+    if (col < D) {
+#pragma unroll
+      for (int a = 0; a < kAcc; ++a) {
+        const int r = grp + kGroups * a;
+        if (r < nr) {
+          const float den = fmaxf(l_s[r], 1e-30f);
+          *reinterpret_cast<float2*>(out + (row0 + r) * D + col) =
+              make_float2(acc[a].x / den, acc[a].y / den);
+        }
+      }
+    }
+    return;
+  }
+  if (col < D) {
+#pragma unroll
+    for (int a = 0; a < kAcc; ++a) {
+      const int r = grp + kGroups * a;
+      if (r < nr)
+        *reinterpret_cast<float2*>(part_acc + (part0 + r) * D + col) =
+            acc[a];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kRPW; ++i) {
+    const int r = warp + i * nwarps;
+    if (r < nr && lane == 0) part_ml[part0 + r] = make_float2(m_r[i], l_r[i]);
+  }
+}
+
+// Merges the S partials of one (slot, KV head, row) a block, in split
+// order. The (m, l) pairs are read at once into shared memory, and each
+// thread's S partial values are independent loads, so the merge costs two
+// memory round trips, not one per split. Splits with m = -inf (nothing
+// visible) are skipped; a row with none left writes zeros.
+__global__ void __launch_bounds__(kCombineThreads)
+paged_attention_combine_kernel(
+    const float* __restrict__ part_acc, const float2* __restrict__ part_ml,
+    float* __restrict__ out, int TR, int D, int n_split) {
+  extern __shared__ float comb_smem[];
+  float* m_s = comb_smem;                // [n_split]
+  float* w_s = comb_smem + n_split;      // [n_split]
+  const int row = blockIdx.x;            // (b * KH + kh) * TR + r
+  const int bkh = row / TR;
+  // split i of this row: part_ml[p0 + i * TR], part_acc[(p0 + i * TR) * D]
+  const size_t p0 =
+      static_cast<size_t>(bkh) * n_split * TR + (row - bkh * TR);
+  for (int i = threadIdx.x; i < n_split; i += blockDim.x) {
+    const float2 ml = part_ml[p0 + static_cast<size_t>(i) * TR];
+    m_s[i] = ml.x;
+    w_s[i] = ml.y;
+  }
+  __syncthreads();
+  float m = -INFINITY;
+  for (int i = 0; i < n_split; ++i) m = fmaxf(m, m_s[i]);
+  float l = 0.f;
+  for (int i = 0; i < n_split; ++i)
+    if (!isinf(m_s[i])) l = fmaf(w_s[i], expf(m_s[i] - m), l);
+  float* o = out + static_cast<size_t>(row) * D;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float a = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < n_split; ++i) {
+      if (!isinf(m_s[i])) {
+        const float x = part_acc[(p0 + static_cast<size_t>(i) * TR) * D + d];
+        a = fmaf(x, expf(m_s[i] - m), a);
+      }
+    }
+    o[d] = isinf(m) ? 0.f : a / fmaxf(l, 1e-30f);
+  }
+}
+
+// Shared memory of the split kernel for a chunk of `chunk_pages` pages.
+size_t split_smem_bytes(int page_bytes, int D, int PS, int rows,
+                        int chunk_pages, int n_stages) {
+  return static_cast<size_t>(n_stages) * 2 * chunk_pages * PS
+             * (static_cast<size_t>(D) * page_bytes + 16)
+         + sizeof(float) * (static_cast<size_t>(rows) * (D + kSplitPos)
+                            + 2 * rows);
+}
+
+template <typename Page, int kRows, int kGroups>
+int launch_split(const void* q, const void* k_pages, const void* v_pages,
+                 const void* lengths, const void* block_tables,
+                 const void* live, const void* anc, const void* anc_base,
+                 int window, void* out, void* workspace, int B, int KH,
+                 int TR, int T, int D, int P, int PS, int MP, int n_split,
+                 cudaStream_t s) {
+  // the largest chunk (<= kSplitPos positions, <= a split's pages) whose
+  // ring fits; a second stage only when a split can have two chunks
+  const int per_split = (MP + n_split - 1) / n_split;
+  int chunk = std::max(1, std::min(kSplitPos / PS, per_split));
+  int stages = per_split > chunk ? 2 : 1;
+  size_t smem = split_smem_bytes(sizeof(Page), D, PS, kRows, chunk, stages);
+  while (smem > static_cast<size_t>(kMaxSmem) - 1024 && chunk > 1) {
+    --chunk;
+    stages = per_split > chunk ? 2 : 1;
+    smem = split_smem_bytes(sizeof(Page), D, PS, kRows, chunk, stages);
+  }
+  if (smem > static_cast<size_t>(kMaxSmem) - 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > static_cast<size_t>(kDefaultSmem)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_attention_split_kernel<Page, kRows, kGroups>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int groups = (TR + kSplitRows - 1) / kSplitRows;
+  const dim3 grid(n_split * groups, KH, B);
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  const size_t acc_floats = static_cast<size_t>(B) * KH * n_split * TR * D;
+  float* part_acc = static_cast<float*>(workspace);
+  float2* part_ml = n_split > 1
+      ? reinterpret_cast<float2*>(part_acc + acc_floats) : nullptr;
+  paged_attention_split_kernel<Page, kRows, kGroups>
+      <<<grid, split_threads<kRows>(), smem, s>>>(
+          static_cast<const float*>(q), static_cast<const Page*>(k_pages),
+          static_cast<const Page*>(v_pages),
+          static_cast<const int32_t*>(lengths),
+          static_cast<const int32_t*>(block_tables),
+          static_cast<const int32_t*>(live),
+          static_cast<const int32_t*>(anc),
+          static_cast<const int32_t*>(anc_base), window,
+          static_cast<float*>(out), part_acc, part_ml, KH, TR, T, D, P, PS,
+          MP, n_split, chunk, stages, scale);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n_split == 1) return static_cast<int>(e);
+  paged_attention_combine_kernel<<<B * KH * TR, kCombineThreads,
+                                   2 * n_split * sizeof(float), s>>>(
+      part_acc, part_ml, static_cast<float*>(out), TR, D, n_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Page>
+int launch_split_rows(const void* q, const void* k_pages,
+                      const void* v_pages, const void* lengths,
+                      const void* block_tables, const void* live,
+                      const void* anc, const void* anc_base, int window,
+                      void* out, void* workspace, int B, int KH, int TR,
+                      int T, int D, int P, int PS, int MP, int n_split,
+                      cudaStream_t s) {
+  // the smallest row template that holds a block's rows; 32 rows take
+  // 256 threads in four groups of 8 rows (two of 16 where D > 128)
+  if (TR <= 4)
+    return launch_split<Page, 4, 1>(q, k_pages, v_pages, lengths,
+                                    block_tables, live, anc, anc_base,
+                                    window, out, workspace, B, KH, TR, T, D,
+                                    P, PS, MP, n_split, s);
+  if (TR <= 8)
+    return launch_split<Page, 8, 1>(q, k_pages, v_pages, lengths,
+                                    block_tables, live, anc, anc_base,
+                                    window, out, workspace, B, KH, TR, T, D,
+                                    P, PS, MP, n_split, s);
+  if (D <= 128)
+    return launch_split<Page, kSplitRows, 4>(
+        q, k_pages, v_pages, lengths, block_tables, live, anc, anc_base,
+        window, out, workspace, B, KH, TR, T, D, P, PS, MP, n_split, s);
+  return launch_split<Page, kSplitRows, 2>(
+      q, k_pages, v_pages, lengths, block_tables, live, anc, anc_base,
+      window, out, workspace, B, KH, TR, T, D, P, PS, MP, n_split, s);
+}
+
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
@@ -385,13 +891,35 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
 // select the tree mode (with the fed window's width), on any page kind.
 // v_pages null selects the latent mode (KH = 1, bf16/f32 pages, the
 // leading DV <= D columns of each row are its value); elsewhere DV = D.
+// bf16/f32 pages outside the latent mode take the split page walk over
+// n_split splits (1 <= n_split <= max(MP, 1); D <= 256, PS <= 64) with
+// `workspace` of B*KH*n_split*TR*(D + 2) floats when n_split > 1; the
+// int8 and latent modes ignore both.
 extern "C" int paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages, int page_kind,
     const void* k_scales, const void* v_scales, const void* lengths,
     const void* block_tables, const void* live, const void* anc,
     const void* anc_base, int window, void* out, int B, int KH, int TR,
-    int T, int D, int DV, int P, int PS, int MP, void* stream) {
+    int T, int D, int DV, int P, int PS, int MP, void* workspace,
+    int n_split, void* stream) {
   const bool latent = v_pages == nullptr;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!latent && (page_kind == 0 || page_kind == 1)) {
+    const int vec = page_kind == 1 ? 8 : 4;
+    if (TR < 1 || T < 1 || TR % T != 0 || D < 1 || D > kSplitMaxDim
+        || D % vec != 0 || DV != D || PS < 1 || PS > kSplitPos
+        || n_split < 1 || n_split > std::max(MP, 1)
+        || (n_split > 1 && workspace == nullptr)
+        || (anc == nullptr) != (anc_base == nullptr) || window < 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (page_kind == 1)
+      return launch_split_rows<__nv_bfloat16>(
+          q, k_pages, v_pages, lengths, block_tables, live, anc, anc_base,
+          window, out, workspace, B, KH, TR, T, D, P, PS, MP, n_split, s);
+    return launch_split_rows<float>(
+        q, k_pages, v_pages, lengths, block_tables, live, anc, anc_base,
+        window, out, workspace, B, KH, TR, T, D, P, PS, MP, n_split, s);
+  }
   const int threads = latent
       ? ((DV + kLatentCols - 1) / kLatentCols + 31) / 32 * 32
       : ((D + 31) / 32) * 32;
@@ -411,7 +939,6 @@ extern "C" int paged_attention_launch(
                        + (latent ? 1 : 2) * PS * D + rows * PS + 3 * rows);
   if (smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (latent) {
     if (page_kind == 1)
       return launch<__nv_bfloat16, true>(
@@ -423,18 +950,8 @@ extern "C" int paged_attention_launch(
                                window, out, B, KH, TR, T, D, DV, P, PS, MP,
                                threads, smem, s);
   }
-  if (page_kind == 2)
-    return launch<int8_t, false>(q, k_pages, v_pages, k_scales, v_scales,
-                                 lengths, block_tables, live, anc, anc_base,
-                                 window, out, B, KH, TR, T, D, DV, P, PS,
-                                 MP, threads, smem, s);
-  if (page_kind == 1)
-    return launch<__nv_bfloat16, false>(
-        q, k_pages, v_pages, nullptr, nullptr, lengths, block_tables, live,
-        anc, anc_base, window, out, B, KH, TR, T, D, DV, P, PS, MP, threads,
-        smem, s);
-  return launch<float, false>(q, k_pages, v_pages, nullptr, nullptr,
-                              lengths, block_tables, live, anc, anc_base,
-                              window, out, B, KH, TR, T, D, DV, P, PS, MP,
-                              threads, smem, s);
+  return launch<int8_t, false>(q, k_pages, v_pages, k_scales, v_scales,
+                               lengths, block_tables, live, anc, anc_base,
+                               window, out, B, KH, TR, T, D, DV, P, PS, MP,
+                               threads, smem, s);
 }

@@ -124,6 +124,17 @@ class TreeTemplate:
         return self._tensors(device)["child_start"]
 
 
+def top_children(logits: torch.Tensor, f: int) -> torch.Tensor:
+    """The ``f`` highest logits' indices along the last axis, ties toward
+    the lower index as the reference's ``lax.top_k`` breaks them
+    (``torch.topk`` promises no order among ties, so a stable descending
+    sort picks them). f = 1 takes the argmax, as the chain drafter does."""
+    if f == 1:
+        return torch.argmax(logits, dim=-1, keepdim=True)
+    return torch.sort(logits, dim=-1, descending=True,
+                      stable=True).indices[..., :f]
+
+
 def build_tree_draft_fn(cfg, api, tpl: TreeTemplate,
                         draft_layers: Optional[int] = None):
     """Returns draft_fn(draft_params, cache, tokens, positions,
@@ -143,11 +154,7 @@ def build_tree_draft_fn(cfg, api, tpl: TreeTemplate,
                                     max_live_pages=max_live)
         levels = []
         for lvl, f in enumerate(tpl.fanout):
-            # f = 1 takes the argmax, as the chain drafter does: the first
-            # maximal index, which is also what the reference's top_k
-            # takes on a tie
-            top = (torch.argmax(logits, dim=-1, keepdim=True) if f == 1
-                   else torch.topk(logits, f, dim=-1).indices)
+            top = top_children(logits, f)
             toks = top.reshape(top.shape[0], -1).to(torch.int32)
             levels.append(toks)
             if lvl + 1 == tpl.depth:

@@ -100,6 +100,68 @@ def paged_attention_ref(q, k_pages, v_pages, lengths, block_tables,
     return o.reshape(b, t, h, d)
 
 
+def paged_attention_split_partials(q, k_pages, v_pages, lengths,
+                                   block_tables, n_split: int, *, anc=None,
+                                   anc_base=None, anc_window: int = 0):
+    """The per-split partials of the CUDA kernel's split page walk
+    (bf16/f32 pages, plain and tree modes): split i of ``n_split`` takes
+    each slot's live pages i, i + n_split, ... (live = ceil(max_t length /
+    ps), clipped to the table width, as ``ops.paged_query_prep`` derives
+    it) and keeps, per query row, m = its largest visible score, l = the
+    sum of e^(score - m) and acc = the sum of e^(score - m) v. A split
+    with no visible position for a row has m = -inf, l = 0, acc = 0.
+    Arguments as :func:`paged_attention_ref` (no int8 pages). Returns
+    (m [S, B, T, H], l [S, B, T, H], acc [S, B, T, H, D]) in f32."""
+    from repro_torch.models.layers import ancestor_mask, query_lengths
+    b, t, h, d = q.shape
+    num_pages, ps, khn, _ = k_pages.shape
+    mp = block_tables.shape[1]
+    r = h // khn
+    bt = block_tables.long().clamp(0, num_pages - 1)
+    k = k_pages[bt].reshape(b, -1, khn, d).float()
+    v = v_pages[bt].reshape(b, -1, khn, d).float()
+    s = k.shape[1]
+    qh = q.reshape(b, t, khn, r, d).float()
+    sco = torch.einsum("btkrd,bskd->bkrts", qh, k) * attention_scale(d)
+    lq = query_lengths(lengths, b, t, q.device)
+    live = torch.clamp((lq.amax(dim=1) + ps - 1) // ps, 0, mp)      # [B]
+    page = torch.arange(s, device=q.device) // ps                  # [S]
+    valid = ancestor_mask(lengths, anc, anc_base, anc_window, b, t, s) \
+        & (page[None, :] < live[:, None])[:, None, :]              # [B,T,S]
+    valid = valid[:, None, None]                                   # [B,1,1,T,S]
+    ms, ls, accs = [], [], []
+    for i in range(n_split):
+        vis = valid & (page % n_split == i)
+        sc = torch.where(vis, sco, -torch.inf)
+        m = sc.amax(dim=-1)                                        # [B,KH,R,T]
+        e = torch.where(vis, torch.exp(sc - torch.where(
+            torch.isinf(m), 0.0, m)[..., None]), 0.0)
+        acc = torch.einsum("bkrts,bskd->bkrtd", e, v)
+        for lst, x in ((ms, m), (ls, e.sum(dim=-1)), (accs, acc)):
+            # [B, KH, R, T, ...] -> [B, T, H, ...]
+            lst.append(x.movedim(3, 1).reshape(b, t, h, *x.shape[4:]))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def paged_attention_split_ref(q, k_pages, v_pages, lengths, block_tables,
+                              n_split: int, *, anc=None, anc_base=None,
+                              anc_window: int = 0):
+    """:func:`paged_attention_ref` computed as the CUDA kernel's split
+    walk computes it: the partials of
+    :func:`paged_attention_split_partials`, merged in split order with
+    m = max m_i, l = sum l_i e^(m_i - m), o = sum acc_i e^(m_i - m) / l
+    (splits with m_i = -inf skipped; a row with none left is zeros).
+    Returns [B, T, H, D] f32."""
+    m_i, l_i, acc_i = paged_attention_split_partials(
+        q, k_pages, v_pages, lengths, block_tables, n_split, anc=anc,
+        anc_base=anc_base, anc_window=anc_window)
+    m = m_i.amax(dim=0)
+    w = torch.where(torch.isinf(m_i), 0.0,
+                    torch.exp(m_i - torch.where(torch.isinf(m), 0.0, m)))
+    den = torch.clamp_min((l_i * w).sum(dim=0), 1e-30)
+    return (acc_i * w[..., None]).sum(dim=0) / den[..., None]
+
+
 def paged_latent_attention_ref(q, lat_pages, lengths, block_tables,
                                v_rank: int, *, anc=None, anc_base=None,
                                anc_window: int = 0):

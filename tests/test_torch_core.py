@@ -86,6 +86,29 @@ def test_groups_kept_per_row_matches_reference(k, sparsity):
             sparsity=sparsity))
 
 
+def _tied_grid():
+    """Eight rows of 16 groups drawn from four values, so most rows tie."""
+    return np.random.default_rng(7).integers(0, 4, (8, 16)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("gsal", [[[1, 1, 1, 1]], [[2, 1, 1, 1]],
+                                  "grid"])
+def test_row_balanced_mask_breaks_ties_as_the_reference(gsal):
+    """Tied group saliencies keep the lower group index, as the
+    reference's stable descending argsort does: [[1,1,1,1]] keeps {0, 1}
+    and [[2,1,1,1]] keeps {0, 1} at sparsity 0.5."""
+    gsal = _tied_grid() if gsal == "grid" else np.asarray(gsal, np.float32)
+    cfg = dict(sparsity=0.5, group_size=16)
+    jm = jpruning.row_balanced_mask(jnp.asarray(gsal),
+                                    jpruning.PruneConfig(**cfg))
+    tm = tpruning.row_balanced_mask(torch.from_numpy(gsal),
+                                    tpruning.PruneConfig(**cfg))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    if gsal.shape[0] == 1:
+        assert tm[0, :2].all() and not tm[0, 2:].any()
+
+
 @pytest.mark.parametrize("n,k,g,sparsity", [(64, 128, 16, 0.5),
                                             (96, 256, 16, 0.25),
                                             (32, 512, 32, 0.5)])

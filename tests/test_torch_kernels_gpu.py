@@ -362,3 +362,134 @@ def test_paged_attention_kernel_above_48kb_of_shared_memory(cuda):
     o = ops.paged_decode_attention(q, kp, vp, lens, bt)
     _close(o, ops.paged_decode_attention(q, kp, vp, lens, bt, plain=True))
     assert (o[3] == 0).all() and (o[4, 0] == 0).all()
+
+
+def _split_case(cuda, t, r, dtype, tree):
+    """Lengths for the split walk over the 6-column table of
+    :func:`_attn_case` (4 live columns, then sentinels): slot 0 one
+    position (splits past 0 have no page), slot 1 two full pages (a page
+    boundary), slot 2 three pages (the split boundary at S = 3), slot 3
+    all-sentinel with length 0, slot 4 the four live pages with a length-0
+    row. Tree mode: random bitmaps over a window of T ending at those
+    lengths (slot 3 stays 0)."""
+    q, kp, vp, _, bt = _attn_case(cuda, t, 4, r, 64, dtype)
+    ends = torch.tensor([1, 32, 48, 0, 64], dtype=torch.int32, device="cuda")
+    kw = {}
+    if tree:
+        base = (ends - t).clamp_min(0)
+        lens = (base + t)[:, None].expand(-1, t).contiguous()
+        lens[3] = 0
+        kw = dict(anc=torch.randint(0, 2 ** 31 - 1, (5, t), generator=cuda,
+                                    device="cuda", dtype=torch.int32),
+                  anc_base=base, anc_window=t)
+    else:
+        lens = (ends[:, None] - t + 1
+                + torch.arange(t, device="cuda")[None, :]).clamp_min(0)
+        lens[3] = 0
+        lens[4, 0] = 0
+    return q, kp, vp, lens.to(torch.int32).contiguous(), bt, kw
+
+
+def _split_kernel(q, kp, vp, lens, bt, n_split, anc=None, anc_base=None,
+                  anc_window=0):
+    """The wrapper at a given split count, on the dispatcher's operands."""
+    b, t, h, d = q.shape
+    khn = kp.shape[2]
+    lq, live = ops.paged_query_prep(lens, bt, b, t, kp.shape[1])
+    qh = q.reshape(b, t, khn, h // khn, d).permute(0, 2, 1, 3, 4) \
+          .reshape(b, khn, -1, d).contiguous()
+    o = paged_attention_cuda(
+        qh, kp, vp, lq, bt, live, t, anc=anc,
+        anc_base=None if anc is None else anc_base.to(torch.int32),
+        window=anc_window, n_split=n_split)
+    return o.reshape(b, khn, t, h // khn, d).permute(0, 2, 1, 3, 4) \
+            .reshape(b, t, h, d)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 6])
+@pytest.mark.parametrize("tree", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_attention_split_walk_matches_plain(cuda, n_split, tree,
+                                                  dtype):
+    """The split walk at S = 1, 2, 3 and the table's width: against the
+    plain version and the plain version of the split; zeros where no
+    position is visible; a second launch bit-identical."""
+    from repro_torch.kernels.ref import paged_attention_split_ref
+    t, r = (5, 1) if tree else (3, 2)
+    q, kp, vp, lens, bt, kw = _split_case(cuda, t, r, dtype, tree)
+    o = _split_kernel(q, kp, vp, lens, bt, n_split, **kw)
+    _close(o, ops.paged_decode_attention(q, kp, vp, lens, bt, plain=True,
+                                         **kw))
+    _close(o, paged_attention_split_ref(q, kp, vp, lens, bt, n_split, **kw))
+    assert (o[3] == 0).all() and (o[lens == 0] == 0).all()
+    assert torch.equal(o, _split_kernel(q, kp, vp, lens, bt, n_split, **kw))
+
+
+@pytest.mark.parametrize("t,r,tree", [(16, 2, False), (32, 1, False),
+                                      (31, 1, True)])
+def test_paged_attention_split_walk_32_rows_in_one_block(cuda, t, r, tree):
+    """T*R = 32 (and a tree verify of T = 31) in one block of the split
+    walk: one row group, each split's pages staged once."""
+    q, kp, vp, lens, bt, kw = _split_case(cuda, t, r, torch.bfloat16, tree)
+    before = (paged_attention_cuda.launches,
+              paged_attention_cuda.tree_launches)
+    o = ops.paged_decode_attention(q, kp, vp, lens, bt, **kw)
+    after = (paged_attention_cuda.launches,
+             paged_attention_cuda.tree_launches)
+    assert after == (before[0] + (not tree), before[1] + tree)
+    _close(o, ops.paged_decode_attention(q, kp, vp, lens, bt, plain=True,
+                                         **kw))
+    assert (o[3] == 0).all() and (o[lens == 0] == 0).all()
+
+
+def test_paged_attention_split_walk_bit_identical_at_full_width(cuda):
+    """4 slots x 32 KV heads x D = 128, 256 positions each (the default
+    split count, 2 on an H100): two launches give the same bits."""
+    b, mp, ps = 4, 16, 16
+    q = torch.randn((b, 1, 32, 128), generator=cuda, device="cuda")
+    kp, vp = (torch.randn((b * mp, ps, 32, 128), generator=cuda,
+                          device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    bt = torch.randperm(b * mp, generator=cuda, device="cuda") \
+        .reshape(b, mp).to(torch.int32)
+    lens = torch.full((b, 1), 256, dtype=torch.int32, device="cuda")
+    o = ops.paged_decode_attention(q, kp, vp, lens, bt)
+    assert torch.equal(o, ops.paged_decode_attention(q, kp, vp, lens, bt))
+    _close(o, ops.paged_decode_attention(q, kp, vp, lens, bt, plain=True))
+
+
+def test_kernel_decode_steps_never_read_the_device_on_the_host(cuda):
+    """A decode step and a tree-verify step of the reduced model through
+    the kernels (split walk included) read no tensor value on the host:
+    no ``aten::_local_scalar_dense`` or ``aten::item`` in the profile."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.engine.spec import TreeTemplate
+    from repro_torch.models import transformer as ttf
+    cfg = get_config("llama2_7b", reduced=True)
+    params = ttf.init_params(0, cfg, "cuda", compress=GQSAConfig())
+    cache = ttf.init_paged_cache(cfg, 16, 4, device="cuda")
+    bt = torch.tensor([[0, 1, 2, 3, 4, 5], [16] * 6], dtype=torch.int32,
+                      device="cuda")
+    ttf.prefill(params, cache, torch.tensor([[5, 6, 7, 1, 2], [0] * 5],
+                                            device="cuda"),
+                torch.tensor([5, 0], device="cuda"), bt, cfg)
+    spec = TreeTemplate((2, 2)).verify_tree("cuda")
+    toks = torch.zeros((2, spec["anc"].shape[0]), dtype=torch.int32,
+                       device="cuda")
+    pos = torch.tensor([5, 0], dtype=torch.int32, device="cuda")
+    before = (paged_attention_cuda.launches,
+              paged_attention_cuda.tree_launches)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ttf.decode_step(params, cache, torch.tensor([[1], [2]],
+                                                    device="cuda"),
+                        pos, cfg, bt, max_live_pages=2)
+        ttf.decode_step(params, cache, toks, pos + 1, cfg, bt,
+                        max_live_pages=4, tree=spec)
+    torch.cuda.synchronize()
+    assert paged_attention_cuda.launches > before[0]
+    assert paged_attention_cuda.tree_launches > before[1]
+    reads = [e.key for e in prof.key_averages()
+             if e.key in ("aten::_local_scalar_dense", "aten::item")]
+    assert not reads, reads

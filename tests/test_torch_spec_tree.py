@@ -55,6 +55,7 @@ from repro_torch.engine.sampling import spec_verify, tree_verify  # noqa: E402
 from repro_torch.engine.scheduler import DECODE  # noqa: E402
 from repro_torch.engine.spec import (TreeTemplate, compact_accepted,  # noqa: E402
                                      spec_step_fns, tree_step_fns)
+from repro_torch.engine.spec.tree import top_children  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.models.layers import ancestor_mask  # noqa: E402
@@ -209,6 +210,20 @@ def test_tree_paged_attention_plain_matches_reference_kernel():
 # ---------------------------------------------------------------------------
 # tree_verify
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("logits,f", [([1, 1, 1, 0], 2), ([1] * 8, 2),
+                                      ([0, 2, 2, 1, 2], 3), ([3, 1, 3], 1)])
+def test_tree_draft_children_break_ties_as_the_reference(logits, f):
+    """The drafter's top-f children against the reference's
+    ``jax.lax.top_k`` on tied logits: ties go to the lower token id
+    ([1, 1, 1, 0] at f = 2 gives [0, 1])."""
+    x = np.tile(np.asarray(logits, np.float32), (2, 3, 1))   # [B, n, V]
+    _, jtop = jax.lax.top_k(jnp.asarray(x), f)
+    top = top_children(torch.from_numpy(x), f)
+    np.testing.assert_array_equal(top.numpy(), np.asarray(jtop))
+    if logits == [1, 1, 1, 0]:
+        assert top[0, 0].tolist() == [0, 1]
+
 
 def _walk(logits, feed, fanout, child_start):
     """Sequential greedy tree walk of one row: (n_acc, emitted tokens)."""
