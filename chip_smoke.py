@@ -8,7 +8,9 @@ Phases (any failure exits non-zero before the result line is printed):
      and print the ptxas report (registers, shared memory, spills);
   3. gqsa_gemv against its plain version at the full llama2-7b shapes;
   4. paged attention against its plain version at full width, in plain
-     mode (bf16/f32 pages) and in int8 mode (int8 pages + f32 scales);
+     mode (bf16/f32 pages) and in int8 mode (int8 pages + f32 scales),
+     at the default split count and at S in {1, 2, the table's width},
+     with length-0 rows exact zeros and repeats bit-identical;
   5. w4_matmul against its plain version at the full llama2-7b shapes,
      T in {1, 4, 8, 64, 200}, plus an unaligned small case and a G128 case;
   6. timing of every kernel at the full-width decode shapes (CUDA events,
@@ -26,8 +28,9 @@ Phases (any failure exits non-zero before the result line is printed):
  10. the tree mode of paged attention against its plain version at full
      width (bf16, f32 and int8 pages; the verify blocks of fanouts
      (4, 2, 2), (2, 2, 2, 2), the chain (1, 1, 1, 1) and (1,), the
-     draft's level calls, a window narrower than T; slots of length 0),
-     and its timing at the verify shape (B=4, T=29, lengths ~64 and ~256);
+     draft's level calls, a window narrower than T; slots of length 0;
+     each at S in {1, 2, the table's width} too), and its timing at the
+     verify shape (B=4, T=29, lengths ~64 and ~256);
  11. speculation against no speculation at full width in f32 compute, in
      the engine (GQSA target): chain K=4 with draft w4s50, tree (4, 2, 2)
      with w4s50 and with w4l25; greedy tokens equal, where they differ
@@ -39,7 +42,8 @@ Phases (any failure exits non-zero before the result line is printed):
  13. the latent mode of paged attention against its plain version at
      DeepSeek-V2 width (B=4 slots plus two of length 0, H=128, D=576,
      v_rank 512, ps=16; bf16 and f32 pages; serve lengths, 256, the T=2
-     staircase and a tree block), and the expert axis of gqsa_gemv (160
+     staircase and a tree block; each at S in {1, 2, the table's width}
+     too, repeats bit-identical), and the expert axis of gqsa_gemv (160
      experts at the w_g/w_u and w_d shapes, C in {1, 3}, with and without
      ``rows``; idle rows exact zeros); both timed;
  14. DeepSeek-V2 (``deepseek_v2_236b``) at full width and 8 of its 60
@@ -231,15 +235,61 @@ def _attn_case(b, t, lens, dtype, g, kh=32, d=128, ps=16, mp=16):
     return q, kp, vp, lens.to("cuda"), bt, ks, vs
 
 
-def split_note(b, kh, tr, mp, d):
-    """The split walk's plan for these shapes (bf16/f32 pages of 16, plain
-    and tree modes): its split count and workspace, as the wrapper picks
-    them from the shapes alone."""
+def split_note(b, kh, tr, mp, dv):
+    """The page walk's plan for these shapes (pages of 16): its split
+    count and workspace, as the wrapper picks them from the shapes
+    alone."""
     from repro_torch.kernels.paged_attention import (split_count,
                                                      workspace_floats)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    n = split_count(b, kh, tr, mp, sms, 16)
-    return f"split S={n} workspace {4 * workspace_floats(b, kh, tr, d, n)} B"
+    n = split_count(b, kh, tr, mp, sms, 16, dv)
+    return f"split S={n} workspace {4 * workspace_floats(b, kh, tr, dv, n)} B"
+
+
+def split_sweep(o, call, ref, mp, label):
+    """The walk at S in {1, 2, the table's width} against the plain
+    output ``ref``, slots 3 and 4 (length 0) exact zeros at each S, and
+    two launches at the default S bit-identical (``call(n_split)`` returns
+    the dispatcher's layout; ``o`` is its default-S output). Returns the
+    worst max-abs error."""
+    worst = 0.0
+    for n in sorted({1, 2, mp}):
+        on = call(n)
+        torch.cuda.synchronize()
+        err = (on - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        worst = max(worst, err)
+        require(rel <= TOL, f"{label} at S={n} disagrees: rel {rel}")
+        require(bool((on[3:5] == 0).all()), f"{label} at S={n}: length-0 "
+                                            f"rows are zeros")
+    require(torch.equal(o, call(None)), f"{label}: repeat not bit-identical")
+    log(f"[split sweep] {label}: S in {sorted({1, 2, mp})} worst max_abs_err "
+        f"{worst:.3e}; repeat bit-identical")
+    return worst
+
+
+def _paged_at(q, kp, vp, lq, bt, ks=None, vs=None, anc=None, anc_base=None,
+              anc_window=0):
+    """``call(n_split)`` for :func:`split_sweep`: the wrapper on the
+    dispatcher's operands, output in the dispatcher's layout."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    b, t, h, d = q.shape
+    khn = kp.shape[2]
+    lq2, live = ops.paged_query_prep(lq, bt, b, t, kp.shape[1])
+    qh = q.reshape(b, t, khn, h // khn, d).permute(0, 2, 1, 3, 4) \
+          .reshape(b, khn, -1, d).contiguous()
+    if anc is not None:
+        anc = anc.to(torch.int32).expand(b, t).contiguous()
+        anc_base = anc_base.to(torch.int32).contiguous()
+
+    def call(n_split):
+        o = paged_attention_cuda(qh, kp, vp, lq2, bt, live, t, ks, vs,
+                                 anc=anc, anc_base=anc_base,
+                                 window=anc_window, n_split=n_split)
+        return o.reshape(b, khn, t, h // khn, d).permute(0, 2, 1, 3, 4) \
+                .reshape(b, t, h, d)
+    return call
 
 
 def phase_attention_check():
@@ -267,12 +317,14 @@ def phase_attention_check():
             err = (o - ref).abs().max().item()
             rel = err / ref.abs().max().item()
             worst[mode] = max(worst[mode], err)
-            plan = ("int8 walk" if mode == "int8"
-                    else split_note(6, 32, t, bt.shape[1], 128))
             log(f"[attn check] pages={str(dtype)[6:]} T={t} KH=32 D=128 "
-                f"ps=16 ({plan}): max_abs_err {err:.3e} rel {rel:.3e}")
+                f"ps=16 ({split_note(6, 32, t, bt.shape[1], 128)}): "
+                f"max_abs_err {err:.3e} rel {rel:.3e}")
             require(rel <= TOL, f"paged_attention ({mode}) disagrees: "
                                 f"rel {rel}")
+            worst[mode] = max(worst[mode], split_sweep(
+                o, _paged_at(q, kp, vp, lq, bt, ks, vs), ref, bt.shape[1],
+                f"attn pages={str(dtype)[6:]} T={t}"))
     return worst
 
 
@@ -426,10 +478,9 @@ def phase_timing(timer):
                 q, kp, vp, lq, bt, ks, vs, plain=True))
             t_l = timer.ms(lambda: F.scaled_dot_product_attention(
                 qs, kk, vv, attn_mask=mask))
-            plan = ("int8 walk" if dtype == torch.int8
-                    else split_note(b, 32, 1, bt.shape[1], 128))
             log(f"[attn time] {label} lengths={lens} B=4 KH=32 D=128 "
-                f"{str(dtype)[6:]} pages ({plan}): kernel "
+                f"{str(dtype)[6:]} pages "
+                f"({split_note(b, 32, 1, bt.shape[1], 128)}): kernel "
                 f"{t_k * 1e3:.1f}us plain "
                 f"{t_p * 1e3:.1f}us sdpa {t_l * 1e3:.1f}us bound "
                 f"{bound * 1e3:.2f}us ({nbytes / 1e6:.2f} MB) -> "
@@ -763,6 +814,11 @@ def phase_tree_check():
                 f"window={win} KH=32 D=128 ps=16: max_abs_err {err:.3e} "
                 f"rel {rel:.3e}")
             require(rel <= TOL, f"paged_attention (tree) disagrees: rel {rel}")
+            worst = max(worst, split_sweep(
+                o, _paged_at(q, kp, vp, lq, bt, ks, vs, anc=anc,
+                             anc_base=base, anc_window=win),
+                ref, bt.shape[1], f"tree pages={str(dtype)[6:]} "
+                                  f"fanout={fanout} lvl={lvl} T={q.shape[1]}"))
     return worst
 
 
@@ -1042,11 +1098,34 @@ def phase_latent_check():
             rel = err / ref.abs().max().item()
             worst = max(worst, err)
             log(f"[latent check] pages={str(dtype)[6:]} {label} T={t} "
-                f"H={DS_H} D={DS_D} v_rank={DS_R} ps=16: max_abs_err "
-                f"{err:.3e} rel {rel:.3e}")
+                f"H={DS_H} D={DS_D} v_rank={DS_R} ps=16 ("
+                f"{split_note(6, 1, t * DS_H, bt.shape[1], DS_R)}): "
+                f"max_abs_err {err:.3e} rel {rel:.3e}")
             require(rel <= TOL, f"paged_attention (latent) disagrees: "
                                 f"rel {rel}")
+            worst = max(worst, split_sweep(
+                o, _latent_at(q, lat, lq, bt, **kw), ref, bt.shape[1],
+                f"latent pages={str(dtype)[6:]} {label} T={t}"))
     return worst
+
+
+def _latent_at(q, lat, lq, bt, anc=None, anc_base=None, anc_window=0):
+    """``call(n_split)`` for :func:`split_sweep` in the latent mode."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    b, t, h, d = q.shape
+    lq2, live = ops.paged_query_prep(lq, bt, b, t, lat.shape[1])
+    qh = q.reshape(b, 1, t * h, d).contiguous()
+    if anc is not None:
+        anc = anc.to(torch.int32).contiguous()
+        anc_base = anc_base.to(torch.int32).contiguous()
+
+    def call(n_split):
+        return paged_attention_cuda(
+            qh, lat[:, :, None, :], None, lq2, bt, live, t, anc=anc,
+            anc_base=anc_base, window=anc_window, v_rank=DS_R,
+            n_split=n_split).reshape(b, t, h, DS_R)
+    return call
 
 
 def _experts_packed(n, k, seed, e=160):
@@ -1158,7 +1237,9 @@ def phase_mla_moe_timing(timer):
         t_l = timer.ms(lambda: F.scaled_dot_product_attention(
             qs, kk, vv, attn_mask=mask))
         log(f"[latent time] {label} lengths={lens} B=4 H=128 D=576 "
-            f"v_rank=512 bf16 pages: kernel {t_k * 1e3:.1f}us plain "
+            f"v_rank=512 bf16 pages "
+            f"({split_note(b, 1, DS_H, bt.shape[1], DS_R)}): kernel "
+            f"{t_k * 1e3:.1f}us plain "
             f"{t_p * 1e3:.1f}us sdpa {t_l * 1e3:.1f}us bound "
             f"{bound * 1e3:.2f}us by {by} ({nbytes / 1e6:.2f} MB, "
             f"{flops / 1e6:.1f} MFLOP) -> {bound / t_k:.0%} of bound")

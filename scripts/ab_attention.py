@@ -1,4 +1,4 @@
-"""Time ``paged_attention`` (bf16 pages, plain and tree modes) of two
+"""Time ``paged_attention`` (plain, tree, int8 and latent modes) of two
 checkouts in turns on one card.
 
     python3 scripts/ab_attention.py parent=/path/to/parent change=. \\
@@ -6,36 +6,129 @@ checkouts in turns on one card.
 
 Each turn is a fresh process that imports the named checkout's
 ``repro_torch`` and ``chip_smoke.py`` (so each builds its own kernels) and
-times the kernel wrapper alone, at 4 slots, KH=32, D=128, ps=16, on the
-operands the dispatcher prepares (``chip_smoke.Timer``: L2 flushed before
-every launch, 200 launches a case):
-  * plain, T=1, lengths 20/25/31/29 (serve; with the 16-column table of
-    256-token slots and with the 2 live columns the engine passes) and
-    256 x 4;
-  * tree, the (4,2,2) verify (T=29), lengths ~64 and ~256.
+times the kernel wrapper alone, at 4 slots, ps=16, on the operands the
+dispatcher prepares (``chip_smoke.Timer``: L2 flushed before every launch,
+200 launches a case); each case also times SDPA on the same K/V gathered
+(and dequantized) contiguous beforehand, as ``chip_smoke.py`` does, and
+the plain version (30 launches):
+  * plain (bf16 pages) and int8 (int8 pages + f32 scales), KH=32, D=128,
+    T=1, lengths 20/25/31/29 (serve; with the 16-column table of 256-token
+    slots and with the 2 live columns the engine passes) and 256 x 4;
+  * tree, bf16, the (4,2,2) verify (T=29), lengths ~64 and ~256;
+  * latent (DeepSeek-V2: H=128, D=576, v_rank 512, bf16), T=1 at the same
+    serve lengths (both tables) and 256 x 4, and the (2,2) verify block
+    (T=7) at ~256.
 Inputs come from the same seed in every turn, and each turn checks its
 output against the plain version first. ``--splits`` also times the named
-split counts in turns whose wrapper takes ``n_split``. Prints ``RESULT
-<name> <case> <us>`` lines. Comparing two versions inside one call on one
-card, in alternation, keeps the card's power limit and neighbours out of
-the difference.
+split counts in turns whose wrapper takes ``n_split`` in that mode (a
+checkout whose int8 and latent modes ran the older walk ignores it there).
+Prints ``RESULT <name> <case> <us>`` lines. Comparing two versions inside
+one call on one card, in alternation, keeps the card's power limit and
+neighbours out of the difference.
 """
 from __future__ import annotations
 
 import argparse
-import inspect
 import os
 import subprocess
 import sys
 
-# (label, tree fanout or None, lengths or window bases, table columns:
-# None keeps the 16 of a 256-token slot, 2 is what the engine's decode
-# step passes at serve lengths, its live width)
-CASES = (("plain serve", None, [20, 25, 31, 29], None),
-         ("plain serve, live table", None, [20, 25, 31, 29], 2),
-         ("plain 256", None, [256] * 4, None),
-         ("tree ~64", (4, 2, 2), [35, 40, 31, 38], None),
-         ("tree ~256", (4, 2, 2), [227, 220, 225, 210], None))
+# (label, mode, tree fanout or None, lengths or window bases, table
+# columns: None keeps the 16 of a 256-token slot, 2 is what the engine's
+# decode step passes at serve lengths, its live width)
+SERVE = [20, 25, 31, 29]
+CASES = (("plain serve", "plain", None, SERVE, None),
+         ("plain serve, live table", "plain", None, SERVE, 2),
+         ("plain 256", "plain", None, [256] * 4, None),
+         ("tree ~64", "plain", (4, 2, 2), [35, 40, 31, 38], None),
+         ("tree ~256", "plain", (4, 2, 2), [227, 220, 225, 210], None),
+         ("int8 serve", "int8", None, SERVE, None),
+         ("int8 serve, live table", "int8", None, SERVE, 2),
+         ("int8 256", "int8", None, [256] * 4, None),
+         ("latent serve", "latent", None, SERVE, None),
+         ("latent serve, live table", "latent", None, SERVE, 2),
+         ("latent 256", "latent", None, [256] * 4, None),
+         ("latent tree (2,2) ~256", "latent", (2, 2), [240, 235, 245, 230],
+          None))
+
+
+def _operands(cs, mode, fanout, lens, cols, g):
+    """(call(**extra), plain output, plain call, SDPA call) of one case:
+    the kernel wrapper on the dispatcher's operands, its output in the
+    dispatcher's layout."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.engine.spec import TreeTemplate
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.models.layers import ancestor_mask
+    b = 4
+    if fanout is None:               # lens are the lengths of T = 1 rows
+        t, kw = 1, {}
+        lq = torch.tensor(lens, dtype=torch.int32)[:, None]
+    else:                            # lens are the slots' window bases
+        spec = TreeTemplate(fanout).verify_tree("cuda")
+        t, win = spec["anc"].shape[0], spec["window"]
+        base = torch.tensor(lens, dtype=torch.int32)
+        lq = (base + win)[:, None].expand(b, t).contiguous()
+        kw = dict(anc=spec["anc"][None].expand(b, t).contiguous(),
+                  anc_base=base.to("cuda"), window=win)
+    pkw = {} if fanout is None else dict(
+        anc=kw["anc"], anc_base=kw["anc_base"], anc_window=kw["window"])
+    latent = mode == "latent"
+    if latent:
+        q, kp, lq, bt = cs._latent_case(b, t, lq, torch.bfloat16, g)
+        vp = ks = vs = None
+        h, d, dv, khn = cs.DS_H, cs.DS_D, cs.DS_R, 1
+    else:
+        q, kp, vp, lq, bt, ks, vs = cs._attn_case(
+            b, t, lq, torch.int8 if mode == "int8" else torch.bfloat16, g)
+        h, d, dv, khn = 32, 128, 128, 32
+    if cols is not None:
+        bt = bt[:, :cols].contiguous()
+    lq2, live = ops.paged_query_prep(lq, bt, b, t, kp.shape[1])
+    qh = q.reshape(b, t, khn, h // khn, d).permute(0, 2, 1, 3, 4) \
+          .reshape(b, khn, -1, d).contiguous()
+    pages = kp[:, :, None, :] if latent else kp
+
+    def call(**extra):
+        o = paged_attention_cuda(qh, pages, vp, lq2, bt, live, t, ks, vs,
+                                 v_rank=dv if latent else 0, **kw, **extra)
+        return o.reshape(b, khn, t, h // khn, dv).permute(0, 2, 1, 3, 4) \
+                .reshape(b, t, h, dv)
+
+    def plain():
+        if latent:
+            return ops.paged_latent_attention(q, kp, lq, bt, v_rank=dv,
+                                              plain=True, **pkw)
+        return ops.paged_decode_attention(q, kp, vp, lq, bt, ks, vs,
+                                          plain=True, **pkw)
+    ref = plain()
+    # SDPA on K/V gathered (and dequantized) contiguous beforehand
+    smax = int(lq.max())
+    bti = bt.clamp(max=kp.shape[0] - 1).long()
+
+    def gathered(pg, sc):
+        x = pg[bti].float()
+        if sc is not None:
+            x = x * sc[bti][..., None]
+        return x.reshape(b, -1, khn, d)[:, :smax].permute(0, 2, 1, 3) \
+                .to(torch.bfloat16).contiguous()
+    kk = gathered(pages, ks)
+    vv = kk[..., :dv].contiguous() if latent else gathered(vp, vs)
+    qs = qh.to(torch.bfloat16)
+    if fanout is None:
+        mask = (torch.arange(smax, device="cuda")[None, :]
+                < lq.to("cuda"))[:, None, None, :]
+    else:
+        mask = ancestor_mask(lq, pkw["anc"], pkw["anc_base"],
+                             pkw["anc_window"], b, t, smax)[:, None]
+        if latent:                   # rows are (t, h): repeat t's mask
+            mask = mask.repeat_interleave(h, dim=2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, kk, vv, attn_mask=mask)
+    return call, ref, plain, sdpa
 
 
 def time_cases(name: str, root: str, splits) -> None:
@@ -43,51 +136,30 @@ def time_cases(name: str, root: str, splits) -> None:
     sys.path[:0] = [os.path.join(root, "src"), root]
     import torch
     import chip_smoke as cs
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.kernels import paged_attention as pa
     if not cs.__file__.startswith(root):
         raise RuntimeError(f"imported {cs.__file__}, not {root}")
-    from repro_torch.engine.spec import TreeTemplate
-    takes_split = "n_split" in inspect.signature(
-        paged_attention_cuda).parameters
+    # a wrapper with WIDE_ROWS takes n_split in every mode; the older one
+    # in the plain and tree modes only
+    every_mode = hasattr(pa, "WIDE_ROWS")
     timer = cs.Timer()
     g = torch.Generator(device="cuda").manual_seed(cs.SEED + 12)
-    b = 4
-    for label, fanout, lens, cols in CASES:
-        if fanout is None:           # lens are the lengths of T = 1 rows
-            t, kw = 1, {}
-            lq = torch.tensor(lens, dtype=torch.int32)[:, None]
-        else:                        # lens are the slots' window bases
-            spec = TreeTemplate(fanout).verify_tree("cuda")
-            t, win = spec["anc"].shape[0], spec["window"]
-            base = torch.tensor(lens, dtype=torch.int32)
-            lq = (base + win)[:, None].expand(b, t).contiguous()
-            kw = dict(anc=spec["anc"][None].expand(b, t).contiguous(),
-                      anc_base=base.to("cuda"), window=win)
-        q, kp, vp, lq, bt, _, _ = cs._attn_case(b, t, lq, torch.bfloat16, g)
-        if cols is not None:
-            bt = bt[:, :cols].contiguous()
-        lq2, live = ops.paged_query_prep(lq, bt, b, t, kp.shape[1])
-        qh = q.permute(0, 2, 1, 3).contiguous()         # [B, KH, T, D]
-
-        def call(**extra):
-            return paged_attention_cuda(qh, kp, vp, lq2, bt, live, t, **kw,
-                                        **extra)
-
-        o = call().reshape(b, 32, t, 128).permute(0, 2, 1, 3)
-        ref = ops.paged_decode_attention(
-            q, kp, vp, lq, bt, plain=True,
-            **({} if fanout is None else dict(
-                anc=kw["anc"], anc_base=kw["anc_base"],
-                anc_window=kw["window"])))
+    for label, mode, fanout, lens, cols in CASES:
+        call, ref, plain, sdpa = _operands(cs, mode, fanout, lens, cols,
+                                           g)
+        o = call()
         rel = ((o - ref).abs().max() / ref.abs().max()).item()
         if not rel <= cs.TOL:
             raise AssertionError(f"{name} {label}: rel {rel}")
         us = timer.ms(call, iters=200) * 1e3
-        print(f"RESULT {name} {label} {us:.2f}us (rel {rel:.1e})",
-              flush=True)
-        for s in (splits if takes_split else ()):
-            if s > bt.shape[1]:                 # at most a split a column
+        sd = timer.ms(sdpa, iters=200) * 1e3
+        pl = timer.ms(plain, iters=30) * 1e3
+        print(f"RESULT {name} {label} {us:.2f}us (rel {rel:.1e}; sdpa "
+              f"{sd:.2f}us; plain {pl:.1f}us)", flush=True)
+        if mode != "plain" and not every_mode:
+            continue
+        for s in splits:
+            if s > (cols or 16):                # at most a split a column
                 continue
             us = timer.ms(lambda: call(n_split=s), iters=200) * 1e3
             print(f"RESULT {name} {label} S={s} {us:.2f}us", flush=True)

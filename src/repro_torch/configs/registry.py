@@ -19,7 +19,7 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     if name not in ARCH_IDS:
         raise NotImplementedError(
             f"arch {name!r} is not yet ported (ported: {ARCH_IDS}; "
-            f"ROADMAP A.12)")
+            f"ROADMAP A.3, A.7)")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.reduced() if reduced else mod.full()
 

@@ -81,7 +81,7 @@ def apply_linear_experts(p: Dict, x: torch.Tensor,
                                       plain=plain).to(x.dtype)
     if "qw" in p:
         raise NotImplementedError(
-            "dense-W4 MoE experts are not yet ported (ROADMAP A.12)")
+            "dense-W4 MoE experts are not yet ported (ROADMAP A.7)")
     if "gmask" in p or "q" in p:
         raise NotImplementedError(
             "fake-quant layers are not yet ported (ROADMAP A.6)")

@@ -23,7 +23,7 @@ retuned per segment from the observed acceptance (``spec_adaptive``).
 Steps are plain eager PyTorch functions (no ``torch.compile``, no CUDA
 graphs). The prefix cache, chunked prefill, timed admission and the
 resilience features of the reference engine (with them the spec ladder's
-pressure degrade) are later slices (ROADMAP A.9-A.10): ``run`` raises
+pressure degrade) are later slices (ROADMAP A.4-A.5): ``run`` raises
 when asked for them.
 """
 from __future__ import annotations
@@ -129,7 +129,7 @@ class InferenceEngine:
             # move K/V pages; the latent pool's are a later slice
             raise NotImplementedError(
                 f"speculative decoding on family {cfg.family!r} is not yet "
-                f"ported (ROADMAP A.12)")
+                f"ported (ROADMAP A.7)")
         if self.spec and draft_params is None:
             raise ValueError("speculative decoding requires draft_params "
                              "(the same weights under a draft profile: "
@@ -239,7 +239,7 @@ class InferenceEngine:
             later.append("resilience/chaos config")
         if later:
             raise NotImplementedError(
-                f"not yet ported: {', '.join(later)} (ROADMAP A.9-A.10)")
+                f"not yet ported: {', '.join(later)} (ROADMAP A.4-A.5)")
 
     def run(self, source=None) -> Dict:
         """Serve until the queue and all slots drain. Returns

@@ -11,7 +11,7 @@ that hold no page carry the out-of-range sentinel ``num_pages``: the model
 code masks writes to it explicitly and clamps its reads (masked by the
 per-slot length), so inactive slots cost nothing and corrupt nothing.
 
-The shared-prefix cache of the reference is a later slice (ROADMAP A.9):
+The shared-prefix cache of the reference is a later slice (ROADMAP A.4):
 ``prefix_cache=True`` raises.
 """
 from __future__ import annotations
@@ -34,7 +34,7 @@ class PageAllocator:
     ``alloc`` hands out pages at refcount 1; ``free`` drops one reference
     per page and returns a page to the free list only at refcount 0 (the
     reference's ``incref``, for prefix sharing, comes with the prefix
-    cache, ROADMAP A.9). Invariant-hardened: every
+    cache, ROADMAP A.4). Invariant-hardened: every
     page is either in the free list (refcount 0) or in the outstanding
     set (refcount >= 1), never both. ``free`` rejects decrefs of
     non-outstanding pages and out-of-range ids with :class:`ValueError`
@@ -119,7 +119,7 @@ class PagedKVCache:
                 f"(supported: {', '.join(paged_families())})")
         if prefix_cache:
             raise NotImplementedError(
-                "the shared-prefix KV cache is not yet ported (ROADMAP A.9)")
+                "the shared-prefix KV cache is not yet ported (ROADMAP A.4)")
         self.page_size = page_size
         # ``lookahead``: extra writable positions past a slot's budget for
         # speculative decoding (0 until speculation is ported)

@@ -172,4 +172,4 @@ def paged_latent_attention(q, lat_pages, lengths, block_tables, *,
 def kv_decode_attention(*args, **kwargs):
     raise NotImplementedError(
         "int8 decode attention on a contiguous cache is not yet ported "
-        "(ROADMAP A.14, with the contiguous-cache families)")
+        "(ROADMAP A.8, with the contiguous-cache families)")

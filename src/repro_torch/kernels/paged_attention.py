@@ -19,9 +19,8 @@ the floor is the live K/V bytes (int8: codes plus scales) over 3.35 TB/s.
 The latent mode is bound by operations at long lengths: each 1152-byte
 bf16 row serves all T*H = 128 query rows (~0.28 MFLOP per row).
 
-Design, bf16/f32 pages in the plain and tree modes (every decode step and
-tree verify of the main path): the page walk is split across blocks.
-Split s of S takes each slot's live pages s, s+S, ...; a block of up to
+Design, every mode: the page walk is split across blocks. Split s of S
+takes each slot's live pages s, s+S, ...; a block of up to
 ``SPLIT_ROWS`` query rows stages chunks of up to 4 pages raw in shared
 memory with ``cp.async``, computes whole q.k dot products a thread
 (warps over rows, lanes over positions) and one online-softmax update a
@@ -34,17 +33,13 @@ entries clamp to page P - 1 and are masked by length; a row of length 0
 returns zeros. The plain version of the split, partials and combine
 included, is ``kernels/ref.py:paged_attention_split_ref``.
 
-The int8 mode keeps the earlier walk: one block per (slot, KV head, group
-of at most ``MAX_ROWS`` rows) walks the slot's pages in order, staging
-each page's K and V tiles in shared memory dequantized (code * scale);
-more rows take more row groups, each walking the pages again.
+The int8 mode stages the codes raw and each token's two scales in the
+pads of its staged rows; it folds the k scale into the score and the v
+scale into the probability instead of dequantizing every code.
 
-The latent mode stages one tile per page (V is K), gives each thread
-``LATENT_COLS`` value columns (576 threads of one column each would
-exceed a block's registers) and takes ``LATENT_ROWS`` rows a block (46 KB
-of shared memory at D = 576): decode's 128 rows make 32 row groups a
-slot, 128 blocks at 4 slots, so the slots' page walks fill the card (16
-rows a block left 100 of its 132 SMs idle and ran 3.1-3.5x slower).
+The latent mode stages one ring of rows (V is the leading ``v_rank``
+dims of K) and takes ``WIDE_ROWS`` rows a block, each of 256 threads a
+column pair of the 512 value columns.
 """
 from __future__ import annotations
 
@@ -56,16 +51,11 @@ import torch
 
 from repro_torch.kernels.build import load
 
-MAX_ROWS = 16           # int8 mode: query rows per block
-MAX_HEAD_DIM = 1024
-SPLIT_ROWS = 32         # split walk: query rows per block
-SPLIT_MAX_HEAD_DIM = 256   # split walk: a column pair a thread, 128 threads
-SPLIT_MAX_PAGE = 64     # split walk: positions a staged chunk holds
-SPLIT_WAVES = 2         # split walk: blocks aimed at per SM of the card
-SMEM_LIMIT = 232448     # dynamic shared memory a block may opt in to
-STAGE = 8               # 16-byte loads per thread per K/V page tile
-LATENT_COLS = 2         # latent mode: value columns per thread
-LATENT_ROWS = 4         # latent mode: query rows per block
+SPLIT_ROWS = 32         # query rows per block
+SPLIT_MAX_VALUE_DIM = 512  # a column pair a thread, 256 threads
+SPLIT_MAX_PAGE = 64     # positions a staged chunk holds
+WIDE_ROWS = 16          # value widths past 256 (latent): rows per block
+SPLIT_WAVES = 2         # blocks aimed at per SM of the card
 
 
 # paged_attention_launch(q, k, v, page_kind, k/v scales, lengths, tables,
@@ -89,28 +79,32 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_count(b: int, khn: int, tr: int, mp: int, sms: int,
-                ps: int) -> int:
-    """Splits S of each slot's page walk (bf16/f32 pages, plain and tree
-    modes), from host-known shapes only: the power of two at or below the
-    count that gives ``SPLIT_WAVES`` (slot, KV head, row group, split)
-    blocks per SM (a table of a power-of-two width then splits evenly),
-    and no more splits than the table's ``mp`` columns fill chunks of
-    ``SPLIT_MAX_PAGE`` positions, since below a chunk a split saves no
-    load and the combine kernel costs its own launch. At 4 slots x 32 KV
+def split_count(b: int, khn: int, tr: int, mp: int, sms: int, ps: int,
+                dv: int = 0) -> int:
+    """Splits S of each slot's page walk, from host-known shapes only: the
+    power of two at or below the count that gives ``SPLIT_WAVES`` (slot,
+    KV head, row group, split) blocks per SM (a table of a power-of-two
+    width then splits evenly), and no more splits than the table's ``mp``
+    columns fill chunks of ``SPLIT_MAX_PAGE`` positions, since below a
+    chunk a split saves no load and the combine kernel costs its own
+    launch. Row groups are ``SPLIT_ROWS`` rows, or ``WIDE_ROWS`` for a
+    value width ``dv`` past 256, the latent mode's. At 4 slots x 32 KV
     heads on 132 SMs with pages of 16: S = 2 for a 16-column table, 1 for
-    a table of at most 4 columns (the engine passes its live width)."""
-    blocks = b * khn * -(-tr // SPLIT_ROWS)
+    a table of at most 4 columns (the engine passes its live width); the
+    latent mode's 4 slots x 8 row groups: S = 4 for a 16-column table."""
+    rows = WIDE_ROWS if dv > 256 else SPLIT_ROWS
+    blocks = b * khn * -(-tr // rows)
     want = -(-SPLIT_WAVES * sms // blocks)
     chunks = -(-mp // max(1, SPLIT_MAX_PAGE // ps))
     return max(1, min(chunks, 1 << (want.bit_length() - 1)))
 
 
-def workspace_floats(b: int, khn: int, tr: int, d: int, n_split: int) -> int:
+def workspace_floats(b: int, khn: int, tr: int, dv: int,
+                     n_split: int) -> int:
     """f32 elements of the split walk's workspace: partial acc
-    [B, KH, S, TR, D] then (m, l) pairs [B, KH, S, TR, 2]; none at S = 1,
+    [B, KH, S, TR, DV] then (m, l) pairs [B, KH, S, TR, 2]; none at S = 1,
     where the split kernel writes the output itself."""
-    return 0 if n_split == 1 else b * khn * n_split * tr * (d + 2)
+    return 0 if n_split == 1 else b * khn * n_split * tr * (dv + 2)
 
 
 def _check(t: torch.Tensor, name: str, dtypes, shape) -> None:
@@ -151,9 +145,8 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     Latent mode: ``v_pages=None``, k_pages the latent pool [P, ps, 1, D]
     (bf16 or f32), each row's value its leading ``v_rank`` dims; it takes
     the tree mode's operands too.
-    bf16/f32 pages outside the latent mode take the split walk over
-    ``n_split`` splits (default :func:`split_count` of the shapes; at most
-    the block-table width); the int8 and latent modes ignore it.
+    Every mode walks the pages over ``n_split`` splits (default
+    :func:`split_count` of the shapes; at most the block-table width).
     Plain-mode launches count in ``launches``, int8-mode launches in
     ``int8_launches``, tree-mode launches (any page type) in
     ``tree_launches``, latent-mode launches (tree or not) in
@@ -164,10 +157,9 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     mp = block_tables.shape[1]
     latent = v_pages is None
     dv = v_rank if latent else d
-    if tr % t or d > MAX_HEAD_DIM:
+    if tr % t:
         raise ValueError(f"paged_attention_cuda takes T*R rows (a multiple "
-                         f"of T) and D <= {MAX_HEAD_DIM}, got T*R={tr}, "
-                         f"T={t}, D={d}")
+                         f"of T), got T*R={tr}, T={t}")
     if latent and (k_pages.dtype == torch.int8 or khn != 1
                    or not 1 <= v_rank <= d):
         raise NotImplementedError(
@@ -196,41 +188,26 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     if tree:
         _check(anc, "anc", (torch.int32,), (b, t))
         _check(anc_base, "anc_base", (torch.int32,), (b,))
+    if n_split is None:
+        n_split = split_count(b, khn, tr, mp, _sm_count(
+            q.device.index if q.device.index is not None
+            else torch.cuda.current_device()), ps, dv)
     vec = 16 // k_pages.element_size()         # elements per 16-byte load
-    split = not latent and not int8
-    if split:
-        if n_split is None:
-            n_split = split_count(b, khn, tr, mp, _sm_count(
-                q.device.index if q.device.index is not None
-                else torch.cuda.current_device()), ps)
-        if d > SPLIT_MAX_HEAD_DIM or d % vec or ps > SPLIT_MAX_PAGE \
-                or not 1 <= n_split <= max(mp, 1):
-            raise ValueError(
-                f"paged_attention_cuda: the split walk takes D <= "
-                f"{SPLIT_MAX_HEAD_DIM} (a multiple of {vec}), page size <= "
-                f"{SPLIT_MAX_PAGE} and 1 <= n_split <= {max(mp, 1)}; got "
-                f"D={d}, page size {ps}, n_split={n_split}")
-    else:
-        n_split = 1
-        rows = min(tr, LATENT_ROWS if latent else MAX_ROWS)
-        tiles = 1 if latent else 2             # the latent V is the K tile
-        smem = 4 * (rows * d + tiles * ps * d + rows * ps + 3 * rows)
-        if latent:
-            cols = -(-dv // LATENT_COLS)   # threads holding value columns
-            threads, stage = -(-cols // 32) * 32, 2 * STAGE
-        else:
-            threads, stage = -(-d // 32) * 32, STAGE
-        if smem > SMEM_LIMIT or d % vec or ps * d // vec > stage * threads:
-            raise ValueError(
-                f"paged_attention_cuda: page size {ps} x head dim {d} does "
-                f"not fit the kernel's staging ({smem} bytes of shared "
-                f"memory, {vec}-element vectors)")
+    if d % vec or dv % 2 or dv > SPLIT_MAX_VALUE_DIM or ps > SPLIT_MAX_PAGE \
+            or not 1 <= n_split <= max(mp, 1):
+        raise ValueError(
+            f"paged_attention_cuda: the page walk takes D a multiple of "
+            f"{vec}, an even value width <= {SPLIT_MAX_VALUE_DIM}, page "
+            f"size <= {SPLIT_MAX_PAGE} and 1 <= n_split <= {max(mp, 1)}; got "
+            f"D={d}, value width {dv}, page size {ps}, n_split={n_split}")
     if k_pages.data_ptr() % 16 or (not latent and v_pages.data_ptr() % 16):
         raise ValueError("paged_attention_cuda: pages must be 16-byte "
                          "aligned (vector loads)")
+    if q.data_ptr() % 16:                      # staged with 16-byte copies
+        q = q.clone()
     out = torch.empty((b, khn, tr, dv), dtype=torch.float32,
                       device=q.device)
-    ws = workspace_floats(b, khn, tr, d, n_split)
+    ws = workspace_floats(b, khn, tr, dv, n_split)
     work = torch.empty(ws, dtype=torch.float32, device=q.device) \
         if ws else None
     rc = _launcher()(q.data_ptr(), k_pages.data_ptr(),
@@ -244,7 +221,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                      out.data_ptr(), b, khn, tr, t, d, dv, p, ps, mp,
                      None if work is None else work.data_ptr(), n_split,
                      torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
+    if rc != 0:     # 1: shapes the launcher refuses (shared memory too)
         raise RuntimeError(
             f"paged_attention kernel launch failed: CUDA error {rc}")
     if latent:

@@ -101,28 +101,46 @@ def paged_attention_ref(q, k_pages, v_pages, lengths, block_tables,
 
 
 def paged_attention_split_partials(q, k_pages, v_pages, lengths,
-                                   block_tables, n_split: int, *, anc=None,
-                                   anc_base=None, anc_window: int = 0):
-    """The per-split partials of the CUDA kernel's split page walk
-    (bf16/f32 pages, plain and tree modes): split i of ``n_split`` takes
-    each slot's live pages i, i + n_split, ... (live = ceil(max_t length /
-    ps), clipped to the table width, as ``ops.paged_query_prep`` derives
-    it) and keeps, per query row, m = its largest visible score, l = the
-    sum of e^(score - m) and acc = the sum of e^(score - m) v. A split
-    with no visible position for a row has m = -inf, l = 0, acc = 0.
-    Arguments as :func:`paged_attention_ref` (no int8 pages). Returns
-    (m [S, B, T, H], l [S, B, T, H], acc [S, B, T, H, D]) in f32."""
+                                   block_tables, n_split: int,
+                                   k_scale_pages=None, v_scale_pages=None, *,
+                                   anc=None, anc_base=None,
+                                   anc_window: int = 0, v_rank: int = 0):
+    """The per-split partials of the CUDA kernel's split page walk: split
+    i of ``n_split`` takes each slot's live pages i, i + n_split, ...
+    (live = ceil(max_t length / ps), clipped to the table width, as
+    ``ops.paged_query_prep`` derives it) and keeps, per query row, m = its
+    largest visible score, l = the sum of e^(score - m) and acc = the sum
+    of e^(score - m) v. A split with no visible position for a row has
+    m = -inf, l = 0, acc = 0.
+
+    Arguments as :func:`paged_attention_ref`. int8 pages take the
+    kernel's folded math: a score is (q . codes) * (k_scale / sqrt(D)),
+    and acc sums (e^(score - m) * v_scale) * codes while l sums
+    e^(score - m). ``v_pages=None`` is the latent pool: k_pages [P, ps, D]
+    (one KV head), each row's value its leading ``v_rank`` dims, as
+    :func:`paged_latent_attention_ref`. Returns (m [S, B, T, H],
+    l [S, B, T, H], acc [S, B, T, H, DV]) in f32."""
     from repro_torch.models.layers import ancestor_mask, query_lengths
+    latent = v_pages is None
+    if latent:
+        k_pages = k_pages[:, :, None, :]
     b, t, h, d = q.shape
     num_pages, ps, khn, _ = k_pages.shape
     mp = block_tables.shape[1]
     r = h // khn
     bt = block_tables.long().clamp(0, num_pages - 1)
     k = k_pages[bt].reshape(b, -1, khn, d).float()
-    v = v_pages[bt].reshape(b, -1, khn, d).float()
+    v = k[..., :v_rank] if latent \
+        else v_pages[bt].reshape(b, -1, khn, d).float()
     s = k.shape[1]
     qh = q.reshape(b, t, khn, r, d).float()
-    sco = torch.einsum("btkrd,bskd->bkrts", qh, k) * attention_scale(d)
+    sco = torch.einsum("btkrd,bskd->bkrts", qh, k)
+    if k_scale_pages is None:
+        sco = sco * attention_scale(d)
+    else:                                                   # [B, KH, S]
+        ks, vs = (sc[bt].reshape(b, -1, khn).transpose(1, 2)
+                  for sc in (k_scale_pages, v_scale_pages))
+        sco = sco * (attention_scale(d) * ks)[:, :, None, None, :]
     lq = query_lengths(lengths, b, t, q.device)
     live = torch.clamp((lq.amax(dim=1) + ps - 1) // ps, 0, mp)      # [B]
     page = torch.arange(s, device=q.device) // ps                  # [S]
@@ -136,7 +154,8 @@ def paged_attention_split_partials(q, k_pages, v_pages, lengths,
         m = sc.amax(dim=-1)                                        # [B,KH,R,T]
         e = torch.where(vis, torch.exp(sc - torch.where(
             torch.isinf(m), 0.0, m)[..., None]), 0.0)
-        acc = torch.einsum("bkrts,bskd->bkrtd", e, v)
+        pv = e if k_scale_pages is None else e * vs[:, :, None, None, :]
+        acc = torch.einsum("bkrts,bskd->bkrtd", pv, v)
         for lst, x in ((ms, m), (ls, e.sum(dim=-1)), (accs, acc)):
             # [B, KH, R, T, ...] -> [B, T, H, ...]
             lst.append(x.movedim(3, 1).reshape(b, t, h, *x.shape[4:]))
@@ -144,17 +163,20 @@ def paged_attention_split_partials(q, k_pages, v_pages, lengths,
 
 
 def paged_attention_split_ref(q, k_pages, v_pages, lengths, block_tables,
-                              n_split: int, *, anc=None, anc_base=None,
-                              anc_window: int = 0):
-    """:func:`paged_attention_ref` computed as the CUDA kernel's split
-    walk computes it: the partials of
+                              n_split: int, k_scale_pages=None,
+                              v_scale_pages=None, *, anc=None, anc_base=None,
+                              anc_window: int = 0, v_rank: int = 0):
+    """:func:`paged_attention_ref` (int8 pages included) or, with
+    ``v_pages=None``, :func:`paged_latent_attention_ref`, computed as the
+    CUDA kernel's split walk computes it: the partials of
     :func:`paged_attention_split_partials`, merged in split order with
     m = max m_i, l = sum l_i e^(m_i - m), o = sum acc_i e^(m_i - m) / l
     (splits with m_i = -inf skipped; a row with none left is zeros).
-    Returns [B, T, H, D] f32."""
+    Returns [B, T, H, DV] f32."""
     m_i, l_i, acc_i = paged_attention_split_partials(
-        q, k_pages, v_pages, lengths, block_tables, n_split, anc=anc,
-        anc_base=anc_base, anc_window=anc_window)
+        q, k_pages, v_pages, lengths, block_tables, n_split, k_scale_pages,
+        v_scale_pages, anc=anc, anc_base=anc_base, anc_window=anc_window,
+        v_rank=v_rank)
     m = m_i.amax(dim=0)
     w = torch.where(torch.isinf(m_i), 0.0,
                     torch.exp(m_i - torch.where(torch.isinf(m), 0.0, m)))

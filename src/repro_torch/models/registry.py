@@ -7,7 +7,7 @@
     logits, cache = api.decode_step(params, cache, tok, pos, cfg, tables)
 
 The dense and MLA + MoE (``mla_moe``) families are ported; the
-reference's other families are later slices (ROADMAP A.12, A.14).
+reference's other families are later slices (ROADMAP A.7, A.8).
 """
 from __future__ import annotations
 

@@ -129,8 +129,8 @@ def test_paged_attention_kernel_int8_matches_plain(cuda, t, kh, r, d):
 @pytest.mark.parametrize("t", [20, 9])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
 def test_paged_attention_kernel_rows_above_one_group(cuda, t, dtype):
-    """Plain and int8 modes past the 16 rows one block holds: T*R = 40 and
-    18 rows take three and two row groups."""
+    """Plain and int8 modes past 8 rows: T*R = 40 rows take two 32-row
+    groups, 18 rows one."""
     q, kp, vp, lens, bt = _attn_case(cuda, t, 4, 2, 64, dtype)
     sc = ()
     if dtype == torch.int8:
@@ -277,7 +277,7 @@ def _latent_case(cuda, b, t, h, d, dtype, ps=16, mp=16):
 def test_paged_attention_kernel_latent_matches_plain(cuda, t, dtype, h, d,
                                                      v_rank):
     """Latent mode: one KV head of D = 576 (DeepSeek-V2: 128 rows per
-    decode token, 8 row groups, ~75 KB of shared memory), value = the
+    decode token, 8 row groups, over 48 KB of shared memory), value = the
     leading 512 dims; small and ragged widths too."""
     q, lat, lens, bt = _latent_case(cuda, 4, t, h, d, dtype)
     before = (paged_attention_cuda.launches,
@@ -356,7 +356,7 @@ def test_gqsa_gemv_experts_kernel_matches_plain(cuda, e, n, k, dtype):
 
 
 def test_paged_attention_kernel_above_48kb_of_shared_memory(cuda):
-    """Plain mode at D = 256 with 16 rows a block needs 50 KB of shared
+    """Plain mode at D = 256 with 16 rows needs over 48 KB of shared
     memory: the launcher opts in past the default 48 KB."""
     q, kp, vp, lens, bt = _attn_case(cuda, 2, 2, 8, 256, torch.float32)
     o = ops.paged_decode_attention(q, kp, vp, lens, bt)
@@ -390,8 +390,8 @@ def _split_case(cuda, t, r, dtype, tree):
     return q, kp, vp, lens.to(torch.int32).contiguous(), bt, kw
 
 
-def _split_kernel(q, kp, vp, lens, bt, n_split, anc=None, anc_base=None,
-                  anc_window=0):
+def _split_kernel(q, kp, vp, lens, bt, n_split, ks=None, vs=None, anc=None,
+                  anc_base=None, anc_window=0):
     """The wrapper at a given split count, on the dispatcher's operands."""
     b, t, h, d = q.shape
     khn = kp.shape[2]
@@ -399,7 +399,7 @@ def _split_kernel(q, kp, vp, lens, bt, n_split, anc=None, anc_base=None,
     qh = q.reshape(b, t, khn, h // khn, d).permute(0, 2, 1, 3, 4) \
           .reshape(b, khn, -1, d).contiguous()
     o = paged_attention_cuda(
-        qh, kp, vp, lq, bt, live, t, anc=anc,
+        qh, kp, vp, lq, bt, live, t, ks, vs, anc=anc,
         anc_base=None if anc is None else anc_base.to(torch.int32),
         window=anc_window, n_split=n_split)
     return o.reshape(b, khn, t, h // khn, d).permute(0, 2, 1, 3, 4) \
@@ -490,6 +490,137 @@ def test_kernel_decode_steps_never_read_the_device_on_the_host(cuda):
     torch.cuda.synchronize()
     assert paged_attention_cuda.launches > before[0]
     assert paged_attention_cuda.tree_launches > before[1]
+    reads = [e.key for e in prof.key_averages()
+             if e.key in ("aten::_local_scalar_dense", "aten::item")]
+    assert not reads, reads
+
+
+def _scales(cuda, kp):
+    """Positive per-token K and V scales of an int8 pool."""
+    return tuple(torch.rand(kp.shape[:3], generator=cuda, device="cuda") / 64
+                 + 1e-3 for _ in range(2))
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 6])
+@pytest.mark.parametrize("tree", [False, True])
+def test_paged_attention_split_walk_int8_matches_plain(cuda, n_split, tree):
+    """The int8 mode on the split walk at S = 1, 2, 3 and the table's
+    width: against the plain version (codes dequantized) and the plain
+    version of the split (scales folded as the kernel folds them); zeros
+    where no position is visible; a second launch bit-identical."""
+    from repro_torch.kernels.ref import paged_attention_split_ref
+    t, r = (5, 1) if tree else (3, 2)
+    q, kp, vp, lens, bt, kw = _split_case(cuda, t, r, torch.int8, tree)
+    ks, vs = _scales(cuda, kp)
+    before = (paged_attention_cuda.int8_launches,
+              paged_attention_cuda.tree_launches)
+    o = _split_kernel(q, kp, vp, lens, bt, n_split, ks, vs, **kw)
+    assert (paged_attention_cuda.int8_launches,
+            paged_attention_cuda.tree_launches) == (before[0] + (not tree),
+                                                    before[1] + tree)
+    _close(o, ops.paged_decode_attention(q, kp, vp, lens, bt, ks, vs,
+                                         plain=True, **kw))
+    _close(o, paged_attention_split_ref(q, kp, vp, lens, bt, n_split, ks,
+                                        vs, **kw))
+    assert (o[3] == 0).all() and (o[lens == 0] == 0).all()
+    assert torch.equal(o, _split_kernel(q, kp, vp, lens, bt, n_split, ks, vs,
+                                        **kw))
+
+
+def _latent_kernel(q, lat, lens, bt, v_rank, n_split, anc=None,
+                   anc_base=None, anc_window=0):
+    """The wrapper's latent mode at a given split count."""
+    b, t, h, d = q.shape
+    lq, live = ops.paged_query_prep(lens, bt, b, t, lat.shape[1])
+    o = paged_attention_cuda(
+        q.reshape(b, 1, t * h, d).contiguous(), lat[:, :, None, :], None,
+        lq, bt, live, t, anc=anc, anc_base=anc_base, window=anc_window,
+        v_rank=v_rank, n_split=n_split)
+    return o.reshape(b, t, h, v_rank)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 16])
+@pytest.mark.parametrize("tree", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_attention_split_walk_latent_matches_plain(cuda, n_split,
+                                                         tree, dtype):
+    """The latent mode at DeepSeek-V2 width (128 heads, D = 576, v_rank
+    512) on the split walk at S = 1, 2, 3 and the 16-column table's
+    width: against the plain version and the plain version of the split;
+    zeros where no position is visible; a second launch bit-identical.
+    Tree: a window of T = 3 with random bitmaps."""
+    from repro_torch.kernels.ref import paged_attention_split_ref
+    t = 3 if tree else 1
+    q, lat, lens, bt = _latent_case(cuda, 4, t, 128, 576, dtype)
+    kw = {}
+    if tree:
+        base = torch.tensor([30, 0, 197, 221], dtype=torch.int32,
+                            device="cuda")
+        lens = (base + t)[:, None].expand(-1, t).contiguous()
+        lens[1] = 0
+        kw = dict(anc=torch.randint(0, 2 ** 31 - 1, (4, t), generator=cuda,
+                                    device="cuda", dtype=torch.int32),
+                  anc_base=base, anc_window=t)
+    before = paged_attention_cuda.latent_launches
+    o = _latent_kernel(q, lat, lens, bt, 512, n_split, **kw)
+    assert paged_attention_cuda.latent_launches == before + 1
+    _close(o, ops.paged_latent_attention(q, lat, lens, bt, v_rank=512,
+                                         plain=True, **kw))
+    _close(o, paged_attention_split_ref(q, lat, None, lens, bt, n_split,
+                                        v_rank=512, **kw))
+    assert (o[1] == 0).all() and (o[lens == 0] == 0).all()
+    assert torch.equal(o, _latent_kernel(q, lat, lens, bt, 512, n_split,
+                                         **kw))
+
+
+@pytest.mark.parametrize("t,h", [(1, 16), (1, 32), (2, 16)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_attention_latent_16_row_blocks(cuda, t, h, dtype):
+    """Latent rows at D = 576 in blocks of 16 (``WIDE_ROWS``): T*H = 16
+    rows in one block, 32 in two (one head group a block, or one fed
+    token a block at T = 2); each page staged once a block for its 16
+    rows, the 512 value columns in pairs over 256 threads."""
+    q, lat, lens, bt = _latent_case(cuda, 4, t, h, 576, dtype)
+    o = ops.paged_latent_attention(q, lat, lens, bt, v_rank=512)
+    _close(o, ops.paged_latent_attention(q, lat, lens, bt, v_rank=512,
+                                         plain=True))
+    assert (o[1] == 0).all() and (o[3, 0] == 0).all()
+
+
+def test_int8_pool_and_deepseek_decode_steps_never_read_the_device_on_the_host(
+        cuda):
+    """A decode step of the reduced llama2-7b with the int8 pool (the int8
+    mode) and of the reduced DeepSeek-V2 (the latent mode, the experts'
+    axis) through the kernels read no tensor value on the host: no
+    ``aten::_local_scalar_dense`` or ``aten::item`` in the profile."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as ttf
+    bt = torch.tensor([[0, 1, 2, 3, 4, 5], [16] * 6], dtype=torch.int32,
+                      device="cuda")
+    pos = torch.tensor([5, 0], dtype=torch.int32, device="cuda")
+    steps = []
+    for cfg in (dataclasses.replace(get_config("llama2_7b", reduced=True),
+                                    kv_cache_dtype="int8"),
+                get_config("deepseek_v2_236b", reduced=True)):
+        params = ttf.init_params(0, cfg, "cuda", compress=GQSAConfig())
+        cache = ttf.init_paged_cache(cfg, 16, 4, device="cuda")
+        ttf.prefill(params, cache, torch.tensor([[5, 6, 7, 1, 2], [0] * 5],
+                                                device="cuda"),
+                    torch.tensor([5, 0], device="cuda"), bt, cfg)
+        steps.append((params, cache, cfg))
+    before = (paged_attention_cuda.int8_launches,
+              paged_attention_cuda.latent_launches)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for params, cache, cfg in steps:
+            ttf.decode_step(params, cache, torch.tensor([[1], [2]],
+                                                        device="cuda"),
+                            pos, cfg, bt, max_live_pages=2)
+    torch.cuda.synchronize()
+    assert paged_attention_cuda.int8_launches > before[0]
+    assert paged_attention_cuda.latent_launches > before[1]
     reads = [e.key for e in prof.key_averages()
              if e.key in ("aten::_local_scalar_dense", "aten::item")]
     assert not reads, reads

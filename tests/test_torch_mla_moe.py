@@ -237,7 +237,7 @@ def test_gqsa_gemv_experts_ref_matches_reference_per_expert(model):
 
 def test_expert_stacked_linear_refuses_w4_experts():
     x = torch.zeros((2, 1, 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
         apply_linear_experts({"qw": None, "scale": torch.ones(2, 4, 2)}, x)
 
 
