@@ -12,17 +12,22 @@ Phases (any failure exits non-zero before the result line is printed):
      at the default split count and at S in {1, 2, the table's width},
      with length-0 rows exact zeros and repeats bit-identical;
   5. w4_matmul against its plain version at the full llama2-7b shapes,
-     T in {1, 4, 8, 64, 200}, plus an unaligned small case and a G128 case;
+     T in {1, 4, 8, 64, 200}, plus an unaligned small case and a G128 case,
+     each with its path (tensor or CUDA cores) and split count, repeats
+     bit-identical;
   6. timing of every kernel at the full-width decode shapes (CUDA events,
      L2 flushed before every launch, as the decode loop finds it cold),
-     beside the plain version, a library yardstick and the bound;
+     beside the plain version, a library yardstick and the bound; w4_matmul
+     also at T = 64 (prefill rows), and the launch floor (a w4_matmul launch
+     at T = 1, N = 32, K = 64);
   7. full-width llama2-7b (GQSA W4 S50 G16, random seeded weights, packed
      on the card layer by layer): one batched prefill + 4 decode steps
      through the kernels and through the plain versions, compared in f32
      and in bf16 compute, with the bf16 pool and with the int8 pool; a
      profiled bf16 decode step; then the int8-pool main path: the engine
      serves 8 requests x 32 new tokens on 4 slots;
-  8. the same model check for the dense-W4 baseline (packed on the card);
+  8. the same model check for the dense-W4 baseline (packed on the card),
+     and a profiled bf16 W4 decode step;
   9. the main paths of the serve CLI at full width, 4 slots, 8 requests x
      32 new tokens: ``--compress gqsa``, then ``--compress w4``;
  10. the tree mode of paged attention against its plain version at full
@@ -74,6 +79,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+BF16_TC_FLOP_PER_S = 989e12      # H100 SXM bf16 on the tensor cores, dense
 TOL = 1e-4                       # max-abs error, relative to max |plain|
 # whole-model logits, relative to max |plain|: f32 compute differs only in
 # summation order; in bf16 a one-ulp rounding flip is amplified through 32
@@ -338,9 +344,11 @@ def _w4_packed(n, k, seed, group_size=16):
 
 def phase_w4_check():
     """w4_matmul at the full-width shapes, T from decode to prefill rows,
-    bf16 and f32 x; then K = 48 (not a multiple of 64: the byte path),
-    ragged N, and G = 128."""
+    bf16 and f32 x; then K = 48 (not a multiple of 64: the byte path of the
+    CUDA cores), ragged N, and G = 128. Each case logs its path and split
+    count, and a second launch must give the same bits."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.w4_matmul import plan
     worst = 0.0
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     cases = [(label, n, k, 16, (1, 4, 8, 64, 200))
@@ -354,22 +362,80 @@ def phase_w4_check():
                 x = torch.randn((t, k), generator=g, device="cuda").to(dt)
                 y = ops.w4_matmul(x, p["qw"], p["scale"], p["zero"],
                                   group_size=gs)
+                again = ops.w4_matmul(x, p["qw"], p["scale"], p["zero"],
+                                      group_size=gs)
                 ref = ops.w4_matmul(x, p["qw"], p["scale"], p["zero"],
                                     group_size=gs, plain=True)
                 torch.cuda.synchronize()
                 err = (y - ref).abs().max().item()
                 rel = err / ref.abs().max().item()
                 worst = max(worst, err)
+                path, splits = plan(x, p["qw"], p["scale"], p["zero"], gs)
                 log(f"[w4 check] {label} N={n} K={k} G={gs} T={t} "
-                    f"x={str(dt)[6:]}: max_abs_err {err:.3e} rel {rel:.3e}")
+                    f"x={str(dt)[6:]} path={path} S={splits}: max_abs_err "
+                    f"{err:.3e} rel {rel:.3e}")
                 require(y.shape == (t, n) and torch.isfinite(y).all(),
                         "w4_matmul output shape/finite")
                 require(rel <= TOL, f"w4_matmul disagrees: rel {rel}")
+                require(torch.equal(y, again), "w4_matmul repeat differs")
+                require(path == "tc" or label == "unaligned",
+                        "the G16/G128 shapes take the tensor cores")
     return worst
 
 
-def _bound_ms(nbytes, flops):
-    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
+def _bound_ms(nbytes, flops, flop_rate=F32_FLOP_PER_S):
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / flop_rate)
+
+
+def w4_layer(timer, g, t):
+    """One llama2-7b layer of w4_matmul (7 projections at G16, bf16 x with
+    ``t`` rows): kernel, plain, ``torch.matmul`` on the dequantized dense
+    bf16 W and the bound (its products are bf16 on the tensor cores),
+    summed over the layer."""
+    from repro_torch.core.quant import QuantConfig, dequantize, unpack_int4
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.w4_matmul import plan, w4_matmul_cuda
+    w4 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    for label, (n, k) in SHAPES.items():
+        p = _w4_packed(n, k, SEED + 4)
+        args = (p["qw"], p["scale"], p["zero"])
+        x = torch.randn((t, k), generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        # library yardstick: the dequantized weight as a dense bf16 matrix
+        dense = dequantize(unpack_int4(p["qw"]), p["scale"], p["zero"],
+                           QuantConfig(group_size=16), torch.bfloat16)
+        nbytes = n * k // 2 + 8 * n * (k // 16) + t * k * 2 + t * n * 4
+        bound = _bound_ms(nbytes, 2 * t * n * k, BF16_TC_FLOP_PER_S)
+        t_k = timer.ms(lambda: w4_matmul_cuda(x, *args, 16))
+        t_p = timer.ms(lambda: ops.w4_matmul(x, *args, group_size=16,
+                                             plain=True))
+        t_l = timer.ms(lambda: torch.matmul(x, dense.T))
+        path, splits = plan(x, *args, 16)
+        log(f"[w4 time] {label} N={n} K={k} G=16 T={t} bf16 path={path} "
+            f"S={splits}: kernel {t_k * 1e3:.1f}us plain {t_p * 1e3:.1f}us "
+            f"torch.matmul(dense bf16) {t_l * 1e3:.1f}us bound "
+            f"{bound * 1e3:.2f}us ({nbytes / 1e6:.1f} MB) -> "
+            f"{bound / t_k:.0%} of bound")
+        c = PER_LAYER[label]
+        for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
+                          (t_k, t_p, t_l, bound)):
+            w4[key] += c * v
+        del dense
+    log(f"[w4 time] one layer (7 projections, T={t}): kernel "
+        f"{w4['ms']:.4f}ms plain {w4['plain_ms']:.4f}ms matmul "
+        f"{w4['library_ms']:.4f}ms bound {w4['bound_ms']:.4f}ms "
+        f"({w4['bound_ms'] / w4['ms']:.0%} of bound)")
+    return w4
+
+
+def w4_launch_floor(timer):
+    """The Timer's reading for the smallest w4_matmul launch (T = 1, N =
+    32, K = 64): the fixed cost of any launch after the L2 flush."""
+    from repro_torch.kernels.w4_matmul import w4_matmul_cuda
+    p = _w4_packed(32, 64, SEED + 6)
+    x = torch.randn((1, 64), device="cuda", dtype=torch.bfloat16)
+    return timer.ms(lambda: w4_matmul_cuda(x, p["qw"], p["scale"],
+                                           p["zero"], 16), iters=100)
 
 
 def phase_timing(timer):
@@ -379,8 +445,6 @@ def phase_timing(timer):
     from repro_torch.kernels import ops
     from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda
     from repro_torch.kernels.paged_attention import paged_attention_cuda
-    from repro_torch.core.quant import QuantConfig, dequantize, unpack_int4
-    from repro_torch.kernels.w4_matmul import w4_matmul_cuda
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     b = 4
     out = {}
@@ -410,34 +474,13 @@ def phase_timing(timer):
         f"{gemv['library_ms']:.4f}ms bound {gemv['bound_ms']:.4f}ms")
     out["gqsa_gemv"] = gemv
 
-    w4 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    for label, (n, k) in SHAPES.items():
-        p = _w4_packed(n, k, SEED + 4)
-        args = (p["qw"], p["scale"], p["zero"])
-        x = torch.randn((b, k), generator=g, device="cuda",
-                        dtype=torch.bfloat16)
-        # library yardstick: the dequantized weight as a dense bf16 matrix
-        dense = dequantize(unpack_int4(p["qw"]), p["scale"], p["zero"],
-                           QuantConfig(group_size=16), torch.bfloat16)
-        nbytes = n * k // 2 + 8 * n * (k // 16) + b * k * 2 + b * n * 4
-        bound = _bound_ms(nbytes, 2 * b * n * k)
-        t_k = timer.ms(lambda: w4_matmul_cuda(x, *args, 16))
-        t_p = timer.ms(lambda: ops.w4_matmul(x, *args, group_size=16,
-                                             plain=True))
-        t_l = timer.ms(lambda: torch.matmul(x, dense.T))
-        log(f"[w4 time] {label} N={n} K={k} G=16 T={b} bf16: kernel "
-            f"{t_k * 1e3:.1f}us plain {t_p * 1e3:.1f}us torch.matmul(dense "
-            f"bf16) {t_l * 1e3:.1f}us bound {bound * 1e3:.2f}us "
-            f"({nbytes / 1e6:.1f} MB) -> {bound / t_k:.0%} of bound")
-        c = PER_LAYER[label]
-        for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
-                          (t_k, t_p, t_l, bound)):
-            w4[key] += c * v
-        del dense
-    log(f"[w4 time] one decode layer (7 projections, T=4): kernel "
-        f"{w4['ms']:.4f}ms plain {w4['plain_ms']:.4f}ms matmul "
-        f"{w4['library_ms']:.4f}ms bound {w4['bound_ms']:.4f}ms")
-    out["w4_matmul"] = w4
+    out["w4_matmul"] = w4_layer(timer, g, b)
+    w4_layer(timer, g, 64)
+    floor = w4_launch_floor(timer)
+    log(f"[w4 time] launch floor (T=1 N=32 K=64, G16, bf16): "
+        f"{floor * 1e3:.2f}us a launch, {7 * floor * 1e3:.1f}us for a "
+        f"layer's 7 launches (not subtracted from the times above)")
+    out["w4_matmul"]["launch_floor_ms"] = floor
 
     for mode, dtype in (("paged_attention", torch.bfloat16),
                         ("paged_attention_int8", torch.int8)):
@@ -569,6 +612,7 @@ def reset_launches():
     paged_attention_cuda.tree_launches = 0
     paged_attention_cuda.latent_launches = 0
     w4_matmul_cuda.launches = 0
+    w4_matmul_cuda.tc_launches = 0
 
 
 def read_launches():
@@ -579,6 +623,7 @@ def read_launches():
     return {"gqsa_gemv": gqsa_gemv_cuda.launches,
             "paged_attention": paged_attention_cuda.launches,
             "w4_matmul": w4_matmul_cuda.launches,
+            "w4_matmul_tc": w4_matmul_cuda.tc_launches,
             "paged_attention_int8": paged_attention_cuda.int8_launches,
             "paged_attention_tree": paged_attention_cuda.tree_launches,
             "gqsa_gemv_experts": gqsa_gemv_experts_cuda.launches,
@@ -663,9 +708,11 @@ def phase_model_w4():
                  for t in leaf.values())
     log(f"[model] llama2-7b full width, dense W4 G16 packed on the card in "
         f"{time.time() - t0:.1f}s: {packed / 1e9:.3f} GB of packed linears")
-    check_model(params, full, "w4")
+    toks, lens, bt, num_pages, ps = check_model(params, full, "w4")
     log(f"[model] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
         f"GB")
+    profile_decode(params, full, toks, lens, bt, num_pages, ps,
+                   label="W4 bf16 decode step at 4 slots")
     del params
 
 def profile_decode(params, cfg, toks, lens, bt, num_pages, ps, steps=8,
@@ -717,9 +764,11 @@ def profile_decode(params, cfg, toks, lens, bt, num_pages, ps, steps=8,
         # drop the anonymous namespace of a kernel of the port's csrc
         short = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+\d+", "", name)
         log(f"[profile]   {ms:8.3f} ms  x{n:<5d} {short[:70]}")
-    attn = [(ms, n) for ms, n, name in rows if "paged_attention" in name]
-    log(f"[profile]   paged attention, every kernel: "
-        f"{sum(a[0] for a in attn):.3f} ms x{sum(a[1] for a in attn)}")
+    for family in ("paged_attention", "gqsa_gemv", "w4_matmul"):
+        fam = [(ms, n) for ms, n, name in rows if family in name]
+        if fam:
+            log(f"[profile]   {family}, every kernel: "
+                f"{sum(a[0] for a in fam):.3f} ms x{sum(a[1] for a in fam)}")
 
 
 def phase_serve(compress):
@@ -747,6 +796,8 @@ def phase_serve(compress):
     other = "w4_matmul" if compress == "gqsa" else "gqsa_gemv"
     require(launches[linear] > 0 and launches["paged_attention"] > 0,
             f"{linear} and paged attention launched on the main path")
+    require(compress == "gqsa" or launches["w4_matmul_tc"] > 0,
+            "w4_matmul took the tensor cores on the w4 path")
     require(launches[other] == 0 and launches["paged_attention_int8"] == 0
             and launches["paged_attention_tree"] == 0,
             f"no {other}, int8- or tree-mode launch on the {compress} path")
@@ -1023,8 +1074,9 @@ def phase_serve_spec(label):
         require(launches["paged_attention_tree"] > 0,
                 "the tree mode launched on the tree path")
     if "w4l25" in SPEC_SERVE[label]:
-        require(launches["w4_matmul"] > 0, "the dense-W4 draft ran "
-                                           "w4_matmul")
+        require(launches["w4_matmul"] > 0
+                and launches["w4_matmul_tc"] > 0,
+                "the dense-W4 draft ran w4_matmul on the tensor cores")
     return launches
 
 
@@ -1509,6 +1561,9 @@ def main() -> int:
                     library_ms=times[k]["library_ms"], unit=v["unit"],
                     path=path_of[k])
                for k, v in KERNELS.items()]
+    w4 = next(k for k in kernels if k["name"] == "w4_matmul")
+    w4["tc_launches"] = launches["w4 serve"]["w4_matmul_tc"]
+    w4["launch_floor_ms"] = times["w4_matmul"]["launch_floor_ms"]
     log(f"[time] chip_smoke total {time.time() - t_start:.1f}s")
     log(f"[power] {smi}")
     print(json.dumps({"kernels": kernels}))

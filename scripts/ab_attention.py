@@ -22,9 +22,14 @@ Inputs come from the same seed in every turn, and each turn checks its
 output against the plain version first. ``--splits`` also times the named
 split counts in turns whose wrapper takes ``n_split`` in that mode (a
 checkout whose int8 and latent modes ran the older walk ignores it there).
-Prints ``RESULT <name> <case> <us>`` lines. Comparing two versions inside
-one call on one card, in alternation, keeps the card's power limit and
-neighbours out of the difference.
+Prints ``RESULT <name> <case> <us>`` lines, a latent case with its bound
+(:func:`latent_bound`). Comparing two versions inside one call on one
+card, in alternation, keeps the card's power limit and neighbours out of
+the difference.
+
+    python3 scripts/ab_attention.py --bounds
+
+prints the latent cases' bounds alone, from their shapes (no card).
 """
 from __future__ import annotations
 
@@ -50,6 +55,30 @@ CASES = (("plain serve", "plain", None, SERVE, None),
          ("latent 256", "latent", None, [256] * 4, None),
          ("latent tree (2,2) ~256", "latent", (2, 2), [240, 235, 245, 230],
           None))
+
+
+def latent_bound(cs, fanout, lens):
+    """(us, "bytes" or "operations"): the least time of a latent case on
+    the card. Bytes: each live latent row once (bf16), q and the output
+    once (f32). Operations: a score and a value product (D + v_rank
+    multiply-adds) for every position a query row sees (the slot's base,
+    plus its ancestors in a tree block), at the f32 rate of
+    ``chip_smoke``."""
+    from repro_torch.engine.spec import TreeTemplate
+    h, d, r = cs.DS_H, cs.DS_D, cs.DS_R
+    if fanout is None:
+        t, seen, rows = 1, sum(lens), sum(lens)
+    else:
+        spec = TreeTemplate(fanout).verify_tree("cpu")
+        t = spec["anc"].shape[0]
+        anc = sum(bin(int(a)).count("1") for a in spec["anc"])
+        seen = t * sum(lens) + len(lens) * anc
+        rows = sum(lens) + len(lens) * spec["window"]
+    by_bytes = (rows * d * 2 + len(lens) * t * h * (d + r) * 4) \
+        / cs.HBM_BYTES_PER_S
+    by_ops = 2 * h * seen * (d + r) / cs.F32_FLOP_PER_S
+    return (1e6 * max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
 
 
 def _operands(cs, mode, fanout, lens, cols, g):
@@ -154,8 +183,11 @@ def time_cases(name: str, root: str, splits) -> None:
         us = timer.ms(call, iters=200) * 1e3
         sd = timer.ms(sdpa, iters=200) * 1e3
         pl = timer.ms(plain, iters=30) * 1e3
+        bound = ""
+        if mode == "latent":
+            bound = "; bound %.2fus by %s" % latent_bound(cs, fanout, lens)
         print(f"RESULT {name} {label} {us:.2f}us (rel {rel:.1e}; sdpa "
-              f"{sd:.2f}us; plain {pl:.1f}us)", flush=True)
+              f"{sd:.2f}us; plain {pl:.1f}us{bound})", flush=True)
         if mode != "plain" and not every_mode:
             continue
         for s in splits:
@@ -167,13 +199,24 @@ def time_cases(name: str, root: str, splits) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("trees", nargs="+", metavar="NAME=PATH")
+    ap.add_argument("trees", nargs="*", metavar="NAME=PATH")
+    ap.add_argument("--bounds", action="store_true",
+                    help="print the latent cases' bounds and stop")
     ap.add_argument("--order", default=None,
                     help="comma list of names (default: each tree once)")
     ap.add_argument("--splits", default="",
                     help="comma list of split counts to time as well")
     ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.bounds:
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        sys.path[:0] = [os.path.join(root, "src"), root]
+        import chip_smoke as cs
+        for label, mode, fanout, lens, _ in CASES:
+            if mode == "latent":
+                print("BOUND %s %.2fus by %s"
+                      % ((label,) + latent_bound(cs, fanout, lens)))
+        return 0
     trees = dict(t.split("=", 1) for t in args.trees)
     splits = [int(s) for s in args.splits.split(",") if s]
     if args.one is not None:

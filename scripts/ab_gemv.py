@@ -1,15 +1,20 @@
-"""Time ``gqsa_gemv`` of two checkouts in turns on one card.
+"""Time ``gqsa_gemv`` or ``w4_matmul`` of two checkouts in turns on one card.
 
     python3 scripts/ab_gemv.py parent=/path/to/parent change=. \\
-        --order parent,change,change,parent,parent,change
+        --order parent,change,change,parent [--kernel w4_matmul]
 
 Each turn is a fresh process that imports the named checkout's
-``repro_torch`` and ``chip_smoke.py`` (so each builds its own kernels),
-times one llama2-7b decode layer of GQSA W4 S50 G16 projections at 4
-slots with bf16 x (``chip_smoke.Timer``: L2 flushed before every launch,
-200 launches a shape) and prints ``RESULT <name> layer <us>``. Comparing
-two versions inside one call on one card, in alternation, keeps the
-card's power limit and neighbours out of the difference.
+``repro_torch`` and ``chip_smoke.py`` (so each builds its own kernels) and
+times one llama2-7b layer (``chip_smoke.Timer``: L2 flushed before every
+launch, 200 launches a shape), bf16 x:
+  * ``--kernel gqsa_gemv`` (default): the 7 GQSA W4 S50 G16 projections at
+    4 slots; prints ``RESULT <name> layer <us>``;
+  * ``--kernel w4_matmul``: the 7 dense W4 G16 projections at T = 4
+    (decode) and T = 64 (prefill rows), each beside ``torch.matmul`` on the
+    dequantized dense bf16 W and the byte bound; prints ``RESULT <name>
+    w4 T=<t> layer <us> matmul <us> bound <us>``.
+Comparing two versions inside one call on one card, in alternation, keeps
+the card's power limit and neighbours out of the difference.
 """
 from __future__ import annotations
 
@@ -19,14 +24,19 @@ import subprocess
 import sys
 
 
-def time_layer(name: str, root: str) -> None:
+def _import(root: str):
     root = os.path.abspath(root)
     sys.path[:0] = [os.path.join(root, "src"), root]
-    import torch
     import chip_smoke as cs
-    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda
     if not cs.__file__.startswith(root):
         raise RuntimeError(f"imported {cs.__file__}, not {root}")
+    return cs
+
+
+def time_layer(name: str, root: str) -> None:
+    import torch
+    cs = _import(root)
+    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda
     timer = cs.Timer()
     g = torch.Generator(device="cuda").manual_seed(3)
     total = 0.0
@@ -40,21 +50,59 @@ def time_layer(name: str, root: str) -> None:
     print(f"RESULT {name} layer {total * 1e3:.2f}us", flush=True)
 
 
+def time_w4_layer(name: str, root: str) -> None:
+    import torch
+    cs = _import(root)
+    from repro_torch.core.quant import QuantConfig, dequantize, unpack_int4
+    from repro_torch.kernels.w4_matmul import w4_matmul_cuda
+    timer = cs.Timer()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for rows in (4, 64):
+        tot = dict(kernel=0.0, matmul=0.0, bound=0.0)
+        for label, (n, k) in cs.SHAPES.items():
+            p = cs._w4_packed(n, k, 4)
+            args = (p["qw"], p["scale"], p["zero"], 16)
+            x = torch.randn((rows, k), generator=g, device="cuda",
+                            dtype=torch.bfloat16)
+            dense = dequantize(unpack_int4(p["qw"]), p["scale"], p["zero"],
+                               QuantConfig(group_size=16), torch.bfloat16)
+            nbytes = (n * k // 2 + 8 * n * (k // 16) + rows * k * 2
+                      + rows * n * 4)
+            c = cs.PER_LAYER[label]
+            t_k = timer.ms(lambda: w4_matmul_cuda(x, *args), iters=200)
+            t_l = timer.ms(lambda: torch.matmul(x, dense.T), iters=200)
+            bound = 1e3 * nbytes / cs.HBM_BYTES_PER_S
+            for key, v in (("kernel", t_k), ("matmul", t_l),
+                           ("bound", bound)):
+                tot[key] += c * v
+            print(f"  {name} T={rows} {label}: {t_k * 1e3:.2f}us "
+                  f"(matmul {t_l * 1e3:.2f}us, bound {bound * 1e3:.2f}us)",
+                  flush=True)
+            del dense
+        print(f"RESULT {name} w4 T={rows} layer {tot['kernel'] * 1e3:.2f}us "
+              f"matmul {tot['matmul'] * 1e3:.2f}us bound "
+              f"{tot['bound'] * 1e3:.2f}us", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("trees", nargs="+", metavar="NAME=PATH")
     ap.add_argument("--order", default=None,
                     help="comma list of names (default: each tree once)")
+    ap.add_argument("--kernel", default="gqsa_gemv",
+                    choices=("gqsa_gemv", "w4_matmul"))
     ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     trees = dict(t.split("=", 1) for t in args.trees)
     if args.one is not None:
-        time_layer(args.one, trees[args.one])
+        fn = time_layer if args.kernel == "gqsa_gemv" else time_w4_layer
+        fn(args.one, trees[args.one])
         return 0
     order = args.order.split(",") if args.order else list(trees)
     for name in order:
         subprocess.run([sys.executable, os.path.abspath(__file__),
-                        *args.trees, "--one", name], check=True)
+                        *args.trees, "--kernel", args.kernel, "--one", name],
+                       check=True)
     return 0
 
 

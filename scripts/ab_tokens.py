@@ -5,7 +5,7 @@
 
 Each checkout runs in a fresh process that imports its own ``repro_torch``
 (so each builds its own kernels) and generates, with seed 0, 8 requests x
-32 new tokens on 4 slots (max_seq 256), on seven paths (``--paths`` picks
+32 new tokens on 4 slots (max_seq 256), on eight paths (``--paths`` picks
 some, by name):
   * full-width llama2-7b GQSA W4 S50 G16 through the serve CLI in bf16
     compute, as ``chip_smoke.py`` drives it: plain decode (``--compress
@@ -14,7 +14,10 @@ some, by name):
     --spec-adaptive --draft-profile w4s75``);
   * the same model through the engine in f32 compute, as ``chip_smoke.py``'s
     speculation check drives it: plain decode, tree speculation (4,2,2)
-    with draft w4l25, and plain decode on the int8 KV pool;
+    with draft w4l25 (its 8 layers through ``w4_matmul``), and plain
+    decode on the int8 KV pool;
+  * the dense-W4 G16 baseline of the same model through the engine in f32
+    compute (every projection through ``w4_matmul``);
   * DeepSeek-V2 at full width and ``chip_smoke.DS_LAYERS`` layers, GQSA W4
     S50 G16, through the engine in f32 compute (the latent mode).
 It writes each request's tokens to ``<out>/<name>.json``. Then the last
@@ -48,6 +51,7 @@ SERVE = {"gqsa bf16 serve": [],
 ENGINE = {"gqsa f32 engine": ("llama", {}, {}),
           "tree f32 engine": ("llama", {}, {"spec_fanout": (4, 2, 2)}),
           "int8 f32 engine": ("llama", {"kv_cache_dtype": "int8"}, {}),
+          "w4 f32 engine": ("w4", {}, {}),
           "deepseek f32 engine": ("deepseek", {}, {})}
 
 
@@ -75,10 +79,15 @@ def _f32_config(model: str, **changes):
 def _f32_params(model: str):
     """(params, draft) of an f32 engine model, drawn from seed 0."""
     from repro_torch.core.gqs_layer import GQSAConfig
+    from repro_torch.core.quant import QuantConfig
     from repro_torch.models import transformer as tf
     cfg = _f32_config(model)
     if model == "deepseek":
         return tf.init_params(0, cfg, "cuda", compress=GQSAConfig()), None
+    if model == "w4":
+        return tf.init_params(0, cfg, "cuda",
+                              compress=QuantConfig(bits=4, group_size=16)), \
+            None
     return tf.init_params_and_draft(0, cfg, "w4l25", "cuda",
                                     compress=GQSAConfig())
 
@@ -99,7 +108,7 @@ def serve_tokens(name: str, root: str, out: str, paths) -> None:
         by = sorted(res["results"], key=lambda r: r["rid"])
         tokens[path] = [[int(x) for x in r["tokens"]] for r in by]
         print(f"TOKENS {name} {path}: {len(by)} requests", flush=True)
-    for model in ("llama", "deepseek"):
+    for model in ("llama", "w4", "deepseek"):
         mine = [p for p, (m, _, _) in ENGINE.items()
                 if m == model and p in paths]
         if not mine:

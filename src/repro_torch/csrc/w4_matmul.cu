@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel src/repro/kernels/w4_matmul.py:w4_matmul_pallas,
 // which every projection of the dense-W4 baseline (--compress w4) reaches
-// in prefill and decode.
+// in prefill and decode, and the w4l* drafts of speculation.
 //
 //   y[t, n] = sum_k x[t, k] * ((q[n, k] - zero[n, k/G]) * scale[n, k/G])
 //
@@ -15,31 +15,68 @@
 // flop/byte balance, so the floor is (N*K/2 + 8*N*K/G + x + y) bytes over
 // 3.35 TB/s (wq of llama2-7b at G16: 16.9 MB -> 5.0 us).
 //
-// Design: a block of 8 warps owns 32 output rows (one per lane) and a
-// tile of BT <= 8 rows of x, and walks K in chunks of 512 elements. For
-// each chunk the block stages x[tile, chunk] in shared memory as f32
-// (zeros past T and past K), and each warp takes 64 elements of it: every
-// lane holds its row's 32 code bytes (two 16-byte loads), dequantises
-// them in registers with their group's scale and zero as (q - z) * s, the
-// reference's order, and accumulates BT dot products in f32 registers
-// against x read from shared memory as broadcasts (the lanes of a warp
-// share k). The next chunk's codes and first scale/zero are loaded into
-// registers before the current chunk is computed, so two chunks' code
-// loads are in flight (the early scale/zero load also brings a slice's
-// G16 groups into L1). Each weight byte is read once per tile of 8 x
-// rows, so decode reads the weights once. The warps' partial sums are
-// added in shared memory at the end. Ragged edges are masked here, not
-// padded by the caller: rows past N skip their loads and stores, rows
-// past T are zero in shared memory and are not stored, and a K that is
-// not a multiple of 64 (or a misaligned qw) takes a byte-load path
-// bounded per element. Tensor cores (wgmma on bf16-dequantised tiles),
-// TMA and Stream-K are later work.
+// Two paths, chosen by the wrapper from shapes and pointers alone:
+//
+// * Tensor cores (w4_matmul_tc_launch): G in {16, 32, 64, 128}, K a
+//   multiple of 128, and x, qw, scale and zero 16-byte aligned. Every
+//   projection of llama2-7b at G16 takes it.
+//   - One mma.sync m16n8k16 (bf16 in, f32 out) is one G16 group of 16
+//     weight rows against 8 x rows. The weights are the A operand: the raw
+//     codes q, exact in bf16, made from two nibbles a lop3 as 0x4300 | q
+//     (= 128 + q) and one packed subtract of 128. x is the B operand,
+//     zero past T. The group's scale applies to the f32 fragment after
+//     the step, and the zero point is folded out of the product:
+//       acc += s * (sum_k q x) - (s * z) * (sum_k x),
+//     the group sums of x coming from a second MMA with an all-ones A.
+//     Any f32 zero is honoured exactly (no rounding of z is assumed).
+//   - A lane's four k of a group may be any four, if x is staged in the
+//     same order: lane t of a quad takes bytes 2t, 2t+1 of each group
+//     (codes 4t .. 4t+3), one aligned 32-bit shared-memory read of each
+//     of two groups and one byte permute give both groups' fragments, and
+//     x[4t .. 4t+3] is one 8-byte read permuted to match.
+//   - f32 x is split into bf16 hi + lo (two MMAs a step): x = hi + lo to
+//     2^-18 relative, the products exact, so the result stays within a
+//     few 1e-6 of the f32 product (TF32 would lose 2^-11).
+//   - A block of 4 warps owns 64 output rows (an m16 tile a warp) and up
+//     to 64 x rows (1, 2, 4 or 8 n8 tiles, from T), and walks its share
+//     of K in stages of 128 elements through a 3-stage cp.async ring in
+//     shared memory (4 or 6 stages, or stages of 256, were no faster):
+//     codes, scale and zero tiles and x, rows padded so that no read
+//     conflicts on a bank. K is split across S blocks (S from shapes and
+//     the SM count, so that every projection puts about 3 blocks on each
+//     SM at T <= 16 and 2 above, N = 4096 included); each block writes
+//     its partial tile to a workspace, and the last block of a tile to
+//     arrive (an integer counter, reset by that block) adds the S
+//     partials in split order, so repeats are bit-identical. Prefill
+//     reads the weights once per 64 x rows.
+//   - wgmma is left out: at decode the product is a few percent of the
+//     card's tensor rate, and the bytes, not the MMA issue, bound it.
+//
+// * CUDA cores (w4_matmul_launch): every other shape (G = 6, K = 48, G of
+//   256, misaligned codes). A block of 8 warps owns 32 output rows (one
+//   per lane) and a tile of BT <= 8 rows of x, and walks K in chunks of
+//   512 elements. For each chunk the block stages x[tile, chunk] in shared
+//   memory as f32 (zeros past T and past K), and each warp takes 64
+//   elements of it: every lane holds its row's 32 code bytes (two 16-byte
+//   loads), dequantises them in registers with their group's scale and
+//   zero as (q - z) * s, the reference's order, and accumulates BT dot
+//   products in f32 registers against x read from shared memory as
+//   broadcasts. The next chunk's codes are loaded a chunk ahead. The
+//   warps' partial sums are added in shared memory at the end. Ragged
+//   edges are masked: rows past N skip their loads and stores, rows past T
+//   are zero in shared memory, and a K that is not a multiple of 64 (or a
+//   misaligned qw) takes a byte-load path bounded per element.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// CUDA-core path
+// ---------------------------------------------------------------------------
+namespace simt {
 
 constexpr int kWarps = 8;
 constexpr int kRows = 32;                  // output rows per block (lanes)
@@ -236,6 +273,398 @@ void dispatch(const void* x, const void* qw, const void* scale,
     launch<T, 8, kVec>(x, qw, scale, zero, y, Trows, N, K, G, s);
 }
 
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// Tensor-core path
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;      // output rows a block (m16 a warp)
+constexpr int kK = 128;                 // K elements a stage
+constexpr int kSteps = kK / 16;         // k16 MMA steps a stage
+constexpr int kCodeRow = kK / 2 + 16;   // bytes a staged code row (80: the
+                                        // quads' 4-byte reads hit 16 banks)
+constexpr int kSzRow = kK / 16 + 4;     // floats a staged scale/zero row
+constexpr int kXPad = 16;               // elements of pad a staged x row
+constexpr uint32_t kBias = 0x43004300u; // bf16x2 {128, 128}
+constexpr uint32_t kOnes = 0x3F803F80u; // bf16x2 {1, 1}
+
+template <typename T, int NT>
+struct Layout {                          // one stage of the ring, in bytes
+  static constexpr int kTok = 8 * NT;    // x rows a block
+  static constexpr int kCodes = kRows * kCodeRow;
+  static constexpr int kSz = kRows * kSzRow * 4;      // scale, then zero
+  static constexpr int kXRow = (kK + kXPad) * static_cast<int>(sizeof(T));
+  static constexpr int kStage = kCodes + 2 * kSz + kTok * kXRow;
+  static constexpr int kStages = 3;      // 2 in flight while one computes
+  static constexpr int kBytes = kStage * kStages;
+};
+
+template <typename T>
+struct Args {
+  const T* x;
+  const uint8_t* qw;
+  const float* scale;
+  const float* zero;
+  float* y;
+  float* work;       // S > 1: partials [S, T, N]
+  int* counters;     // S > 1: one per (row tile, x tile), zero between launches
+  int tokens, N, K, G, gshift;
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// `bytes` of src, zeros for the rest of the copy (0: rows past N or T).
+// L2 fetches the whole 128-byte line: the next stages read the rest of it
+// (232 -> 216 us a llama2-7b layer at T = 4 on an H100 SXM, 700 W).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// d = a * b + c: a 16x16 bf16 (row), b 16x8 bf16 (col), c and d f32
+__device__ __forceinline__ void mma(float d[4], const uint32_t a[4],
+                                    uint32_t b0, uint32_t b1,
+                                    const float c[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// nibbles 0 and 4 of v as the bf16x2 codes {q0, q4}: (128 + q) - 128
+__device__ __forceinline__ uint32_t codes(uint32_t v) {
+  const uint32_t biased = (v & 0x000F000Fu) | kBias;
+  uint32_t out;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(out) : "r"(biased), "r"(kOnes), "r"(kBias | 0x80008000u));
+  return out;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// One group: d = sum_k q x and xs = sum_k x for this lane's accumulator
+// columns (x rows 2t, 2t+1 of the n8 tile). `xp`: x[row][4t .. 4t+3] of
+// the group, staged raw; the B fragment takes them in the order
+// {4t, 4t+2} (k slots 2t, 2t+1) and {4t+1, 4t+3} (slots 2t+8, 2t+9), the
+// order of the codes in `a`.
+__device__ __forceinline__ void group_product(const uint32_t a[4],
+                                              const uint8_t* xp,
+                                              __nv_bfloat16, float d[4],
+                                              float xs[2]) {
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+  const uint32_t ones[4] = {kOnes, kOnes, kOnes, kOnes};
+  const uint2 v = *reinterpret_cast<const uint2*>(xp);
+  const uint32_t b0 = __byte_perm(v.x, v.y, 0x5410);
+  const uint32_t b1 = __byte_perm(v.x, v.y, 0x7632);
+  float o[4];
+  mma(d, a, b0, b1, zero);
+  mma(o, ones, b0, b1, zero);
+  xs[0] = o[0];
+  xs[1] = o[1];
+}
+
+// f32 x as bf16 hi + lo: two MMAs each, the lo terms added to the hi ones
+__device__ __forceinline__ void group_product(const uint32_t a[4],
+                                              const uint8_t* xp, float,
+                                              float d[4], float xs[2]) {
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+  const uint32_t ones[4] = {kOnes, kOnes, kOnes, kOnes};
+  const float4 v = *reinterpret_cast<const float4*>(xp);
+  const uint32_t h0 = pack_bf16(v.x, v.z);
+  const uint32_t h1 = pack_bf16(v.y, v.w);
+  const uint32_t l0 = pack_bf16(v.x - __uint_as_float(h0 << 16),
+                                v.z - __uint_as_float(h0 & 0xFFFF0000u));
+  const uint32_t l1 = pack_bf16(v.y - __uint_as_float(h1 << 16),
+                                v.w - __uint_as_float(h1 & 0xFFFF0000u));
+  float o[4];
+  mma(d, a, h0, h1, zero);
+  mma(d, a, l0, l1, d);
+  mma(o, ones, h0, h1, zero);
+  mma(o, ones, l0, l1, o);
+  xs[0] = o[0];
+  xs[1] = o[1];
+}
+
+// A thread's share of the copies of every stage, its addresses worked out
+// once for the block: 16-byte code pieces (at kK = 128, rows tid/4 and
+// tid/4 + 32), one or two pieces of scale or zero, then x rows (indexed
+// per stage, at compile-time strides).
+template <typename T, int NT>
+struct Loader {
+  using L = Layout<T, NT>;
+  static constexpr int kPieces = kK / 32;            // 16 B of codes a row
+  static constexpr int kCodeCopies = kRows * kPieces / kThreads;
+  static constexpr int kSzCopies = kK / 64;          // at most, at G16
+  const uint8_t* code[kCodeCopies];   // at the block's first stage
+  const float* sz[kSzCopies];
+  int code_dst[kCodeCopies], code_bytes[kCodeCopies];
+  int sz_dst[kSzCopies], sz_bytes[kSzCopies];
+  int n_sz, sz_size, sz_step;   // copies, bytes a copy, floats a stage
+  int k0;
+
+  __device__ __forceinline__ Loader(const Args<T>& a, int n0, int k_first)
+      : k0(k_first) {
+    const int tid = threadIdx.x;
+#pragma unroll
+    for (int i = 0; i < kCodeCopies; ++i) {
+      const int c = tid + kThreads * i;
+      const int r = c / kPieces, part = c % kPieces;
+      const bool ok = n0 + r < a.N;
+      code[i] = a.qw + static_cast<size_t>(ok ? n0 + r : 0) * (a.K / 2)
+          + k0 / 2 + 16 * part;
+      code_dst[i] = r * kCodeRow + 16 * part;
+      code_bytes[i] = ok ? 16 : 0;
+    }
+    const int per_row = kK / a.G;             // floats a row: 8, 4, 2, 1
+    const int pieces = per_row >= 4 ? per_row / 4 : 1;
+    sz_size = per_row >= 4 ? 16 : 4 * per_row;
+    sz_step = per_row;
+    n_sz = pieces * 2 * kRows / kThreads;     // 2 * kRows * pieces copies
+#pragma unroll
+    for (int i = 0; i < kSzCopies; ++i) {
+      const int c = tid + kThreads * i;
+      const int arr = c / (kRows * pieces);
+      const int j = c - arr * kRows * pieces;
+      const int r = j / pieces, part = j - r * pieces;
+      const bool ok = n0 + r < a.N;
+      sz[i] = (arr ? a.zero : a.scale)
+          + static_cast<size_t>(ok ? n0 + r : 0) * (a.K / a.G) + k0 / a.G
+          + 4 * part;
+      sz_dst[i] = L::kCodes + arr * L::kSz + r * kSzRow * 4 + 16 * part;
+      sz_bytes[i] = ok ? sz_size : 0;
+    }
+  }
+
+  // Issue the copies of the block's stage `c` (K elements k0 + 128c ..)
+  // into `st`.
+  __device__ __forceinline__ void load(uint8_t* st, const Args<T>& a,
+                                       int t0, int c) const {
+#pragma unroll
+    for (int i = 0; i < kCodeCopies; ++i)
+      cp_async16(st + code_dst[i], code[i] + c * (kK / 2), code_bytes[i]);
+#pragma unroll
+    for (int i = 0; i < kSzCopies; ++i) {
+      if (i == n_sz) break;
+      const float* src = sz[i] + c * sz_step;
+      if (sz_size == 16)
+        cp_async16(st + sz_dst[i], src, sz_bytes[i]);
+      else if (sz_size == 8)
+        cp_async8(st + sz_dst[i], src, sz_bytes[i]);
+      else
+        cp_async4(st + sz_dst[i], src, sz_bytes[i]);
+    }
+    constexpr int kParts = kK * static_cast<int>(sizeof(T)) / 16;
+    uint8_t* xs = st + L::kCodes + 2 * L::kSz;
+    const int kc = k0 + c * kK;
+#pragma unroll
+    for (int i = 0; i < L::kTok * kParts / kThreads; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      const int t = e / kParts, part = e - t * kParts;
+      const bool ok = t0 + t < a.tokens;
+      const uint8_t* src = reinterpret_cast<const uint8_t*>(
+          a.x + static_cast<size_t>(ok ? t0 + t : 0) * a.K + kc)
+          + 16 * part;
+      cp_async16(xs + t * L::kXRow + 16 * part, src, ok ? 16 : 0);
+    }
+  }
+};
+
+// The warp's 16 rows against every x tile over one staged stage.
+template <typename T, int NT>
+__device__ __forceinline__ void compute_stage(const uint8_t* st,
+                                              float (&acc)[NT][4],
+                                              int gshift) {
+  using L = Layout<T, NT>;
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int row = (threadIdx.x >> 5) * 16 + gid;
+  // the 32-bit word holding bytes 2*tig, 2*tig+1 of a group
+  const uint8_t* c0 = st + row * kCodeRow + 4 * (tig >> 1);
+  const uint8_t* c8 = c0 + 8 * kCodeRow;
+  const float* s0 = reinterpret_cast<const float*>(st + L::kCodes)
+      + row * kSzRow;
+  const float* s8 = s0 + 8 * kSzRow;
+  const float* z0 = s0 + L::kSz / 4;
+  const float* z8 = s8 + L::kSz / 4;
+  const uint8_t* xr = st + L::kCodes + 2 * L::kSz + gid * L::kXRow
+      + 4 * tig * static_cast<int>(sizeof(T));
+  // bytes (2t, 2t+1) of two groups' words, interleaved: [g.b, g'.b,
+  // g.b+1, g'.b+1], so one mask takes one group's codes {4t, 4t+2}
+  const uint32_t sel = (tig & 1) ? 0x7362u : 0x5140u;
+#pragma unroll
+  for (int p = 0; p < kSteps / 2; ++p) {
+    const uint32_t* w0 = reinterpret_cast<const uint32_t*>(c0 + 16 * p);
+    const uint32_t* w8 = reinterpret_cast<const uint32_t*>(c8 + 16 * p);
+    const uint32_t r0 = __byte_perm(w0[0], w0[2], sel);
+    const uint32_t r8 = __byte_perm(w8[0], w8[2], sel);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int s = 2 * p + h;
+      // rows gid, gid+8 x k slots {2t, 2t+1}, then {2t+8, 2t+9}
+      const uint32_t a[4] = {codes(r0 >> (8 * h)), codes(r8 >> (8 * h)),
+                             codes(r0 >> (8 * h + 4)),
+                             codes(r8 >> (8 * h + 4))};
+      const int gi = s >> gshift;
+      const float sc0 = s0[gi], sc8 = s8[gi];
+      const float nz0 = -(sc0 * z0[gi]), nz8 = -(sc8 * z8[gi]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float d[4], xs[2];
+        group_product(a, xr + 8 * j * L::kXRow
+                          + 16 * s * static_cast<int>(sizeof(T)),
+                      T(), d, xs);
+        acc[j][0] = fmaf(nz0, xs[0], fmaf(sc0, d[0], acc[j][0]));
+        acc[j][1] = fmaf(nz0, xs[1], fmaf(sc0, d[1], acc[j][1]));
+        acc[j][2] = fmaf(nz8, xs[0], fmaf(sc8, d[2], acc[j][2]));
+        acc[j][3] = fmaf(nz8, xs[1], fmaf(sc8, d[3], acc[j][3]));
+      }
+    }
+  }
+}
+
+// acc[j][e] is y[t0 + 8j + 2*tig + (e & 1)][n0 + row + 8 * (e >> 1)]
+template <int NT, typename F>
+__device__ __forceinline__ void for_each_output(int n0, int t0, int N,
+                                                int tokens, F&& f) {
+  const int lane = threadIdx.x & 31;
+  const int row = n0 + (threadIdx.x >> 5) * 16 + (lane >> 2);
+  const int col = t0 + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = row + 8 * (e >> 1), t = col + 8 * j + (e & 1);
+      if (n < N && t < tokens) f(j, e, static_cast<size_t>(t) * N + n);
+    }
+}
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThreads)
+w4_matmul_tc_kernel(const Args<T> a) {
+  using L = Layout<T, NT>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int last;
+  const int n0 = blockIdx.x * kRows, t0 = blockIdx.y * L::kTok;
+  const int S = gridDim.z, split = blockIdx.z;
+  const int chunks = a.K / kK;
+  const int c_lo = split * chunks / S;
+  const int n_ch = (split + 1) * chunks / S - c_lo;
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  const Loader<T, NT> ld(a, n0, c_lo * kK);
+#pragma unroll
+  for (int i = 0; i < L::kStages - 1; ++i) {
+    if (i < n_ch) ld.load(smem + i * L::kStage, a, t0, i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_ch; ++i) {
+    cp_async_wait<L::kStages - 2>();
+    __syncthreads();      // stage i landed; stage i-1's buffer is free
+    const int next = i + L::kStages - 1;
+    if (next < n_ch)
+      ld.load(smem + (next % L::kStages) * L::kStage, a, t0, next);
+    cp_async_commit();
+    compute_stage<T, NT>(smem + (i % L::kStages) * L::kStage, acc,
+                         a.gshift);
+  }
+
+  if (S == 1) {
+    for_each_output<NT>(n0, t0, a.N, a.tokens,
+                        [&](int j, int e, size_t o) { a.y[o] = acc[j][e]; });
+    return;
+  }
+  // split K: partials to the workspace; the tile's last block adds them
+  const size_t plane = static_cast<size_t>(a.tokens) * a.N;
+  float* mine = a.work + split * plane;
+  for_each_output<NT>(n0, t0, a.N, a.tokens,
+                      [&](int j, int e, size_t o) { mine[o] = acc[j][e]; });
+  __threadfence();
+  __syncthreads();
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0) last = atomicAdd(a.counters + tile, 1) == S - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for_each_output<NT>(n0, t0, a.N, a.tokens, [&](int j, int e, size_t o) {
+    float v = split == 0 ? acc[j][e] : __ldcg(a.work + o);
+    for (int s = 1; s < S; ++s)       // split order, whoever came last
+      v += s == split ? acc[j][e] : __ldcg(a.work + s * plane + o);
+    a.y[o] = v;
+  });
+  if (threadIdx.x == 0) a.counters[tile] = 0;
+}
+
+template <typename T, int NT>
+int launch(const Args<T>& a, int n_split, cudaStream_t stream) {
+  using L = Layout<T, NT>;
+  static unsigned sized = 0;       // devices whose limit is raised
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 32 && !(sized & (1u << dev))) {
+    e = cudaFuncSetAttribute(w4_matmul_tc_kernel<T, NT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::kBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sized |= 1u << dev;
+  }
+  const dim3 grid((a.N + kRows - 1) / kRows,
+                  (a.tokens + L::kTok - 1) / L::kTok, n_split);
+  w4_matmul_tc_kernel<T, NT><<<grid, kThreads, L::kBytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const Args<T>& a, int nt, int n_split, cudaStream_t s) {
+  switch (nt) {
+    case 1: return launch<T, 1>(a, n_split, s);
+    case 2: return launch<T, 2>(a, n_split, s);
+    case 4: return launch<T, 4>(a, n_split, s);
+    default: return launch<T, 8>(a, n_split, s);
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
@@ -244,6 +673,7 @@ extern "C" int w4_matmul_launch(const void* x, int x_is_bf16, const void* qw,
                                 const void* scale, const void* zero, void* y,
                                 int T, int N, int K, int G, int vec,
                                 void* stream) {
+  using namespace simt;
   if (T < 1 || N < 1 || K < 2 || G < 2 || G % 2 != 0 || K % G != 0
       || (vec && K % kSlice != 0))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -260,4 +690,42 @@ extern "C" int w4_matmul_launch(const void* x, int x_is_bf16, const void* qw,
       dispatch<float, false>(x, qw, scale, zero, y, T, N, K, G, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core path. `nt`: n8 tiles of x rows a block (1, 2, 4, 8);
+// `n_split`: blocks K is split over (1 .. K/128); with n_split > 1,
+// `work` holds n_split * T * N floats and `counters` one zero int per
+// (64-row tile, 8*nt-row x tile), which the launch leaves at zero.
+// Launches on `stream` and returns cudaGetLastError() (0 = launched).
+extern "C" int w4_matmul_tc_launch(const void* x, int x_is_bf16,
+                                   const void* qw, const void* scale,
+                                   const void* zero, void* y, void* work,
+                                   void* counters, int T, int N, int K,
+                                   int G, int nt, int n_split,
+                                   void* stream) {
+  using namespace tc;
+  int gshift = -1;
+  for (int g = 16, i = 0; g <= kK; g *= 2, ++i)
+    if (G == g) gshift = i;
+  if (T < 1 || N < 1 || gshift < 0 || K < kK || K % kK != 0
+      || n_split < 1 || n_split > K / kK
+      || (nt != 1 && nt != 2 && nt != 4 && nt != 8)
+      || (n_split > 1 && (work == nullptr || counters == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_is_bf16) {
+    const Args<__nv_bfloat16> a{
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const uint8_t*>(qw), static_cast<const float*>(scale),
+        static_cast<const float*>(zero), static_cast<float*>(y),
+        static_cast<float*>(work), static_cast<int*>(counters), T, N, K, G,
+        gshift};
+    return dispatch(a, nt, n_split, s);
+  }
+  const Args<float> a{
+      static_cast<const float*>(x), static_cast<const uint8_t*>(qw),
+      static_cast<const float*>(scale), static_cast<const float*>(zero),
+      static_cast<float*>(y), static_cast<float*>(work),
+      static_cast<int*>(counters), T, N, K, G, gshift};
+  return dispatch(a, nt, n_split, s);
 }

@@ -58,6 +58,32 @@ def w4_matmul_ref(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
     return x.float() @ w.T
 
 
+def w4_matmul_grouped_ref(x: torch.Tensor, qw: torch.Tensor,
+                          scale: torch.Tensor, zero: torch.Tensor,
+                          group_size: int) -> torch.Tensor:
+    """:func:`w4_matmul_ref` in the order of arithmetic of the kernel's
+    tensor-core path (tests only): per group, d = sum q x over the raw
+    codes and xs = sum x, then y += s * d - (s * z) * xs, groups in order.
+    f32 x enters as bf16 hi + lo (hi = bf16(x), lo = bf16(x - hi)), bf16 x
+    as it is."""
+    n = qw.shape[0]
+    t, k = x.shape
+    q = unpack_int4(qw).float().reshape(n, k // group_size, group_size)
+    if x.dtype == torch.bfloat16:
+        parts = [x.float()]
+    else:
+        hi = x.float().to(torch.bfloat16).float()
+        parts = [hi, (x.float() - hi).to(torch.bfloat16).float()]
+    parts = [p.reshape(t, k // group_size, group_size) for p in parts]
+    d = sum(torch.einsum("tgk,ngk->tng", p, q) for p in parts)
+    xs = sum(p.sum(-1) for p in parts)                         # [T, K/G]
+    y = torch.zeros((t, n), dtype=torch.float32, device=x.device)
+    for i in range(k // group_size):
+        s = scale[:, i]
+        y = y + s * d[:, :, i] - (s * zero[:, i]) * xs[:, i, None]
+    return y
+
+
 def attention_scale(d: int) -> float:
     """1/sqrt(D) rounded as f32 arithmetic rounds it (the reference and
     the kernel compute it in f32); exact as a Python float."""

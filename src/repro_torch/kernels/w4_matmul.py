@@ -1,6 +1,7 @@
 """Dense grouped-dequant W4 matmul: the wrapper of the hand-written CUDA
 kernel (``repro_torch/csrc/w4_matmul.cu``). Its plain PyTorch version is
-``kernels/ref.py:w4_matmul_ref``.
+``kernels/ref.py:w4_matmul_ref``; ``ref.py:w4_matmul_grouped_ref`` repeats
+the tensor-core path's order of arithmetic.
 
 Replaces the TPU kernel ``src/repro/kernels/w4_matmul.py:w4_matmul_pallas``
 (body ``_kernel``), which every projection of the dense-W4 baseline
@@ -11,22 +12,42 @@ scale/zero is used for a few multiply-adds; the floor is
 (N*K/2 + 8*N*K/G + x + y) bytes over 3.35 TB/s (wq of llama2-7b at G16:
 16.9 MB -> 5.0 us; wg/wu/wd: 45.1 MB -> 13.5 us).
 
-Design: a block owns 32 output rows and a tile of at most 8 rows of x,
-stages x in shared memory one K chunk at a time, and dequantises each
-lane's codes in registers (16-byte loads issued a chunk ahead) for f32
-dot products (details in the CUDA source). The kernel masks the ragged
-edges of T, N and K itself: the wrapper pads and copies nothing.
+Two paths, chosen here from shapes and pointers alone
+(:func:`takes_tensor_cores`), never on a failure:
+
+* Tensor cores: G in ``TC_GROUPS``, K a multiple of ``TC_K`` and every
+  operand 16-byte aligned (every llama2-7b projection at G16). One
+  ``mma.sync`` m16n8k16 is one G16 group of 16 weight rows against 8 x
+  rows, on the raw codes; scale and zero apply to the f32 result. A block
+  owns ``TC_ROWS`` rows and up to 64 x rows and streams its share of K
+  through a ``cp.async`` ring; K is split over :func:`split_count` blocks
+  and the partials are added in split order by the tile's last block
+  (workspace and counters from here). Counted by ``tc_launches``.
+* CUDA cores: any other shape (G = 6, K = 48, misaligned codes). A block
+  owns 32 rows and at most 8 x rows and dequantises each lane's codes in
+  registers for f32 dot products.
+
+``launches`` counts both. The kernels mask the ragged edges of T, N and K
+themselves: the wrapper pads and copies nothing.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.build import load
 
-VEC_K = 64      # K multiple (and 16-byte qw alignment) of the vector path
+VEC_K = 64          # K multiple (and 16-byte qw alignment) of the CUDA-core
+                    # path's vector loads
+TC_K = 128          # K elements a stage of the tensor-core path (its K step)
+TC_ROWS = 64        # output rows a block of the tensor-core path
+TC_GROUPS = (16, 32, 64, 128)   # group sizes it takes (a divisor of TC_K)
+TC_WAVES = (3, 2)   # blocks aimed at per SM at <= 16 x rows, and above
+                    # (5 fit at <= 8 bf16 rows, 2 at 64: 3 and 2 measured
+                    # best)
 
 
 @functools.lru_cache(maxsize=None)
@@ -36,6 +57,73 @@ def _launcher():
                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_launcher():
+    fn = load("w4_matmul").w4_matmul_tc_launch
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_COUNTERS = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """``n`` zero int32 counters of the split combine on ``device``; each
+    launch leaves them at zero, so one buffer serves every launch of one
+    stream."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
+def takes_tensor_cores(k: int, g: int, *pointers: int) -> bool:
+    """Whether the tensor-core path takes a product with K = ``k``, group
+    size ``g`` and operands at ``pointers`` (x, qw, scale, zero)."""
+    return (g in TC_GROUPS and k % TC_K == 0
+            and all(p % 16 == 0 for p in pointers))
+
+
+def token_tiles(t: int) -> int:
+    """n8 tiles of x rows a tensor-core block takes: 1, 2, 4 or 8 (a block
+    reads its weights once for up to 64 x rows)."""
+    for nt in (1, 2, 4):
+        if t <= 8 * nt:
+            return nt
+    return 8
+
+
+def split_count(t: int, n: int, k: int, sms: int) -> int:
+    """Blocks K is split over, from host-known shapes only: the count
+    nearest to ``TC_WAVES`` blocks (64 rows x a tile of x rows x a split)
+    on each SM, at most one a ``TC_K`` stage. On 132 SMs at T <= 8: 6 for
+    N = 4096 (384 blocks), 2 for N = 11008 (344 blocks); at T = 64: 4 and
+    2."""
+    nt = token_tiles(t)
+    tiles = -(-n // TC_ROWS) * -(-t // (8 * nt))
+    aim = TC_WAVES[0] if nt <= 2 else TC_WAVES[1]
+    return max(1, min(k // TC_K, round(aim * sms / tiles)))
+
+
+def plan(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
+         zero: torch.Tensor, group_size: int) -> Tuple[str, int]:
+    """(path, split count) of a launch on the card: ``("tc", S)`` for the
+    tensor-core path, ``("simt", 1)`` for the CUDA-core one."""
+    t, k = x.shape
+    if not takes_tensor_cores(k, group_size, x.data_ptr(), qw.data_ptr(),
+                              scale.data_ptr(), zero.data_ptr()):
+        return "simt", 1
+    return "tc", split_count(t, qw.shape[0], k, _sm_count(x.device.index))
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -51,11 +139,13 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
 
 
 def w4_matmul_cuda(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
-                   zero: torch.Tensor, group_size: int) -> torch.Tensor:
+                   zero: torch.Tensor, group_size: int,
+                   n_split: Optional[int] = None) -> torch.Tensor:
     """y [T, N] f32 = x [T, K] @ deq(qw).T on the card, any T >= 1.
 
     x: f32 or bf16; qw: uint8 [N, K/2]; scale/zero: f32 [N, K/G]; all
-    contiguous on one card. G must be even and divide K."""
+    contiguous on one card. G must be even and divide K. ``n_split``
+    overrides :func:`split_count` on the tensor-core path (1 .. K/128)."""
     if x.device.type != "cuda":
         raise ValueError("w4_matmul_cuda: x must be a CUDA tensor")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -73,16 +163,42 @@ def w4_matmul_cuda(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
     _check(zero, "zero", torch.float32, (n, k // g))
     if len({x.device, qw.device, scale.device, zero.device}) != 1:
         raise ValueError("w4_matmul_cuda: operands lie on different cards")
-    vec = k % VEC_K == 0 and qw.data_ptr() % 16 == 0
+    path, splits = plan(x, qw, scale, zero, g)
+    if n_split is not None:
+        if path != "tc" or not 1 <= n_split <= k // TC_K:
+            raise ValueError(f"w4_matmul_cuda: n_split={n_split} needs the "
+                             f"tensor-core path and 1 <= n_split <= "
+                             f"K/{TC_K}")
+        splits = n_split
     y = torch.empty((t, n), dtype=torch.float32, device=x.device)
-    rc = _launcher()(x.data_ptr(), int(x.dtype == torch.bfloat16),
-                     qw.data_ptr(), scale.data_ptr(), zero.data_ptr(),
-                     y.data_ptr(), t, n, k, g, int(vec),
-                     torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    bf16 = int(x.dtype == torch.bfloat16)
+    if path == "tc":
+        nt = token_tiles(t)
+        work = counters = None
+        if splits > 1:
+            work = torch.empty(splits * t * n, dtype=torch.float32,
+                               device=x.device)
+            counters = _counters(x.device, -(-n // TC_ROWS)
+                                 * -(-t // (8 * nt)))
+        rc = _tc_launcher()(
+            x.data_ptr(), bf16, qw.data_ptr(), scale.data_ptr(),
+            zero.data_ptr(), y.data_ptr(),
+            None if work is None else work.data_ptr(),
+            None if counters is None else counters.data_ptr(), t, n, k, g,
+            nt, splits, stream)
+    else:
+        vec = k % VEC_K == 0 and qw.data_ptr() % 16 == 0
+        rc = _launcher()(x.data_ptr(), bf16, qw.data_ptr(),
+                         scale.data_ptr(), zero.data_ptr(), y.data_ptr(),
+                         t, n, k, g, int(vec), stream)
     if rc != 0:
         raise RuntimeError(f"w4_matmul kernel launch failed: CUDA error {rc}")
     w4_matmul_cuda.launches += 1
+    if path == "tc":
+        w4_matmul_cuda.tc_launches += 1
     return y
 
 
-w4_matmul_cuda.launches = 0
+w4_matmul_cuda.launches = 0      # both paths
+w4_matmul_cuda.tc_launches = 0   # the tensor-core path

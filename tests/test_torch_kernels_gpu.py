@@ -18,6 +18,7 @@ from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda
 from repro_torch.kernels.paged_attention import paged_attention_cuda
+from repro_torch.kernels.w4_matmul import plan as w4_plan
 from repro_torch.kernels.w4_matmul import w4_matmul_cuda
 
 pytestmark = pytest.mark.gpu
@@ -250,6 +251,92 @@ def test_w4_matmul_kernel_rejects_what_it_does_not_take(cuda):
     assert w4_matmul_cuda.launches == before
 
 
+W4_FULL = [(4096, 4096), (11008, 4096), (4096, 11008)]
+
+
+@pytest.mark.parametrize("n,k", W4_FULL)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_w4_matmul_tensor_cores_match_plain(cuda, n, k, dtype):
+    """The llama2-7b projections at G16 take the tensor-core path, from
+    decode rows to prefill tiles past one block's 64 x rows (f32 x as
+    bf16 hi + lo: within a few 1e-6 of the f32 plain version)."""
+    p = _w4(cuda, n, k, 16)
+    args = (p["qw"], p["scale"], p["zero"])
+    for t in (1, 2, 3, 4, 8, 16, 64, 200):
+        x = torch.randn((t, k), generator=cuda, device="cuda").to(dtype)
+        assert w4_plan(x, *args, 16)[0] == "tc"
+        before = w4_matmul_cuda.tc_launches
+        y = ops.w4_matmul(x, *args, group_size=16)
+        assert w4_matmul_cuda.tc_launches == before + 1
+        assert y.shape == (t, n) and y.dtype == torch.float32
+        _close(y, ops.w4_matmul(x, *args, group_size=16, plain=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_w4_matmul_tensor_cores_bit_identical(cuda, dtype):
+    """Split K is added in split order by whichever block comes last, so
+    two launches give the same bits."""
+    for n, k in W4_FULL:
+        p = _w4(cuda, n, k, 16)
+        args = (p["qw"], p["scale"], p["zero"], 16)
+        for t in (4, 64):
+            x = torch.randn((t, k), generator=cuda, device="cuda").to(dtype)
+            assert torch.equal(w4_matmul_cuda(x, *args),
+                               w4_matmul_cuda(x, *args))
+
+
+@pytest.mark.parametrize("n,k,splits", [
+    (4096, 4096, range(1, 33)), (4096, 11008, (1, 2, 3, 7, 8, 43, 86)),
+    (11008, 4096, (1, 2, 3, 4, 32))])
+def test_w4_matmul_tensor_cores_every_split_count(cuda, n, k, splits):
+    """Every split count the launcher may choose (1 .. K/128; all of them
+    at K = 4096), at decode and prefill rows, against the plain version
+    and bit-identical on a repeat."""
+    from repro_torch.kernels.w4_matmul import _sm_count, split_count
+    p = _w4(cuda, n, k, 16)
+    args = (p["qw"], p["scale"], p["zero"], 16)
+    for t in (4, 64):
+        x = torch.randn((t, k), generator=cuda,
+                        device="cuda").to(torch.bfloat16)
+        ref = ops.w4_matmul(x, *args[:3], group_size=16, plain=True)
+        chosen = split_count(t, n, k, _sm_count(0))
+        for s in sorted({chosen, *splits}):
+            y = w4_matmul_cuda(x, *args, n_split=s)
+            _close(y, ref)
+            assert torch.equal(y, w4_matmul_cuda(x, *args, n_split=s))
+    with pytest.raises(ValueError, match="n_split"):
+        w4_matmul_cuda(x, *args, n_split=k // 128 + 1)
+
+
+def test_w4_matmul_routes_by_shape(cuda):
+    """G = 6, K = 48, G = 256 and misaligned codes go to the CUDA-core
+    path, by shape; G in {16, 32, 64, 128} with K a multiple of 128 to the
+    tensor cores. Both paths match the plain version."""
+    buf = torch.empty(64 * 128 + 1, dtype=torch.uint8, device="cuda")
+    cases = [(37, 96, 6, "simt", None), (100, 48, 16, "simt", None),
+             (64, 512, 256, "simt", None), (64, 256, 16, "simt", buf),
+             (4096, 4096, 16, "tc", None), (300, 512, 128, "tc", None),
+             (70, 256, 32, "tc", None), (70, 256, 64, "tc", None)]
+    for n, k, g, path, misaligned in cases:
+        p = _w4(cuda, n, k, g)
+        qw = p["qw"]
+        if misaligned is not None:
+            qw = misaligned[1:].view(n, k // 2)
+            qw.copy_(p["qw"])
+        x = torch.randn((5, k), generator=cuda, device="cuda")
+        assert w4_plan(x, qw, p["scale"], p["zero"], g)[0] == path
+        before = (w4_matmul_cuda.launches, w4_matmul_cuda.tc_launches)
+        y = ops.w4_matmul(x, qw, p["scale"], p["zero"], group_size=g)
+        assert w4_matmul_cuda.launches == before[0] + 1
+        assert w4_matmul_cuda.tc_launches == before[1] + (path == "tc")
+        _close(y, ops.w4_matmul(x, p["qw"], p["scale"], p["zero"],
+                                group_size=g, plain=True))
+    p = _w4(cuda, 37, 96, 6)
+    with pytest.raises(ValueError, match="n_split"):
+        w4_matmul_cuda(torch.randn((2, 96), device="cuda"), p["qw"],
+                       p["scale"], p["zero"], 6, n_split=2)
+
+
 def _latent_case(cuda, b, t, h, d, dtype, ps=16, mp=16):
     """Latent pool over a shuffled table with sentinel tails; slot 1 is
     all-sentinel with length 0 when b > 2, and a length-0 row sits in the
@@ -460,8 +547,9 @@ def test_paged_attention_split_walk_bit_identical_at_full_width(cuda):
 
 def test_kernel_decode_steps_never_read_the_device_on_the_host(cuda):
     """A decode step and a tree-verify step of the reduced model through
-    the kernels (split walk included) read no tensor value on the host:
-    no ``aten::_local_scalar_dense`` or ``aten::item`` in the profile."""
+    the kernels (split walk included), and a decode step of its dense-W4
+    form (split K included), read no tensor value on the host: no
+    ``aten::_local_scalar_dense`` or ``aten::item`` in the profile."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.registry import get_config
     from repro_torch.engine.spec import TreeTemplate
@@ -478,8 +566,16 @@ def test_kernel_decode_steps_never_read_the_device_on_the_host(cuda):
     toks = torch.zeros((2, spec["anc"].shape[0]), dtype=torch.int32,
                        device="cuda")
     pos = torch.tensor([5, 0], dtype=torch.int32, device="cuda")
+    # the dense-W4 model: wd (K = d_ff = 128) takes the tensor cores
+    w4 = ttf.init_params(0, cfg, "cuda",
+                         compress=QuantConfig(bits=4, group_size=16))
+    w4_cache = ttf.init_paged_cache(cfg, 16, 4, device="cuda")
+    ttf.prefill(w4, w4_cache, torch.tensor([[5, 6, 7, 1, 2], [0] * 5],
+                                           device="cuda"),
+                torch.tensor([5, 0], device="cuda"), bt, cfg)
     before = (paged_attention_cuda.launches,
-              paged_attention_cuda.tree_launches)
+              paged_attention_cuda.tree_launches,
+              w4_matmul_cuda.tc_launches)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         ttf.decode_step(params, cache, torch.tensor([[1], [2]],
@@ -487,9 +583,13 @@ def test_kernel_decode_steps_never_read_the_device_on_the_host(cuda):
                         pos, cfg, bt, max_live_pages=2)
         ttf.decode_step(params, cache, toks, pos + 1, cfg, bt,
                         max_live_pages=4, tree=spec)
+        ttf.decode_step(w4, w4_cache, torch.tensor([[1], [2]],
+                                                   device="cuda"),
+                        pos, cfg, bt, max_live_pages=2)
     torch.cuda.synchronize()
     assert paged_attention_cuda.launches > before[0]
     assert paged_attention_cuda.tree_launches > before[1]
+    assert w4_matmul_cuda.tc_launches > before[2]
     reads = [e.key for e in prof.key_averages()
              if e.key in ("aten::_local_scalar_dense", "aten::item")]
     assert not reads, reads
