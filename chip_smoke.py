@@ -6,7 +6,9 @@ Phases (any failure exits non-zero before the result line is printed):
   1. the card's name and power limit;
   2. build every hand-written kernel (one nvcc per source, in parallel)
      and print the ptxas report (registers, shared memory, spills);
-  3. gqsa_gemv against its plain version at the full llama2-7b shapes;
+  3. gqsa_gemv against its plain version at the full llama2-7b shapes and
+     a ragged packing, T in {1, 4, 8, 9, 20, 64, 116}, bf16 and f32 x, one
+     launch a call, repeats bit-identical;
   4. paged attention against its plain version at full width, in plain
      mode (bf16/f32 pages) and in int8 mode (int8 pages + f32 scales),
      at the default split count and at S in {1, 2, the table's width},
@@ -17,8 +19,9 @@ Phases (any failure exits non-zero before the result line is printed):
      bit-identical;
   6. timing of every kernel at the full-width decode shapes (CUDA events,
      L2 flushed before every launch, as the decode loop finds it cold),
-     beside the plain version, a library yardstick and the bound; w4_matmul
-     also at T = 64 (prefill rows), and the launch floor (a w4_matmul launch
+     beside the plain version, a library yardstick and the bound;
+     gqsa_gemv also at T = 64 (prefill rows) and T = 116 (a tree verify),
+     w4_matmul also at T = 64, and the launch floor (a w4_matmul launch
      at T = 1, N = 32, K = 64);
   7. full-width llama2-7b (GQSA W4 S50 G16, random seeded weights, packed
      on the card layer by layer): one batched prefill + 4 decode steps
@@ -172,46 +175,57 @@ SHAPES = {"wq/wk/wv/wo": (4096, 4096), "wg/wu": (11008, 4096),
 PER_LAYER = {"wq/wk/wv/wo": 4, "wg/wu": 2, "wd": 1}
 
 
+GEMV_ROWS = (1, 4, 8, 9, 20, 64, 116)   # x rows of the gqsa_gemv checks
+
+
+def _gemv_case(x, bsr, label):
+    """One ops.gqsa_gemv call against its plain version: one launch,
+    finite, within TOL, a repeat bit-identical. Returns the max-abs
+    error."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda
+    before = gqsa_gemv_cuda.launches
+    y = ops.gqsa_gemv(x, bsr)
+    require(gqsa_gemv_cuda.launches == before + 1,
+            "gqsa_gemv: one launch a call")
+    ref = ops.gqsa_gemv(x, bsr, plain=True)
+    again = ops.gqsa_gemv(x, bsr)
+    torch.cuda.synchronize()
+    err = (y - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    log(f"[gemv check] {label} T={x.shape[0]} x={str(x.dtype)[6:]}: "
+        f"max_abs_err {err:.3e} rel {rel:.3e}")
+    require(y.shape == (x.shape[0], bsr.shape[0])
+            and bool(torch.isfinite(y).all()),
+            "gqsa_gemv output shape/finite")
+    require(rel <= TOL, f"gqsa_gemv disagrees: rel {rel}")
+    require(torch.equal(y, again), "gqsa_gemv repeat differs")
+    return err
+
+
 def phase_gemv_check():
     from repro_torch.core.bsr import pack_dense
     from repro_torch.core.quant import QuantConfig
-    from repro_torch.kernels import ops
     worst = 0.0
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     for label, (n, k) in SHAPES.items():
         bsr = _packed(n, k, SEED)
-        for b in (1, 4, 8, 64):
+        for b in GEMV_ROWS:
             for dt in (torch.bfloat16, torch.float32):
                 x = torch.randn((b, k), generator=g, device="cuda").to(dt)
-                y = ops.gqsa_gemv(x, bsr)
-                ref = ops.gqsa_gemv(x, bsr, plain=True)
-                torch.cuda.synchronize()
-                err = (y - ref).abs().max().item()
-                rel = err / ref.abs().max().item()
-                worst = max(worst, err)
-                log(f"[gemv check] {label} N={n} K={k} B={b} "
-                    f"x={str(dt)[6:]}: max_abs_err {err:.3e} "
-                    f"rel {rel:.3e}")
-                require(y.shape == (b, n) and torch.isfinite(y).all(),
-                        "gqsa_gemv output shape/finite")
-                require(rel <= TOL, f"gqsa_gemv disagrees: rel {rel}")
+                worst = max(worst, _gemv_case(x, bsr, f"{label} N={n} "
+                                                      f"K={k}"))
     # ragged packing: unequal kept groups per row (-1 padding)
     n, k = 1024, 4096
     w = torch.randn((n, k), generator=g, device="cuda")
     mask = torch.rand((n, k // 16), generator=g, device="cuda") < 0.4
     bsr = pack_dense(w, mask, QuantConfig(bits=4, group_size=16))
     require(bool((bsr.idx < 0).any()), "ragged packing has padding")
-    for b in (1, 5):
-        x = torch.randn((b, k), generator=g, device="cuda",
-                        dtype=torch.bfloat16)
-        y = ops.gqsa_gemv(x, bsr)
-        ref = ops.gqsa_gemv(x, bsr, plain=True)
-        err = (y - ref).abs().max().item()
-        rel = err / ref.abs().max().item()
-        worst = max(worst, err)
-        log(f"[gemv check] ragged N={n} K={k} M={bsr.idx.shape[1]} B={b}: "
-            f"max_abs_err {err:.3e} rel {rel:.3e}")
-        require(rel <= TOL, f"gqsa_gemv ragged disagrees: rel {rel}")
+    for b in GEMV_ROWS:
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn((b, k), generator=g, device="cuda").to(dt)
+            worst = max(worst, _gemv_case(
+                x, bsr, f"ragged N={n} K={k} M={bsr.idx.shape[1]}"))
     return worst
 
 
@@ -438,29 +452,32 @@ def w4_launch_floor(timer):
                                            p["zero"], 16), iters=100)
 
 
-def phase_timing(timer):
-    """Every kernel at the full-width decode shapes (4 slots)."""
-    import torch.nn.functional as F
+def gemv_layer(timer, g, t):
+    """One llama2-7b layer of gqsa_gemv (7 projections, bf16 x with ``t``
+    rows): kernel, plain, ``torch.matmul`` on the dense bf16 W and the
+    bound (the larger of the payload, x and y over 3.35 TB/s and the f32
+    multiply-adds of the kept groups over 67 TFLOP/s), summed over the
+    layer."""
     from repro_torch.core.bsr import to_dense
     from repro_torch.kernels import ops
-    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
-    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    b = 4
-    out = {}
+    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda, plan
+    from repro_torch.kernels.build import sm_count
     gemv = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    by_bytes = by_ops = 0.0
     for label, (n, k) in SHAPES.items():
         bsr = _packed(n, k, SEED + 4)
-        x = torch.randn((b, k), generator=g, device="cuda",
+        x = torch.randn((t, k), generator=g, device="cuda",
                         dtype=torch.bfloat16)
         dense = to_dense(bsr).to(torch.bfloat16)
         m = bsr.idx.shape[1]
-        nbytes = n * m * 20 + b * k * 2 + b * n * 4
-        bound = _bound_ms(nbytes, 2 * b * n * m * 16)
+        nbytes = n * m * 20 + t * k * 2 + t * n * 4
+        bound = _bound_ms(nbytes, 2 * t * n * m * 16)
         t_k = timer.ms(lambda: gqsa_gemv_cuda(x, bsr))
         t_p = timer.ms(lambda: ops.gqsa_gemv(x, bsr, plain=True))
         t_l = timer.ms(lambda: torch.matmul(x, dense.T))
-        log(f"[gemv time] {label} N={n} K={k} M={m} B={b} bf16: kernel "
+        p = plan(t, n, k, 2, sm_count(0))
+        log(f"[gemv time] {label} N={n} K={k} M={m} T={t} bf16 (tile "
+            f"{p.tile}, {p.blocks} blocks): kernel "
             f"{t_k * 1e3:.1f}us plain {t_p * 1e3:.1f}us torch.matmul(dense "
             f"bf16) {t_l * 1e3:.1f}us bound {bound * 1e3:.2f}us "
             f"({nbytes / 1e6:.1f} MB) -> {bound / t_k:.0%} of bound")
@@ -468,11 +485,27 @@ def phase_timing(timer):
         for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
                           (t_k, t_p, t_l, bound)):
             gemv[key] += c * v
+        by_bytes += c * nbytes / HBM_BYTES_PER_S
+        by_ops += c * 2 * t * n * m * 16 / F32_FLOP_PER_S
         del dense
-    log(f"[gemv time] one decode layer (7 projections, B=4): kernel "
+    gemv["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    log(f"[gemv time] one layer (7 projections, T={t}): kernel "
         f"{gemv['ms']:.4f}ms plain {gemv['plain_ms']:.4f}ms matmul "
-        f"{gemv['library_ms']:.4f}ms bound {gemv['bound_ms']:.4f}ms")
-    out["gqsa_gemv"] = gemv
+        f"{gemv['library_ms']:.4f}ms bound {gemv['bound_ms']:.4f}ms "
+        f"({gemv['bound_ms'] / gemv['ms']:.0%} of bound)")
+    return gemv
+
+
+def phase_timing(timer):
+    """Every kernel at the full-width decode shapes (4 slots)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    b = 4
+    out = {"gqsa_gemv": gemv_layer(timer, g, b)}
+    out["gqsa_gemv"]["rows"] = {str(t): gemv_layer(timer, g, t)
+                                for t in (64, 116)}
 
     out["w4_matmul"] = w4_layer(timer, g, b)
     w4_layer(timer, g, 64)
@@ -1473,7 +1506,11 @@ KERNELS = {
     "gqsa_gemv": dict(
         source="src/repro_torch/csrc/gqsa_gemv.cu",
         replaces="src/repro/kernels/gqsa_gemv.py:71",
-        unit="one decode layer: 7 projections at 4 slots, bf16 x"),
+        unit="one decode layer: 7 projections at 4 slots, bf16 x; 'rows' "
+             "holds the same layer at T = 64 (prefill rows) and T = 116 "
+             "(a (4,2,2) tree verify of 4 slots), one launch a projection, "
+             "each with ms, plain_ms, library_ms (torch.matmul on the "
+             "dense bf16 W), bound_ms and bound_by"),
     "paged_attention": dict(
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:181",
@@ -1561,6 +1598,8 @@ def main() -> int:
                     library_ms=times[k]["library_ms"], unit=v["unit"],
                     path=path_of[k])
                for k, v in KERNELS.items()]
+    gemv = next(k for k in kernels if k["name"] == "gqsa_gemv")
+    gemv["rows"] = times["gqsa_gemv"]["rows"]
     w4 = next(k for k in kernels if k["name"] == "w4_matmul")
     w4["tc_launches"] = launches["w4 serve"]["w4_matmul_tc"]
     w4["launch_floor_ms"] = times["w4_matmul"]["launch_floor_ms"]

@@ -7,8 +7,13 @@ Each turn is a fresh process that imports the named checkout's
 ``repro_torch`` and ``chip_smoke.py`` (so each builds its own kernels) and
 times one llama2-7b layer (``chip_smoke.Timer``: L2 flushed before every
 launch, 200 launches a shape), bf16 x:
-  * ``--kernel gqsa_gemv`` (default): the 7 GQSA W4 S50 G16 projections at
-    4 slots; prints ``RESULT <name> layer <us>``;
+  * ``--kernel gqsa_gemv`` (default): the 7 GQSA W4 S50 G16 projections
+    through ``ops.gqsa_gemv`` (the checkout's dispatcher, one launch or
+    several) at T = 4 (decode, 4 slots), 64 (prefill rows) and 116 (a
+    (4,2,2) tree verify of 4 slots), each beside ``torch.matmul`` on the
+    dense bf16 W and the bound (the larger of the bytes over 3.35 TB/s and
+    the f32 multiply-adds over 67 TFLOP/s); prints ``RESULT <name>
+    gqsa_gemv T=<t> layer <us> matmul <us> bound <us>``;
   * ``--kernel w4_matmul``: the 7 dense W4 G16 projections at T = 4
     (decode) and T = 64 (prefill rows), each beside ``torch.matmul`` on the
     dequantized dense bf16 W and the byte bound; prints ``RESULT <name>
@@ -36,18 +41,35 @@ def _import(root: str):
 def time_layer(name: str, root: str) -> None:
     import torch
     cs = _import(root)
-    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda
+    from repro_torch.core.bsr import to_dense
+    from repro_torch.kernels import ops
     timer = cs.Timer()
     g = torch.Generator(device="cuda").manual_seed(3)
-    total = 0.0
-    for label, (n, k) in cs.SHAPES.items():
-        bsr = cs._packed(n, k, 4)
-        x = torch.randn((4, k), generator=g, device="cuda",
-                        dtype=torch.bfloat16)
-        t = timer.ms(lambda: gqsa_gemv_cuda(x, bsr), iters=200)
-        total += cs.PER_LAYER[label] * t
-        print(f"  {name} {label}: {t * 1e3:.2f}us", flush=True)
-    print(f"RESULT {name} layer {total * 1e3:.2f}us", flush=True)
+    packed = {label: cs._packed(n, k, 4)
+              for label, (n, k) in cs.SHAPES.items()}
+    for rows in (4, 64, 116):
+        tot = dict(kernel=0.0, matmul=0.0, bound=0.0)
+        for label, bsr in packed.items():
+            n, k = bsr.shape
+            m = bsr.idx.shape[1]
+            x = torch.randn((rows, k), generator=g, device="cuda",
+                            dtype=torch.bfloat16)
+            dense = to_dense(bsr).to(torch.bfloat16)
+            nbytes = n * m * 20 + rows * k * 2 + rows * n * 4
+            bound = cs._bound_ms(nbytes, 2 * rows * n * m * 16)
+            c = cs.PER_LAYER[label]
+            t_k = timer.ms(lambda: ops.gqsa_gemv(x, bsr), iters=100)
+            t_l = timer.ms(lambda: torch.matmul(x, dense.T), iters=100)
+            for key, v in (("kernel", t_k), ("matmul", t_l),
+                           ("bound", bound)):
+                tot[key] += c * v
+            print(f"  {name} T={rows} {label}: {t_k * 1e3:.2f}us "
+                  f"(matmul {t_l * 1e3:.2f}us, bound {bound * 1e3:.2f}us)",
+                  flush=True)
+            del dense
+        print(f"RESULT {name} gqsa_gemv T={rows} layer "
+              f"{tot['kernel'] * 1e3:.2f}us matmul {tot['matmul'] * 1e3:.2f}us"
+              f" bound {tot['bound'] * 1e3:.2f}us", flush=True)
 
 
 def time_w4_layer(name: str, root: str) -> None:
@@ -99,10 +121,14 @@ def main(argv=None) -> int:
         fn(args.one, trees[args.one])
         return 0
     order = args.order.split(",") if args.order else list(trees)
+    smi = ["nvidia-smi", "--query-gpu=name,power.limit",
+           "--format=csv,noheader"]
+    subprocess.run(smi, check=True)
     for name in order:
         subprocess.run([sys.executable, os.path.abspath(__file__),
                         *args.trees, "--kernel", args.kernel, "--one", name],
                        check=True)
+    subprocess.run(smi, check=True)
     return 0
 
 

@@ -100,6 +100,7 @@ def main() -> int:
     import repro_torch  # noqa: F401  (sets the TF32 switches)
     from repro_torch.core.quant import QuantConfig, dequantize, unpack_int4
     from repro_torch.kernels import w4_matmul as w4
+    from repro_torch.kernels.build import sm_count
     if not torch.cuda.is_available():
         print("w4_variants: no CUDA device", file=sys.stderr)
         return 1
@@ -115,7 +116,7 @@ def main() -> int:
 
     def splits(name, t, n, k):
         step = STAGE_ELEMENTS.get(name, w4.TC_K)
-        return min(k // step, w4.split_count(t, n, k, w4._sm_count(0)))
+        return min(k // step, w4.split_count(t, n, k, sm_count(0)))
 
     def layer(tm, name, t, fn=None):
         total, parts = 0.0, []

@@ -85,6 +85,14 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
 
 
 @functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of card ``index`` (the launchers size
+    their grids from it)."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The kernel library ``name``, built first if needed."""
     build_all([name])

@@ -1,6 +1,7 @@
 """GQSA sparse-quantized GEMV: the wrapper of the hand-written CUDA kernel
 (``repro_torch/csrc/gqsa_gemv.cu``). Its plain PyTorch version is
-``kernels/ref.py:gqsa_gemv_ref``.
+``kernels/ref.py:gqsa_gemv_ref``; ``ref.py:gqsa_gemv_grouped_ref`` repeats
+the kernel's order of arithmetic.
 
 Replaces the TPU kernel ``src/repro/kernels/gqsa_gemv.py:gqsa_gemv_pallas``
 (body ``_kernel``), which every compressed projection of the model reaches
@@ -10,42 +11,60 @@ in prefill and decode, and the same kernel under the reference's
 one launch per projection and chunk of buffer rows, with an expert grid
 axis.
 
-Bound on the H100: bytes. The kernel streams each kept group's 20-byte
-payload (8 code bytes, int32 idx, f32 scale and zero) once; the floor is
-N * M * 20 bytes over 3.35 TB/s (wq of llama2-7b: 10.5 MB -> 3.1 us;
-wg/wu/wd: 28.2 MB -> 8.4 us).
+Bound on the H100: bytes at decode. The kernel streams each kept group's
+20-byte payload (8 code bytes, int32 idx, f32 scale and zero) once; the
+floor is N * M * 20 bytes over 3.35 TB/s (wq of llama2-7b: 10.5 MB ->
+3.1 us; wg/wu/wd: 28.2 MB -> 8.4 us). At many x rows the f32
+multiply-adds (16 a kept group and row) over 67 TFLOP/s take over (a
+llama2-7b layer at T = 116: 350 us). The kernel itself is bound by its
+CUDA-core arithmetic at every T (~41 instructions a kept group and row,
+16 of them the bf16 widening of x), so it stays above the byte floor at
+decode (PERF.md).
 
-Design: one warp per output row, lanes splitting the row's groups with
-coalesced 64-bit code loads, nibbles dequantised in registers and reused
-for every activation row, activations read through the cache, a shuffle
-reduction per row (details in the CUDA source). The wrapper pads nothing;
-it takes at most ``MAX_GEMV_BATCH`` rows per launch, and the dispatcher
-(``kernels/ops.py``) chunks larger batches. On the expert axis an
-optional ``rows`` [E] operand skips each expert's empty buffer rows, and
-an expert with none is never read: at 4-slot DeepSeek-V2 decode at most
-24 of 160 experts hold a row, so at most 24 x 14.7 MB of a layer's
-2.36 GB of expert payload is streamed (bound: those bytes over 3.35 TB/s).
+Design of :func:`gqsa_gemv_cuda` (details in the CUDA source): one
+launch at any T. One block of ``STREAM_WARPS`` warps per SM stages its
+token tile of x (``token_tile`` rows) and the tile's group sums in shared
+memory once; a warp owns whole output rows, each lane copies its slots'
+payload with ``cp.async`` into the warp's ring, ``RING_DEPTH - 1``
+stages ahead; the zero folds out (s * sum q x - s z * sum x, on the raw codes)
+and a row's sums are added in a fixed order, so repeats are
+bit-identical. ``plan`` picks the tile and the grid from shapes and the
+SM count alone; nothing is read on the host, and nothing is padded or
+copied.
+
+The expert axis keeps the first design: one warp per output row, lanes
+splitting the row's groups, activations read through the cache, at most
+``MAX_GEMV_BATCH`` rows a launch. An optional ``rows`` [E] operand skips
+each expert's empty buffer rows, and an expert with none is never read:
+at 4-slot DeepSeek-V2 decode at most 24 of 160 experts hold a row, so at
+most 24 x 14.7 MB of a layer's 2.36 GB of expert payload is streamed
+(bound: those bytes over 3.35 TB/s).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core.bsr import BSRMatrix
-from repro_torch.kernels.build import load
+from repro_torch.kernels.build import load, sm_count
 
-MAX_GEMV_BATCH = 8
+MAX_GEMV_BATCH = 8  # x rows a launch of the expert axis
 GROUP_SIZE = 16     # the kernel's group size (8 code bytes per group)
+STREAM_WARPS = 16   # warps a block of the streaming kernel
+STAGE_BYTES = 640   # a warp's ring stage: 32 slots x 20 bytes
+RING_DEPTH = 3      # stages of a warp's ring (measured best at 1-8 rows)
+SMEM_LIMIT = 232448  # dynamic shared memory a block may take on sm_90
+TILES = {2: (1, 2, 4, 8), 4: (1, 2, 4)}   # token tiles, by x's item size
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = load("gqsa_gemv").gqsa_gemv_launch
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -57,6 +76,45 @@ def _experts_launcher():
                    + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def smem_bytes(tt: int, k: int, itemsize: int) -> int:
+    """Dynamic shared memory of a block: the x tile ([K/16][tt][16] of
+    x's type), its group sums ([K/16][tt] f32, rounded up to 16 bytes)
+    and ``STREAM_WARPS`` rings of ``RING_DEPTH`` stages."""
+    groups = k // GROUP_SIZE
+    return (groups * tt * 16 * itemsize + -(-groups * tt * 4 // 16) * 16
+            + STREAM_WARPS * RING_DEPTH * STAGE_BYTES)
+
+
+def token_tile(t: int, k: int, itemsize: int) -> int:
+    """x rows a block takes: the smallest of ``TILES[itemsize]`` that
+    holds all ``t`` rows, else the largest, among those whose x fits a
+    block (a larger tile converts each kept group's codes once for more
+    rows; a tile past T computes on zero rows)."""
+    fits = [tt for tt in TILES[itemsize]
+            if smem_bytes(tt, k, itemsize) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"gqsa_gemv_cuda: K={k} does not fit a block's "
+                         f"shared memory")
+    return next((tt for tt in fits if tt >= t), fits[-1])
+
+
+class Plan(NamedTuple):
+    tile: int      # x rows a block (token tile)
+    tiles: int     # token tiles, ceil(T / tile)
+    blocks: int    # grid: tiles x blocks a tile
+
+
+def plan(t: int, n: int, k: int, itemsize: int, sms: int) -> Plan:
+    """The launch of T = ``t`` rows against an [N, K] matrix from shapes
+    and the SM count alone: one block an SM (a block of 16 warps holds
+    the SM's shared memory), as many on every tile, at least one, and no
+    block without a row (N / 16 blocks a tile at most)."""
+    tt = token_tile(t, k, itemsize)
+    tiles = -(-t // tt)
+    per_tile = max(1, min(sms // tiles, -(-n // STREAM_WARPS)))
+    return Plan(tt, tiles, tiles * per_tile)
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -99,22 +157,24 @@ def _check_operands(x: torch.Tensor, bsr: BSRMatrix, lead) -> None:
 
 
 def gqsa_gemv_cuda(x: torch.Tensor, bsr: BSRMatrix) -> torch.Tensor:
-    """y [B, N] f32 = x [B, K] @ dense(bsr).T on the card, 1 <= B <= 8.
+    """y [T, N] f32 = x [T, K] @ dense(bsr).T on the card, any T >= 1, in
+    one launch (``launches`` counts them).
 
     x: f32 or bf16, contiguous; bsr: one layer's padded form (2-D leaves)
     with group size 16, on x's device."""
-    b = x.shape[0]
-    if x.dim() != 2 or not 1 <= b <= MAX_GEMV_BATCH:
-        raise ValueError(f"gqsa_gemv_cuda takes x [B, K] with "
-                         f"1..{MAX_GEMV_BATCH} rows, got {tuple(x.shape)}")
-    _check_operands(x, bsr, (b,))
-    k = x.shape[1]
+    if x.dim() != 2 or x.shape[0] < 1:
+        raise ValueError(f"gqsa_gemv_cuda takes x [T, K] with T >= 1, got "
+                         f"{tuple(x.shape)}")
+    t, k = x.shape
+    _check_operands(x, bsr, (t,))
     n, m = bsr.idx.shape
-    y = torch.empty((b, n), dtype=torch.float32, device=x.device)
+    p = plan(t, n, k, x.element_size(), sm_count(x.device.index))
+    y = torch.empty((t, n), dtype=torch.float32, device=x.device)
     rc = _launcher()(x.data_ptr(), int(x.dtype == torch.bfloat16),
                      bsr.idx.data_ptr(), bsr.vals.data_ptr(),
                      bsr.scale.data_ptr(), bsr.zero.data_ptr(), y.data_ptr(),
-                     b, n, m, k, torch.cuda.current_stream(x.device).cuda_stream)
+                     t, n, m, k, p.tile, p.tiles, p.blocks, RING_DEPTH,
+                     torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gqsa_gemv kernel launch failed: CUDA error {rc}")
     gqsa_gemv_cuda.launches += 1

@@ -29,16 +29,11 @@ def gqsa_gemv(x: torch.Tensor, bsr: BSRMatrix, *,
               plain: bool = False) -> torch.Tensor:
     """y [B, N] f32 = x [B, K] @ dense(bsr).T, any B.
 
-    On the card, batches beyond ``MAX_GEMV_BATCH`` rows are chunked over
-    the kernel (prefill sends slots x bucket rows through here)."""
+    On the card, one launch at any B (prefill sends slots x bucket rows
+    through here, a tree verify slots x tree tokens)."""
     if _use_plain(x, plain, "gqsa_gemv"):
         return kref.gqsa_gemv_ref(x, bsr)
-    x = x.contiguous()
-    b = x.shape[0]
-    if b <= MAX_GEMV_BATCH:
-        return gqsa_gemv_cuda(x, bsr)
-    return torch.cat([gqsa_gemv_cuda(x[i:i + MAX_GEMV_BATCH], bsr)
-                      for i in range(0, b, MAX_GEMV_BATCH)], dim=0)
+    return gqsa_gemv_cuda(x.contiguous(), bsr)
 
 
 def gqsa_gemv_experts(x: torch.Tensor, bsr: BSRMatrix,

@@ -49,7 +49,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import load
+from repro_torch.kernels.build import load, sm_count
 
 SPLIT_ROWS = 32         # query rows per block
 SPLIT_MAX_VALUE_DIM = 512  # a column pair a thread, 256 threads
@@ -72,11 +72,6 @@ def _launcher():
     fn.argtypes = LAUNCH_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def split_count(b: int, khn: int, tr: int, mp: int, sms: int, ps: int,
@@ -189,7 +184,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         _check(anc, "anc", (torch.int32,), (b, t))
         _check(anc_base, "anc_base", (torch.int32,), (b,))
     if n_split is None:
-        n_split = split_count(b, khn, tr, mp, _sm_count(
+        n_split = split_count(b, khn, tr, mp, sm_count(
             q.device.index if q.device.index is not None
             else torch.cuda.current_device()), ps, dv)
     vec = 16 // k_pages.element_size()         # elements per 16-byte load

@@ -45,6 +45,27 @@ def gqsa_gemv_ref(x: torch.Tensor, bsr: BSRMatrix) -> torch.Tensor:
     return x.float() @ to_dense(bsr).T
 
 
+def gqsa_gemv_grouped_ref(x: torch.Tensor, bsr: BSRMatrix) -> torch.Tensor:
+    """:func:`gqsa_gemv_ref` in the CUDA kernel's order of arithmetic
+    (tests only): per kept slot, d = sum_j q_j x_j over the raw codes and
+    xs = sum_j x_j of its column group, in f32, then y += s * d - (s * z)
+    * xs, slots in order (padding slots: column 0, scale 0). x widened to
+    f32 exactly."""
+    n, m = bsr.idx.shape
+    t, k = x.shape
+    g = bsr.group_size
+    q = unpack_int4(bsr.vals).float()                          # [N, M, G]
+    xg = x.float().reshape(t, k // g, g)
+    xs = xg.sum(-1)                                            # [T, K/G]
+    col = bsr.idx.clamp_min(0).long()                          # [N, M]
+    y = torch.zeros((t, n), dtype=torch.float32, device=x.device)
+    for i in range(m):
+        d = torch.einsum("tng,ng->tn", xg[:, col[:, i]], q[:, i])
+        s = bsr.scale[:, i]
+        y = y + s * d - (s * bsr.zero[:, i]) * xs[:, col[:, i]]
+    return y
+
+
 def w4_matmul_ref(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
                   zero: torch.Tensor, group_size: int) -> torch.Tensor:
     """Dense grouped-dequant matmul (the W4A16 baseline): x [T, K] ->

@@ -38,7 +38,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import load
+from repro_torch.kernels.build import load, sm_count
 
 VEC_K = 64          # K multiple (and 16-byte qw alignment) of the CUDA-core
                     # path's vector loads
@@ -66,11 +66,6 @@ def _tc_launcher():
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 _COUNTERS = {}
@@ -123,7 +118,7 @@ def plan(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
     if not takes_tensor_cores(k, group_size, x.data_ptr(), qw.data_ptr(),
                               scale.data_ptr(), zero.data_ptr()):
         return "simt", 1
-    return "tc", split_count(t, qw.shape[0], k, _sm_count(x.device.index))
+    return "tc", split_count(t, qw.shape[0], k, sm_count(x.device.index))
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:

@@ -39,27 +39,58 @@ def _close(a, b):
     assert err <= TOL * b.abs().max().item(), err
 
 
+GEMV_ROWS = (1, 4, 8, 9, 20, 64, 116)
+
+
 @pytest.mark.parametrize("n,k", [(4096, 4096), (11008, 4096), (4096, 11008),
                                  (100, 48)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_gqsa_gemv_kernel_matches_plain(cuda, n, k, dtype):
+    """One launch a call at any row count (every token tile the launcher
+    picks: 1, 2, 4, 8 rows)."""
     w = torch.randn((n, k), generator=cuda, device="cuda")
     bsr = pack_linear(w, GQSAConfig())
-    for b in (1, 4, 8, 13):
+    for b in GEMV_ROWS:
         x = torch.randn((b, k), generator=cuda, device="cuda").to(dtype)
         before = gqsa_gemv_cuda.launches
         y = ops.gqsa_gemv(x, bsr)
-        assert gqsa_gemv_cuda.launches - before == -(-b // 8)
+        assert gqsa_gemv_cuda.launches - before == 1
         _close(y, ops.gqsa_gemv(x, bsr, plain=True))
 
 
 def test_gqsa_gemv_kernel_ragged_rows(cuda):
+    """-1 padding slots, an empty row and M = 17 (a ragged last lane
+    trip), bf16 and f32 x at every row count."""
     w = torch.randn((300, 512), generator=cuda, device="cuda")
     mask = torch.rand((300, 32), generator=cuda, device="cuda") < 0.3
     mask[7] = False
     bsr = pack_dense(w, mask, QuantConfig(bits=4, group_size=16))
-    x = torch.randn((3, 512), generator=cuda, device="cuda")
-    _close(ops.gqsa_gemv(x, bsr), ops.gqsa_gemv(x, bsr, plain=True))
+    assert bool((bsr.idx < 0).any())
+    for b in GEMV_ROWS:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((b, 512), generator=cuda, device="cuda").to(dtype)
+            _close(ops.gqsa_gemv(x, bsr), ops.gqsa_gemv(x, bsr, plain=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gqsa_gemv_kernel_bit_identical(cuda, dtype):
+    """Repeats are bit-identical, and a row of x gives the same bits
+    whatever else the call holds: at T = 1, in a tile of 2, 4 or 8, or in
+    a tile of a 116-row call; there is no split to vary."""
+    from repro_torch.kernels.gqsa_gemv import plan
+    bsr = pack_linear(torch.randn((4096, 11008), generator=cuda,
+                                  device="cuda"), GQSAConfig())
+    x = torch.randn((116, 11008), generator=cuda, device="cuda").to(dtype)
+    y = ops.gqsa_gemv(x, bsr)
+    assert torch.equal(y, ops.gqsa_gemv(x, bsr))
+    tiles = set()
+    for rows in (slice(5, 6), slice(6, 8), slice(8, 12), slice(16, 24),
+                 slice(0, 20)):
+        part = x[rows].contiguous()
+        tiles.add(plan(part.shape[0], 4096, 11008, part.element_size(),
+                       132).tile)
+        assert torch.equal(ops.gqsa_gemv(part, bsr), y[rows])
+    assert len(tiles) >= 3
 
 
 def test_gqsa_gemv_kernel_rejects_what_it_does_not_take(cuda):
@@ -68,7 +99,7 @@ def test_gqsa_gemv_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         gqsa_gemv_cuda(x, bsr)
     with pytest.raises(ValueError):
-        gqsa_gemv_cuda(torch.randn((9, 128), device="cuda"), bsr)
+        gqsa_gemv_cuda(torch.randn((0, 128), device="cuda"), bsr)
     with pytest.raises(TypeError):
         gqsa_gemv_cuda(torch.randn((2, 128), device="cuda").half(), bsr)
 
@@ -292,14 +323,15 @@ def test_w4_matmul_tensor_cores_every_split_count(cuda, n, k, splits):
     """Every split count the launcher may choose (1 .. K/128; all of them
     at K = 4096), at decode and prefill rows, against the plain version
     and bit-identical on a repeat."""
-    from repro_torch.kernels.w4_matmul import _sm_count, split_count
+    from repro_torch.kernels.build import sm_count
+    from repro_torch.kernels.w4_matmul import split_count
     p = _w4(cuda, n, k, 16)
     args = (p["qw"], p["scale"], p["zero"], 16)
     for t in (4, 64):
         x = torch.randn((t, k), generator=cuda,
                         device="cuda").to(torch.bfloat16)
         ref = ops.w4_matmul(x, *args[:3], group_size=16, plain=True)
-        chosen = split_count(t, n, k, _sm_count(0))
+        chosen = split_count(t, n, k, sm_count(0))
         for s in sorted({chosen, *splits}):
             y = w4_matmul_cuda(x, *args, n_split=s)
             _close(y, ref)
