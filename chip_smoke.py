@@ -455,9 +455,10 @@ def w4_launch_floor(timer):
 def gemv_layer(timer, g, t):
     """One llama2-7b layer of gqsa_gemv (7 projections, bf16 x with ``t``
     rows): kernel, plain, ``torch.matmul`` on the dense bf16 W and the
-    bound (the larger of the payload, x and y over 3.35 TB/s and the f32
-    multiply-adds of the kept groups over 67 TFLOP/s), summed over the
-    layer."""
+    bound (the larger of the payload, x and y over 3.35 TB/s and the
+    multiply-adds of the kept groups, bf16 x by exact 4-bit codes, over
+    the tensor cores' 989 TFLOP/s; the kernel runs them on CUDA cores in
+    f32, which the bound does not assume), summed over the layer."""
     from repro_torch.core.bsr import to_dense
     from repro_torch.kernels import ops
     from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda, plan
@@ -471,7 +472,7 @@ def gemv_layer(timer, g, t):
         dense = to_dense(bsr).to(torch.bfloat16)
         m = bsr.idx.shape[1]
         nbytes = n * m * 20 + t * k * 2 + t * n * 4
-        bound = _bound_ms(nbytes, 2 * t * n * m * 16)
+        bound = _bound_ms(nbytes, 2 * t * n * m * 16, BF16_TC_FLOP_PER_S)
         t_k = timer.ms(lambda: gqsa_gemv_cuda(x, bsr))
         t_p = timer.ms(lambda: ops.gqsa_gemv(x, bsr, plain=True))
         t_l = timer.ms(lambda: torch.matmul(x, dense.T))
@@ -486,7 +487,7 @@ def gemv_layer(timer, g, t):
                           (t_k, t_p, t_l, bound)):
             gemv[key] += c * v
         by_bytes += c * nbytes / HBM_BYTES_PER_S
-        by_ops += c * 2 * t * n * m * 16 / F32_FLOP_PER_S
+        by_ops += c * 2 * t * n * m * 16 / BF16_TC_FLOP_PER_S
         del dense
     gemv["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
     log(f"[gemv time] one layer (7 projections, T={t}): kernel "
@@ -1284,7 +1285,9 @@ def phase_mla_moe_timing(timer):
     mode at serve lengths and at 256 (bf16 pages), the expert axis for one
     layer's three expert projections at C = 1 with one decode step's
     occupied experts. Bound: the larger of the bytes the function must
-    move over 3.35 TB/s and its f32 operations over 67 TFLOP/s."""
+    move over 3.35 TB/s and its operations over their type's peak: the
+    latent mode's f32 over 67 TFLOP/s, the expert axis's bf16 x by 4-bit
+    codes over the tensor cores' 989 TFLOP/s."""
     import torch.nn.functional as F
     from repro_torch.core.bsr import to_dense
     from repro_torch.kernels import ops
@@ -1346,7 +1349,7 @@ def phase_mla_moe_timing(timer):
         m = bsr.idx.shape[-1]
         nbytes = n_occ * (n * m * 20 + k * 2) + 160 * n * 4
         flops = 2 * n_occ * n * m * 16
-        bound = _bound_ms(nbytes, flops)
+        bound = _bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
         # library yardstick: torch.bmm over the occupied experts' dense
         # bf16 weights, gathered beforehand
         dense = torch.stack([to_dense(bsr.layer(int(i))).to(torch.bfloat16)
@@ -1369,7 +1372,7 @@ def phase_mla_moe_timing(timer):
         flops_all += c * flops
         del bsr, dense
     ex["bound_by"] = ("bytes" if nbytes_all / HBM_BYTES_PER_S
-                      >= flops_all / F32_FLOP_PER_S else "operations")
+                      >= flops_all / BF16_TC_FLOP_PER_S else "operations")
     log(f"[experts time] one decode layer (3 expert projections, C=1, "
         f"{n_occ} occupied): kernel {ex['ms']:.4f}ms plain "
         f"{ex['plain_ms']:.4f}ms bmm {ex['library_ms']:.4f}ms bound "
@@ -1510,7 +1513,9 @@ KERNELS = {
              "holds the same layer at T = 64 (prefill rows) and T = 116 "
              "(a (4,2,2) tree verify of 4 slots), one launch a projection, "
              "each with ms, plain_ms, library_ms (torch.matmul on the "
-             "dense bf16 W), bound_ms and bound_by"),
+             "dense bf16 W), bound_ms and bound_by; every bound is the "
+             "larger of the bytes over 3.35 TB/s and the multiply-adds "
+             "over the bf16 tensor cores' 989 TFLOP/s"),
     "paged_attention": dict(
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:181",

@@ -12,7 +12,8 @@ launch, 200 launches a shape), bf16 x:
     several) at T = 4 (decode, 4 slots), 64 (prefill rows) and 116 (a
     (4,2,2) tree verify of 4 slots), each beside ``torch.matmul`` on the
     dense bf16 W and the bound (the larger of the bytes over 3.35 TB/s and
-    the f32 multiply-adds over 67 TFLOP/s); prints ``RESULT <name>
+    the multiply-adds, bf16 x by 4-bit codes, over the tensor cores' 989
+    TFLOP/s); prints ``RESULT <name>
     gqsa_gemv T=<t> layer <us> matmul <us> bound <us>``;
   * ``--kernel w4_matmul``: the 7 dense W4 G16 projections at T = 4
     (decode) and T = 64 (prefill rows), each beside ``torch.matmul`` on the
@@ -56,7 +57,8 @@ def time_layer(name: str, root: str) -> None:
                             dtype=torch.bfloat16)
             dense = to_dense(bsr).to(torch.bfloat16)
             nbytes = n * m * 20 + rows * k * 2 + rows * n * 4
-            bound = cs._bound_ms(nbytes, 2 * rows * n * m * 16)
+            bound = 1e3 * max(nbytes / cs.HBM_BYTES_PER_S,
+                              2 * rows * n * m * 16 / cs.BF16_TC_FLOP_PER_S)
             c = cs.PER_LAYER[label]
             t_k = timer.ms(lambda: ops.gqsa_gemv(x, bsr), iters=100)
             t_l = timer.ms(lambda: torch.matmul(x, dense.T), iters=100)

@@ -1,30 +1,39 @@
 """What holds ``gqsa_gemv`` back: scratch variants of the warp-per-row
 kernel (the expert axis's kernel in ``src/repro_torch/csrc/gqsa_gemv.cu``,
-which was the single-matrix kernel before the streaming design) timed in
-one process on one card, then the dispatcher at many rows.
+which was the single-matrix kernel before the streaming design) and of
+the streaming kernel, timed in one process on one card, then the
+dispatcher at many rows.
 
     python3 scripts/gemv_variants.py
 
 Each variant is the source with one edit, built by ``nvcc`` under
-``build/gemv_variants/`` and launched through its expert-axis entry with
-one expert (E = 1, C = T, every row a token: the warp-per-row kernel on
-one matrix): as built; without the x gather (x from register constants);
-without the weight loads (idx, scale, zero and codes made from the slot
-number); with x staged in shared memory once per block; with a lane's
-loads for all its groups issued before any use. Each times one llama2-7b
-layer of the 7 GQSA W4 S50 G16 projections with bf16 x at T = 4
-(``chip_smoke.Timer``: L2 flushed by a 1 GiB write before every launch).
-Then variants of the streaming kernel (``gqsa_gemv_launch``), launched
-as ``kernels/gqsa_gemv.py:plan`` launches them, at T = 4 and 116: as
-built; without the x reads (x chunks from register constants); without
-the payload's copies (each lane writes made-up idx, scale, zero and
-codes into its ring); as built with an 8-stage ring instead of 3 (T = 4
-only: at T = 116 the x tile of wd leaves no room). Then
-``ops.gqsa_gemv`` of the checkout (the repository's own path, one
-launch or several) at T in {4, 20, 64, 116}, beside ``torch.matmul`` on
-the dense bf16 W and the bound (the larger of the bytes over 3.35 TB/s
-and the f32 multiply-adds over 67 TFLOP/s). Prints ``VARIANT`` and
-``ROWS`` lines.
+``build/gemv_variants/``. Each times one llama2-7b layer of the 7 GQSA
+W4 S50 G16 projections with bf16 x (``chip_smoke.Timer``: L2 flushed by
+a 1 GiB write before every launch).
+
+Warp-per-row variants, launched through the expert-axis entry with one
+expert (E = 1, every row a token: the kernel on one matrix), 8 rows a
+launch as the dispatcher before the streaming kernel launched them, at
+T = 4 and 64: as built; without the x gather (x from register
+constants); without the weight loads (idx, scale, zero and codes made
+from the slot number); with x staged in shared memory once per block;
+with a lane's loads for all its groups issued before any use.
+
+Streaming variants (``gqsa_gemv_launch``, launched as
+``kernels/gqsa_gemv.py:plan`` launches them) at T = 4, 64 and 116: as
+built; without the x reads (each chunk of x a set of constants that
+differ by token and cost no instruction); without the payload (no copy
+is issued and each slot's idx, scale, zero and codes are register values
+of the slot); x widened once to f32 (the f32 instantiation, on x
+converted before the timed launch; its tile is at most 4 rows); an
+8-stage ring instead of 3 (T = 4 only: at T = 116 the x tile of wd
+leaves no room).
+
+Then ``ops.gqsa_gemv`` of the checkout (the repository's own path) at T
+in {4, 20, 64, 116}, beside ``torch.matmul`` on the dense bf16 W and the
+bound (the larger of the bytes over 3.35 TB/s and the multiply-adds over
+the bf16 tensor cores' 989 TFLOP/s). Prints ``VARIANT`` and ``ROWS``
+lines.
 """
 from __future__ import annotations
 
@@ -143,22 +152,29 @@ X_READ = ("      chunk(reinterpret_cast<const T*>(\n"
           "                line + 16 * (tok * L::kParts + (sp ^ v))), xv);\n")
 NO_X_READ = ("#pragma unroll\n"
              "      for (int e = 0; e < L::kElems; ++e)\n"
-             "        xv[e] = __int_as_float(0x3f800000 + (tok << 8) + "
+             "        xv[e] = __int_as_float(0x3f800000 + (j << 8) + "
              "(sp << 4) + e);\n")
 RING_COPIES = ("      cp_async4(&st.idx[lane], a.idx + f, 4);\n"
                "      cp_async4(&st.scale[lane], a.scale + f, 4);\n"
                "      cp_async4(&st.zero[lane], a.zero + f, 4);\n"
                "      cp_async8(&st.vals[lane], a.vals + f, 8);\n")
-NO_RING_COPIES = ("      st.idx[lane] = static_cast<int>(f % (a.K / kGroup));\n"
-                  "      st.scale[lane] = 1e-3f;\n"
-                  "      st.zero[lane] = 8.f;\n"
-                  "      st.vals[lane] = make_uint2(static_cast<uint32_t>(f),"
-                  " 0x12345678u);\n")
+NO_RING_COPIES = "      (void)st;\n      (void)f;\n"
+RING_READ = ("      group<T, TT>(st.vals[lane], max(st.idx[lane], 0), "
+             "st.scale[lane],\n"
+             "                   st.zero[lane], xg, xsum, u, v, acc);\n")
+NO_RING_READ = ("      (void)st;   // m < M <= K / 16: a valid column\n"
+                "      group<T, TT>(make_uint2(m * 0x01234567u, row), m, "
+                "1e-3f, 8.f,\n"
+                "                   xg, xsum, u, v, acc);\n")
+DEPTH = "constexpr int kDepth = 3;"
 STREAM_VARIANTS = {
     "stream as built": lambda s: s,
     "stream no x reads": lambda s: _edit(s, X_READ, NO_X_READ),
-    "stream no payload loads": lambda s: _edit(s, RING_COPIES,
+    "stream no payload": lambda s: _edit(_edit(s, RING_COPIES,
                                                NO_RING_COPIES),
+                                         RING_READ, NO_RING_READ),
+    "stream 8-stage ring": lambda s: _edit(s, DEPTH,
+                                           "constexpr int kDepth = 8;"),
 }
 
 
@@ -210,7 +226,8 @@ def build():
 
 
 def warp_per_row(lib_path):
-    """``call(x, bsr)``: the variant's kernel on one matrix, T <= 8."""
+    """``call(x, bsr)``: the variant's kernel on one matrix, 8 rows a
+    launch."""
     import torch
     fn = ctypes.CDLL(lib_path).gqsa_gemv_experts_launch
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
@@ -221,37 +238,43 @@ def warp_per_row(lib_path):
         t, k = x.shape
         n, m = bsr.idx.shape
         y = torch.empty((t, n), dtype=torch.float32, device=x.device)
-        rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
-                bsr.idx.data_ptr(), bsr.vals.data_ptr(),
-                bsr.scale.data_ptr(), bsr.zero.data_ptr(), y.data_ptr(),
-                None, 1, t, 0, t, n, m, k,
-                torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"launch failed: CUDA error {rc}")
+        for c0 in range(0, t, 8):
+            rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                    bsr.idx.data_ptr(), bsr.vals.data_ptr(),
+                    bsr.scale.data_ptr(), bsr.zero.data_ptr(), y.data_ptr(),
+                    None, 1, t, c0, min(8, t - c0), n, m, k,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"launch failed: CUDA error {rc}")
         return y
     return call
 
 
-def streaming(lib_path):
-    """``call(x, bsr, depth=RING_DEPTH)``: the variant's streaming
-    kernel, launched as ``kernels/gqsa_gemv.py:plan`` launches it."""
+def streaming(lib_path, depth):
+    """``call(x, bsr)``: the variant's streaming kernel (its ring
+    ``depth`` stages deep), launched as ``kernels/gqsa_gemv.py:plan``
+    launches it."""
     import torch
     from repro_torch.kernels.build import sm_count
-    from repro_torch.kernels.gqsa_gemv import RING_DEPTH, plan
+    from repro_torch.kernels.gqsa_gemv import (RING_DEPTH, STAGE_BYTES,
+                                               STREAM_WARPS, plan,
+                                               smem_bytes)
     fn = ctypes.CDLL(lib_path).gqsa_gemv_launch
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
-    def call(x, bsr, depth=RING_DEPTH):
+    def call(x, bsr):
         t, k = x.shape
         n, m = bsr.idx.shape
         p = plan(t, n, k, x.element_size(), sm_count(0))
+        smem = (smem_bytes(p.tile, k, x.element_size())
+                + STREAM_WARPS * (depth - RING_DEPTH) * STAGE_BYTES)
         y = torch.empty((t, n), dtype=torch.float32, device=x.device)
         rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
                 bsr.idx.data_ptr(), bsr.vals.data_ptr(),
                 bsr.scale.data_ptr(), bsr.zero.data_ptr(), y.data_ptr(),
-                t, n, m, k, p.tile, p.tiles, p.blocks, depth,
+                t, n, m, k, p.tile, p.tiles, p.blocks, smem,
                 torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"launch failed: CUDA error {rc}")
@@ -277,38 +300,44 @@ def main() -> int:
     xs = {(label, t): torch.randn((t, k), generator=g, device="cuda",
                                   dtype=torch.bfloat16)
           for label, (n, k) in cs.SHAPES.items() for t in (4, 20, 64, 116)}
-    plain = {label: ops.gqsa_gemv(xs[(label, 4)], bsr, plain=True)
-             for label, bsr in packed.items()}
+    plain = {(label, t): ops.gqsa_gemv(xs[(label, t)], bsr, plain=True)
+             for label, bsr in packed.items() for t in (4, 64)}
+
+    def layer(name, t, call, x_of=lambda x: x, iters=50, check=False):
+        total, parts = 0.0, []
+        for label, bsr in packed.items():
+            x = x_of(xs[(label, t)])
+            note = ""
+            if check:
+                y = call(x, bsr)
+                torch.cuda.synchronize()
+                ref = plain[(label, t)]
+                err = ((y - ref).abs().max() / ref.abs().max()).item()
+                note = f" (rel {err:.1e})"
+            ms = timer.ms(lambda: call(x, bsr), iters=iters)
+            total += cs.PER_LAYER[label] * ms
+            parts.append(f"{label} {ms * 1e3:.2f}{note}")
+        print(f"VARIANT {name} T={t}: layer {total * 1e3:.2f}us "
+              f"({'; '.join(parts)})", flush=True)
+
     for name, lib in libs.items():
-        if name in STREAM_VARIANTS:
-            continue
-        call = warp_per_row(lib)
-        total, parts = 0.0, []
-        for label, bsr in packed.items():
-            x = xs[(label, 4)]
-            y = call(x, bsr)
-            torch.cuda.synchronize()
-            err = ((y - plain[label]).abs().max()
-                   / plain[label].abs().max()).item()
-            ms = timer.ms(lambda: call(x, bsr), iters=100)
-            total += cs.PER_LAYER[label] * ms
-            parts.append(f"{label} {ms * 1e3:.2f} (rel {err:.1e})")
-        print(f"VARIANT {name} T=4: layer {total * 1e3:.2f}us "
-              f"({'; '.join(parts)})", flush=True)
+        if name not in STREAM_VARIANTS:
+            for t in (4, 64):
+                layer(name, t, warp_per_row(lib), iters=100 if t == 4
+                      else 30, check=True)
+    for name in ("stream as built", "stream no x reads",
+                 "stream no payload"):
+        call = streaming(libs[name], 3)
+        for t in (4, 64, 116):
+            layer(name, t, call, check=name == "stream as built"
+                  and t < 116)
+    call = streaming(libs["stream as built"], 3)
+    for t in (4, 64, 116):
+        layer("stream x widened to f32 once", t, call,
+              x_of=lambda x: x.float(), check=t < 116)
     # the 8-stage ring only at T = 4: at T = 116 wd's x tile leaves no room
-    runs = [(name, t, {}) for name in STREAM_VARIANTS for t in (4, 116)]
-    runs.append(("stream as built", 4, dict(depth=8)))
-    for name, t, kw in runs:
-        call = streaming(libs[name])
-        total, parts = 0.0, []
-        for label, bsr in packed.items():
-            x = xs[(label, t)]
-            ms = timer.ms(lambda: call(x, bsr, **kw), iters=50)
-            total += cs.PER_LAYER[label] * ms
-            parts.append(f"{label} {ms * 1e3:.2f}")
-        opts = "".join(f", {k} {v}" for k, v in kw.items())
-        print(f"VARIANT {name}{opts} T={t}: layer {total * 1e3:.2f}us "
-              f"({'; '.join(parts)})", flush=True)
+    layer("stream 8-stage ring", 4, streaming(libs["stream 8-stage ring"],
+                                              8), check=True)
     dense = {label: to_dense(bsr).to(torch.bfloat16)
              for label, bsr in packed.items()}
     for t in (4, 20, 64, 116):
@@ -319,7 +348,8 @@ def main() -> int:
             m = bsr.idx.shape[1]
             x = xs[(label, t)]
             nbytes = n * m * 20 + t * k * 2 + t * n * 4
-            bound = cs._bound_ms(nbytes, 2 * t * n * m * 16)
+            bound = cs._bound_ms(nbytes, 2 * t * n * m * 16,
+                                 cs.BF16_TC_FLOP_PER_S)
             t_k = timer.ms(lambda: ops.gqsa_gemv(x, bsr), iters=50)
             t_l = timer.ms(lambda: torch.matmul(x, dense[label].T), iters=50)
             c = cs.PER_LAYER[label]

@@ -10,16 +10,18 @@
 // 4-bit codes per byte, element 2i in the low nibble; scale, zero [N, M]
 // f32 (scale 0 on padding); y [T, N] f32. Group size 16.
 //
-// Bound on the card: bytes at decode. Each kept group streams 20 bytes of
-// payload (8 code bytes, idx, scale, zero) for 16 * T multiply-adds, so up
-// to T of about 20 the floor is the payload over 3.35 TB/s (4.05 GB per
-// llama2-7b decode step -> 1.21 ms); above it, the f32 multiply-adds over
-// 67 TFLOP/s (a llama2-7b layer: 350 us at T = 116). The design below is
-// bound by its own CUDA-core arithmetic at every T, not by bytes: about
-// 41 instructions a kept group and x row (16 bf16 widenings, 16
-// multiply-adds, two 16-byte reads, the zero fold), so at decode it stays
-// above the byte floor (PERF.md); tensor cores on a densified stage are
-// the next step (ROADMAP.md B.5).
+// Bound on the card (H100 SXM): bytes at every T the model sends. Each
+// kept group streams 20 bytes of payload (8 code bytes, idx, scale, zero)
+// for 16 * T multiply-adds of bf16 x and exact 4-bit codes, which the
+// card's tensor cores take at 989 TFLOP/s; the bytes over 3.35 TB/s stay
+// the larger time up to T of about 280 (4.05 GB per llama2-7b decode
+// step -> 1.21 ms; a llama2-7b layer: 38 us at T = 4, 46 us at T = 116).
+// The design below runs on CUDA cores (f32, 67 TFLOP/s, 350 us a layer
+// of multiply-adds alone at T = 116) and is bound by that arithmetic at
+// every T: about 41 instructions a kept group and x row (16 bf16
+// widenings, 16 multiply-adds, two 16-byte reads, the zero fold), so it
+// stays far above the byte floor (PERF.md); tensor cores on a densified
+// stage are the next step (ROADMAP.md B.5).
 //
 // Design (gqsa_gemv_launch, any T in one launch): one block of 16 warps
 // per SM, each block on one token tile of TT <= 8 x rows.
@@ -37,12 +39,13 @@
 //    its tile's W warps), its lanes take slots m = 32 p + lane, so a
 //    warp's copy of a field is 128 consecutive bytes. Each lane copies its
 //    own slot's idx, scale, zero and codes with cp.async into its warp's
-//    ring of `depth` stages (640 bytes a stage), depth - 1 slots ahead of
-//    the arithmetic. The wrapper passes 3: an 8-stage ring was slower at
-//    decode (PERF.md, scripts/gemv_variants.py), since the kernel is
-//    bound by its arithmetic and a deeper prologue delays the x tile
-//    behind the payload's requests; a depth fixed at compile time was
-//    slower at 8 rows and more (ptxas schedules the loop differently).
+//    ring of kDepth = 3 stages (640 bytes a stage), two slots ahead of the
+//    arithmetic. An 8-stage ring was slower at decode (PERF.md,
+//    scripts/gemv_variants.py), since the kernel is bound by its
+//    arithmetic and a deeper prologue delays the x tile behind the
+//    payload's requests. The kernel reads the depth from its arguments,
+//    not as a constant: a compile-time depth was slower at 8 rows and
+//    more (ptxas schedules the loop differently).
 //  * The zero folds out: acc += s * sum_j q_j x_j - (s z) * sum_j x_j, on
 //    the raw codes (a nibble becomes the exact float by a byte permute and
 //    one subtract), per group; the codes are converted once and used for
@@ -228,7 +231,7 @@ namespace streaming {
 
 constexpr int kWarps = 16;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxDepth = 8;
+constexpr int kDepth = 3;          // stages of each warp's ring
 constexpr int kMaxSmem = 232448;   // dynamic shared memory a block, sm_90
 
 // One stage of a warp's ring: the payload of 32 slots, one a lane.
@@ -238,6 +241,8 @@ struct Stage {
   float zero[32];
   uint2 vals[32];
 };
+// kernels/gqsa_gemv.py:STAGE_BYTES
+static_assert(sizeof(Stage) == 640, "a stage is 32 slots of 20 bytes");
 
 struct Args {
   const void* x;
@@ -248,7 +253,7 @@ struct Args {
   float* y;
   int T, N, M, K;
   int n_tiles;   // token tiles: block b takes tile b % n_tiles
-  int depth;     // stages of each warp's ring
+  int depth;     // kDepth, read at run time (see the design note)
 };
 
 // A group's staged line: TT tokens of 16 values, P 16-byte chunks each.
@@ -270,9 +275,9 @@ __host__ __device__ inline size_t sum_bytes(int K, int tt) {
   return (static_cast<size_t>(K / kGroup) * tt * 4 + 15) / 16 * 16;
 }
 
-inline size_t smem_bytes(int K, int tt, int elem, int depth) {
+inline size_t smem_bytes(int K, int tt, int elem) {
   return x_bytes(K, tt, elem) + sum_bytes(K, tt)
-      + static_cast<size_t>(kWarps) * depth * sizeof(Stage);
+      + static_cast<size_t>(kWarps) * kDepth * sizeof(Stage);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -307,18 +312,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// wait until at most `n` of this thread's groups are in flight
-__device__ __forceinline__ void cp_async_wait_n(int n) {
-  switch (n) {
-    case 7: cp_async_wait<7>(); break;
-    case 6: cp_async_wait<6>(); break;
-    case 5: cp_async_wait<5>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 1: cp_async_wait<1>(); break;
-    default: cp_async_wait<0>(); break;
-  }
+// wait until at most `depth` - 1 of this thread's groups are in flight;
+// `depth` is kDepth (any other value waits for all, which is always safe)
+__device__ __forceinline__ void cp_async_wait_ring(int depth) {
+  if (depth == kDepth)
+    cp_async_wait<kDepth - 1>();
+  else
+    cp_async_wait<0>();
 }
 
 // The 8 codes of w (element 2i in the low nibble of byte i) as exact
@@ -493,7 +493,7 @@ gqsa_gemv_stream_kernel(const Args a) {
     cp_async_commit();
   }
 
-  cp_async_wait_n(D - 1);   // the x tile has landed (the ring may not)
+  cp_async_wait_ring(D);   // the x tile has landed (the ring may not)
   __syncthreads();
   for (int q = threadIdx.x; q < groups * TT; q += kThreads) {
     const uint8_t* line = xg + 16 * L::kParts * q;
@@ -519,7 +519,7 @@ gqsa_gemv_stream_kernel(const Args a) {
   for (int s = 0; s < steps; ++s) {
     if (s + D - 1 < steps) load_next();
     cp_async_commit();
-    cp_async_wait_n(D - 1);   // this step's slot has landed
+    cp_async_wait_ring(D);   // this step's slot has landed
     const int m = trip * 32 + lane;
     if (m < a.M) {
       const Stage& st = ring_w[stage];
@@ -540,7 +540,7 @@ gqsa_gemv_stream_kernel(const Args a) {
 }
 
 template <typename T, int TT>
-int launch(const Args& a, int blocks, cudaStream_t stream) {
+int launch(const Args& a, int blocks, size_t smem, cudaStream_t stream) {
   static unsigned sized = 0;       // devices whose limit is raised
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -552,8 +552,6 @@ int launch(const Args& a, int blocks, cudaStream_t stream) {
     if (e != cudaSuccess) return static_cast<int>(e);
     sized |= 1u << dev;
   }
-  const size_t smem = smem_bytes(a.K, TT, static_cast<int>(sizeof(T)),
-                                 a.depth);
   gqsa_gemv_stream_kernel<T, TT><<<blocks, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -564,41 +562,44 @@ int launch(const Args& a, int blocks, cudaStream_t stream) {
 
 // One matrix, any T: x [T, K] (f32 or bf16), y [T, N] f32. `tt`: x rows
 // a token tile (1, 2, 4, 8; f32 x at most 4); `n_tiles` = ceil(T / tt);
-// `blocks`: a multiple of n_tiles; `depth`: stages of each warp's ring
-// (2 .. 8). Launches on `stream` and returns cudaGetLastError() (0 =
-// launched).
+// `blocks`: a multiple of n_tiles; `smem`: the block's dynamic shared
+// memory as the wrapper's plan counts it (kernels/gqsa_gemv.py:smem_bytes),
+// refused unless it is this layout's. Launches on `stream` and returns
+// cudaGetLastError() (0 = launched).
 extern "C" int gqsa_gemv_launch(const void* x, int x_is_bf16,
                                 const void* idx, const void* vals,
                                 const void* scale, const void* zero, void* y,
                                 int T, int N, int M, int K, int tt,
-                                int n_tiles, int blocks, int depth,
+                                int n_tiles, int blocks, long long smem,
                                 void* stream) {
   const int elem = x_is_bf16 ? 2 : 4;
   if (T < 1 || N < 1 || M < 1 || K < kGroup || K % kGroup != 0
       || (tt != 1 && tt != 2 && tt != 4 && (tt != 8 || !x_is_bf16))
       || n_tiles != (T + tt - 1) / tt || blocks < n_tiles
-      || blocks % n_tiles != 0 || depth < 2 || depth > streaming::kMaxDepth
-      || streaming::smem_bytes(K, tt, elem, depth)
-             > static_cast<size_t>(streaming::kMaxSmem))
+      || blocks % n_tiles != 0
+      || smem != static_cast<long long>(streaming::smem_bytes(K, tt, elem))
+      || smem > streaming::kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   const streaming::Args a{x, static_cast<const int32_t*>(idx),
                        static_cast<const uint2*>(vals),
                        static_cast<const float*>(scale),
                        static_cast<const float*>(zero),
-                       static_cast<float*>(y), T, N, M, K, n_tiles, depth};
+                       static_cast<float*>(y), T, N, M, K, n_tiles,
+                       streaming::kDepth};
+  const size_t sm = static_cast<size_t>(smem);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_is_bf16) {
     switch (tt) {
-      case 1: return streaming::launch<__nv_bfloat16, 1>(a, blocks, s);
-      case 2: return streaming::launch<__nv_bfloat16, 2>(a, blocks, s);
-      case 4: return streaming::launch<__nv_bfloat16, 4>(a, blocks, s);
-      default: return streaming::launch<__nv_bfloat16, 8>(a, blocks, s);
+      case 1: return streaming::launch<__nv_bfloat16, 1>(a, blocks, sm, s);
+      case 2: return streaming::launch<__nv_bfloat16, 2>(a, blocks, sm, s);
+      case 4: return streaming::launch<__nv_bfloat16, 4>(a, blocks, sm, s);
+      default: return streaming::launch<__nv_bfloat16, 8>(a, blocks, sm, s);
     }
   }
   switch (tt) {
-    case 1: return streaming::launch<float, 1>(a, blocks, s);
-    case 2: return streaming::launch<float, 2>(a, blocks, s);
-    default: return streaming::launch<float, 4>(a, blocks, s);
+    case 1: return streaming::launch<float, 1>(a, blocks, sm, s);
+    case 2: return streaming::launch<float, 2>(a, blocks, sm, s);
+    default: return streaming::launch<float, 4>(a, blocks, sm, s);
   }
 }
 

@@ -11,15 +11,16 @@ in prefill and decode, and the same kernel under the reference's
 one launch per projection and chunk of buffer rows, with an expert grid
 axis.
 
-Bound on the H100: bytes at decode. The kernel streams each kept group's
-20-byte payload (8 code bytes, int32 idx, f32 scale and zero) once; the
-floor is N * M * 20 bytes over 3.35 TB/s (wq of llama2-7b: 10.5 MB ->
-3.1 us; wg/wu/wd: 28.2 MB -> 8.4 us). At many x rows the f32
-multiply-adds (16 a kept group and row) over 67 TFLOP/s take over (a
-llama2-7b layer at T = 116: 350 us). The kernel itself is bound by its
-CUDA-core arithmetic at every T (~41 instructions a kept group and row,
-16 of them the bf16 widening of x), so it stays above the byte floor at
-decode (PERF.md).
+Bound on the H100: bytes. The kernel streams each kept group's 20-byte
+payload (8 code bytes, int32 idx, f32 scale and zero) once; the floor is
+N * M * 20 bytes, plus x and y, over 3.35 TB/s (wq of llama2-7b: 10.5 MB
+-> 3.1 us; wg/wu/wd: 28.2 MB -> 8.4 us; a layer: 38.0 us at T = 4, 46.1
+us at T = 116). The products (16 multiply-adds a kept group and row, bf16
+x by exact 4-bit codes) take the tensor cores' 989 TFLOP/s, under the
+bytes up to T of about 280. The kernel runs them on CUDA cores in f32
+and is bound by that arithmetic at every T (~41 instructions a kept
+group and row, 16 of them the bf16 widening of x), far above the byte
+floor (PERF.md).
 
 Design of :func:`gqsa_gemv_cuda` (details in the CUDA source): one
 launch at any T. One block of ``STREAM_WARPS`` warps per SM stages its
@@ -54,8 +55,10 @@ from repro_torch.kernels.build import load, sm_count
 MAX_GEMV_BATCH = 8  # x rows a launch of the expert axis
 GROUP_SIZE = 16     # the kernel's group size (8 code bytes per group)
 STREAM_WARPS = 16   # warps a block of the streaming kernel
-STAGE_BYTES = 640   # a warp's ring stage: 32 slots x 20 bytes
-RING_DEPTH = 3      # stages of a warp's ring (measured best at 1-8 rows)
+# The block's shared-memory layout, as the CUDA source lays it out (its
+# launcher refuses a size that differs from its own count):
+STAGE_BYTES = 640   # a warp's ring stage: 32 slots x 20 bytes (`Stage`)
+RING_DEPTH = 3      # stages of a warp's ring (`kDepth`)
 SMEM_LIMIT = 232448  # dynamic shared memory a block may take on sm_90
 TILES = {2: (1, 2, 4, 8), 4: (1, 2, 4)}   # token tiles, by x's item size
 
@@ -64,7 +67,7 @@ TILES = {2: (1, 2, 4, 8), 4: (1, 2, 4)}   # token tiles, by x's item size
 def _launcher():
     fn = load("gqsa_gemv").gqsa_gemv_launch
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -173,7 +176,8 @@ def gqsa_gemv_cuda(x: torch.Tensor, bsr: BSRMatrix) -> torch.Tensor:
     rc = _launcher()(x.data_ptr(), int(x.dtype == torch.bfloat16),
                      bsr.idx.data_ptr(), bsr.vals.data_ptr(),
                      bsr.scale.data_ptr(), bsr.zero.data_ptr(), y.data_ptr(),
-                     t, n, m, k, p.tile, p.tiles, p.blocks, RING_DEPTH,
+                     t, n, m, k, p.tile, p.tiles, p.blocks,
+                     smem_bytes(p.tile, k, x.element_size()),
                      torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gqsa_gemv kernel launch failed: CUDA error {rc}")

@@ -10,6 +10,8 @@ side multiplies the same f32 values (bf16 x widens exactly, the codes are
 exact integers); the grouped order (s * sum q x - s z * sum x a group)
 differs from the dequantize-then-multiply oracles in rounding only
 (measured a few 1e-7)."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -29,8 +31,9 @@ from repro.kernels import ref as jref  # noqa: E402
 
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.gqsa_gemv import (RING_DEPTH,  # noqa: E402
-                                           SMEM_LIMIT, STREAM_WARPS, TILES,
+from repro_torch.kernels.gqsa_gemv import (GROUP_SIZE,  # noqa: E402
+                                           RING_DEPTH, SMEM_LIMIT,
+                                           STAGE_BYTES, STREAM_WARPS, TILES,
                                            plan, smem_bytes, token_tile)
 
 from _torch_utils import jax_tree_to_numpy  # noqa: E402
@@ -140,6 +143,23 @@ def test_shared_memory_sizes():
     assert smem_bytes(8, 11008, 2) == 228864 <= SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
         token_tile(1, 1 << 20, 4)
+
+
+def test_layout_constants_match_the_cuda_source():
+    """The plan's shared-memory count and the kernel's layout share their
+    constants: the CUDA source declares the same warps, ring depth, stage
+    size (a static_assert on ``sizeof(Stage)``), group size and limit.
+    On the card the launcher also refuses any size but its own count."""
+    path = os.path.join(os.path.dirname(__file__), "..", "src",
+                        "repro_torch", "csrc", "gqsa_gemv.cu")
+    with open(path) as f:
+        src = f.read()
+    for decl in (f"constexpr int kWarps = {STREAM_WARPS};",
+                 f"constexpr int kDepth = {RING_DEPTH};",
+                 f"constexpr int kMaxSmem = {SMEM_LIMIT};",
+                 f"constexpr int kGroup = {GROUP_SIZE};",
+                 f"static_assert(sizeof(Stage) == {STAGE_BYTES},"):
+        assert decl in src, decl
 
 
 @pytest.mark.parametrize("n,t,want", [(4096, 4, 132), (4096, 116, 120),

@@ -104,6 +104,34 @@ def test_gqsa_gemv_kernel_rejects_what_it_does_not_take(cuda):
         gqsa_gemv_cuda(torch.randn((2, 128), device="cuda").half(), bsr)
 
 
+@pytest.mark.parametrize("t", [1, 4, 8, 116])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gqsa_gemv_launcher_takes_only_its_shared_memory_count(cuda, t,
+                                                              dtype):
+    """The wrapper's count of a block's shared memory is the launcher's
+    own at every tile (the launch goes through); one 16-byte line more or
+    less is refused (cudaErrorInvalidValue) before anything launches."""
+    from repro_torch.kernels.build import sm_count
+    from repro_torch.kernels.gqsa_gemv import _launcher, plan, smem_bytes
+    n, k = 4096, 11008
+    bsr = pack_linear(torch.randn((n, k), generator=cuda, device="cuda"),
+                      GQSAConfig())
+    x = torch.randn((t, k), generator=cuda, device="cuda").to(dtype)
+    _close(gqsa_gemv_cuda(x, bsr), ops.gqsa_gemv(x, bsr, plain=True))
+    p = plan(t, n, k, x.element_size(), sm_count(0))
+    y = torch.empty((t, n), device="cuda")
+    m = bsr.idx.shape[1]
+    for delta in (-16, 16):
+        rc = _launcher()(x.data_ptr(), int(dtype == torch.bfloat16),
+                         bsr.idx.data_ptr(), bsr.vals.data_ptr(),
+                         bsr.scale.data_ptr(), bsr.zero.data_ptr(),
+                         y.data_ptr(), t, n, m, k, p.tile, p.tiles,
+                         p.blocks,
+                         smem_bytes(p.tile, k, x.element_size()) + delta,
+                         torch.cuda.current_stream().cuda_stream)
+        assert rc == 1, rc
+
+
 def _attn_case(cuda, t, kh, r, d, dtype):
     b, ps, mp = 5, 16, 6
     num_pages = b * mp + 3
