@@ -58,7 +58,23 @@ Phases (any failure exits non-zero before the result line is printed):
      layers, GQSA W4 S50 G16 packed on the card expert by expert: kernel
      vs plain logits on 2 of the 8 layers (prefill + 4 decode steps, f32
      and bf16), a profiled decode step, and its main path: the engine
-     serves 8 requests x 32 new tokens on 4 slots.
+     serves 8 requests x 32 new tokens on 4 slots;
+ 15. the expert axis of w4_matmul against its plain version at the
+     deepseek-moe-16b (64 experts) and DeepSeek-V2 (160) expert shapes,
+     C in {1, 3, 8, 20}, bf16 and f32 x, with and without ``rows``, and a
+     CUDA-core shape: one launch a call, idle rows exact zeros, repeats
+     bit-identical, and idle experts with NaN scales (x NaN past every
+     expert's rows) leaving every output finite; then one decode layer's
+     three expert projections timed, for both models;
+ 16. deepseek-moe-16b (``deepseek_moe_16b``, the ``moe`` family) at full
+     width and all 28 layers, under GQSA W4 S50 G16 and under dense W4
+     G16, packed on the card expert by expert: kernel vs plain logits on
+     its first 4 layers, a profiled bf16 decode step of all 28; then its
+     main paths, the serve CLI with ``--compress gqsa`` and ``--compress
+     w4`` (4 slots, 8 requests x 32 new tokens);
+ 17. DeepSeek-V2 under dense W4 G16 at 4 of its 60 layers: kernel vs
+     plain logits on 2 layers and the engine serving 8 requests x 32 new
+     tokens on 4 slots.
 Each main path is driven with every kernel's launch count set to 0 just
 before it and read just after. The line before the last is a JSON object
 with every kernel's numbers; the last line is {"ok": true, "device": {...}}.
@@ -568,12 +584,13 @@ def phase_timing(timer):
     return out
 
 
-def check_model(params, full, label, tol_f32=LOGITS_TOL_F32):
+def check_model(params, full, label, tol_f32=LOGITS_TOL_F32, on_run=None):
     """Full-width prefill + 4 decode steps, kernels vs plain versions, in
     f32 compute (strict: the two differ only in f32 summation order; with
     the int8 pool, ``tol_f32`` allows for one-step code flips) and in bf16,
     the serving dtype (loose: a one-ulp bf16 rounding flip that the
-    summation order decides is amplified by 32 random layers)."""
+    summation order decides is amplified by 32 random layers).
+    ``on_run(dtype, plain)`` is called before each of the four runs."""
     import dataclasses
     from repro_torch.models import transformer as tf
     rng = np.random.default_rng(SEED)
@@ -587,6 +604,8 @@ def check_model(params, full, label, tol_f32=LOGITS_TOL_F32):
     lens_d = torch.from_numpy(lens).cuda()
 
     def run(cfg, plain, feed=None):
+        if on_run is not None:
+            on_run(cfg.dtype, plain)
         cache = tf.init_paged_cache(cfg, b * mp, ps, device="cuda")
         logits, _ = tf.prefill(params, cache, toks_d, lens_d, bt, cfg,
                                plain=plain)
@@ -638,7 +657,8 @@ def reset_launches():
     from repro_torch.kernels.gqsa_gemv import (gqsa_gemv_cuda,
                                                gqsa_gemv_experts_cuda)
     from repro_torch.kernels.paged_attention import paged_attention_cuda
-    from repro_torch.kernels.w4_matmul import w4_matmul_cuda
+    from repro_torch.kernels.w4_matmul import (w4_matmul_cuda,
+                                               w4_matmul_experts_cuda)
     gqsa_gemv_cuda.launches = 0
     gqsa_gemv_experts_cuda.launches = 0
     paged_attention_cuda.launches = 0
@@ -647,13 +667,16 @@ def reset_launches():
     paged_attention_cuda.latent_launches = 0
     w4_matmul_cuda.launches = 0
     w4_matmul_cuda.tc_launches = 0
+    w4_matmul_experts_cuda.launches = 0
+    w4_matmul_experts_cuda.tc_launches = 0
 
 
 def read_launches():
     from repro_torch.kernels.gqsa_gemv import (gqsa_gemv_cuda,
                                                gqsa_gemv_experts_cuda)
     from repro_torch.kernels.paged_attention import paged_attention_cuda
-    from repro_torch.kernels.w4_matmul import w4_matmul_cuda
+    from repro_torch.kernels.w4_matmul import (w4_matmul_cuda,
+                                               w4_matmul_experts_cuda)
     return {"gqsa_gemv": gqsa_gemv_cuda.launches,
             "paged_attention": paged_attention_cuda.launches,
             "w4_matmul": w4_matmul_cuda.launches,
@@ -661,7 +684,9 @@ def read_launches():
             "paged_attention_int8": paged_attention_cuda.int8_launches,
             "paged_attention_tree": paged_attention_cuda.tree_launches,
             "gqsa_gemv_experts": gqsa_gemv_experts_cuda.launches,
-            "paged_attention_latent": paged_attention_cuda.latent_launches}
+            "paged_attention_latent": paged_attention_cuda.latent_launches,
+            "w4_matmul_experts": w4_matmul_experts_cuda.launches,
+            "w4_matmul_experts_tc": w4_matmul_experts_cuda.tc_launches}
 
 
 def phase_model_gqsa():
@@ -758,7 +783,8 @@ def profile_decode(params, cfg, toks, lens, bt, num_pages, ps, steps=8,
     events are summed: a CPU-side op's device time repeats the time of
     the kernels it launched."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import ops
     from repro_torch.models import transformer as tf
     cache = tf.init_paged_cache(cfg, num_pages, ps, device="cuda")
     logits, _ = tf.prefill(params, cache, toks, lens, bt, cfg)
@@ -777,15 +803,36 @@ def profile_decode(params, cfg, toks, lens, bt, num_pages, ps, steps=8,
         step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
+    # the expert axis (both packings) under one profiler range: its kernel
+    # shares a name with the single-matrix path's (w4_matmul) or not
+    # (gqsa_gemv), so the range, not the name, tells its device time
+    inner = {n: getattr(ops, n) for n in ("gqsa_gemv_experts",
+                                          "w4_matmul_experts")}
+
+    def ranged(fn):
+        def call(*args, **kwargs):
+            with record_function("expert axis"):
+                return fn(*args, **kwargs)
+        return call
+    for n, fn in inner.items():
+        setattr(ops, n, ranged(fn))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+    finally:
+        for n, fn in inner.items():
+            setattr(ops, n, fn)
+    # the range also shows as a device-side annotation spanning its
+    # kernel: not a kernel of its own
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    axis = [e for e in device if e.key == "expert axis"]
     rows = sorted((e.self_device_time_total / steps / 1e3,
                    e.count // steps, e.key)
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)[::-1]
+                  for e in device if e.key != "expert axis")[::-1]
     busy = sum(r[0] for r in rows)
     if busy == 0:
         log(f"[profile] {label}: wall {wall * 1e3:.2f} "
@@ -803,14 +850,22 @@ def profile_decode(params, cfg, toks, lens, bt, num_pages, ps, steps=8,
         if fam:
             log(f"[profile]   {family}, every kernel: "
                 f"{sum(a[0] for a in fam):.3f} ms x{sum(a[1] for a in fam)}")
+    if axis:
+        ms = sum(e.self_device_time_total for e in axis) / steps / 1e3
+        log(f"[profile]   expert axis (its profiler range): {ms:.3f} ms "
+            f"x{sum(e.count for e in axis) // steps} ({ms / busy:.0%} of "
+            f"device busy)")
 
 
-def phase_serve(compress):
-    """A main path: the serve CLI at full width."""
+def phase_serve(compress, arch="llama2_7b"):
+    """A main path: the serve CLI at full width (and depth), ``arch``
+    under ``compress``."""
     from repro_torch.launch import serve
-    argv = ["--full", "--compress", compress, "--slots", "4", "--requests",
-            "8", "--max-new", "32", "--max-seq", "256", "--seed",
-            str(SEED)]
+    moe = arch != "llama2_7b"
+    tag = f"deepseek-moe {compress}" if moe else compress
+    argv = ["--arch", arch, "--full", "--compress", compress, "--slots",
+            "4", "--requests", "8", "--max-new", "32", "--max-seq", "256",
+            "--seed", str(SEED)]
     buf = io.StringIO()
     reset_launches()
     t0 = time.time()
@@ -820,8 +875,8 @@ def phase_serve(compress):
     wall = time.time() - t0
     launches = read_launches()
     for line in buf.getvalue().splitlines():
-        log(f"[serve {compress}] {line}")
-    log(f"[serve {compress}] wall {wall:.1f}s (init + pack + serve); "
+        log(f"[serve {tag}] {line}")
+    log(f"[serve {tag}] wall {wall:.1f}s (init + pack + serve); "
         f"launches {launches}")
     require(len(res["results"]) == 8, "all 8 requests answered")
     require(all(len(r["tokens"]) == 32 for r in res["results"]),
@@ -830,11 +885,18 @@ def phase_serve(compress):
     other = "w4_matmul" if compress == "gqsa" else "gqsa_gemv"
     require(launches[linear] > 0 and launches["paged_attention"] > 0,
             f"{linear} and paged attention launched on the main path")
-    require(compress == "gqsa" or launches["w4_matmul_tc"] > 0,
-            "w4_matmul took the tensor cores on the w4 path")
-    require(launches[other] == 0 and launches["paged_attention_int8"] == 0
-            and launches["paged_attention_tree"] == 0,
-            f"no {other}, int8- or tree-mode launch on the {compress} path")
+    require((launches[f"{linear}_experts"] > 0) == moe,
+            f"{linear}'s expert axis launched exactly on the MoE path")
+    require(compress == "gqsa" or (launches["w4_matmul_tc"] > 0 and (
+        not moe or launches["w4_matmul_experts_tc"] > 0)),
+            "w4_matmul (and its expert axis) took the tensor cores on the "
+            "w4 path")
+    require(launches[other] == 0 and launches[f"{other}_experts"] == 0
+            and launches["paged_attention_int8"] == 0
+            and launches["paged_attention_tree"] == 0
+            and launches["paged_attention_latent"] == 0,
+            f"no {other}, int8-, tree- or latent-mode launch on the {tag} "
+            f"path")
     return launches
 
 
@@ -1385,10 +1447,14 @@ DS_LAYERS = 8           # of the published 60: 2.36 GB of experts a layer
 DS_CHECK_LAYERS = 2     # the kernel-vs-plain check's depth
 
 
-def _route_gaps(gaps):
+def _route_gaps(gaps, forced):
     """A wrapper of ``moe.route`` that records, per call, the smallest gap
     between the k-th and (k+1)-th router probability of any row (where a
-    tiny difference between two paths can swap an expert)."""
+    tiny difference between two paths can swap an expert). With
+    ``forced["mode"]`` "record" it also keeps each call's expert ids; with
+    "replay" it routes to the recorded ids instead of its own (gates from
+    its own probabilities at those ids) and counts in ``forced["moved"]``
+    the rows whose own choice differed, of ``forced["rows"]``."""
     from repro_torch.models import moe
     inner = moe.route
 
@@ -1397,6 +1463,16 @@ def _route_gaps(gaps):
         probs = torch.softmax(x.float() @ router_p["w"].float().T, dim=-1)
         top = probs.topk(cfg_moe.top_k + 1, dim=-1).values
         gaps.append((top[:, -2] - top[:, -1]).min().item())
+        if forced["mode"] == "record":
+            forced["ids"].append(ids)
+        elif forced["mode"] == "replay":
+            want = forced["ids"].pop(0)
+            forced["moved"] += int((ids.sort(-1).values
+                                    != want.sort(-1).values).any(-1).sum())
+            forced["rows"] += ids.shape[0]
+            vals = probs.gather(1, want)
+            gates = vals / vals.sum(-1, keepdim=True).clamp_min(1e-9)
+            ids = want
         return gates, ids
     return inner, spy
 
@@ -1409,7 +1485,6 @@ def phase_model_deepseek():
     import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.core.gqs_layer import GQSAConfig
-    from repro_torch.models import moe
     from repro_torch.models import transformer as tf
     full = dataclasses.replace(get_config("deepseek_v2_236b"),
                                n_layers=DS_LAYERS)
@@ -1417,56 +1492,77 @@ def phase_model_deepseek():
     t0 = time.time()
     params = tf.init_params(SEED, full, "cuda", compress=GQSAConfig())
     torch.cuda.synchronize()
-    packed = sum(t.nbytes_packed() if hasattr(t, "nbytes_packed") else 0
-                 for t in _leaves(params["layers"]))
+    packed = _packed_bytes(params["layers"])
     log(f"[model] deepseek-v2-236b full width, {DS_LAYERS} of 60 layers, "
         f"GQSA W4 S50 G16 packed on the card expert by expert in "
         f"{time.time() - t0:.1f}s: {packed / 1e9:.3f} GB of packed linears; "
         f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
-    cut = dataclasses.replace(full, n_layers=DS_CHECK_LAYERS)
-    sub = dict(params, layers=tf.layer_params(params["layers"],
-                                              slice(0, DS_CHECK_LAYERS)))
-    gaps = []
-    inner, spy = _route_gaps(gaps)
-
-    def log_gaps(when):
-        log(f"[model deepseek] smallest gap between the k-th and next "
-            f"router probability {when}: "
-            f"{min(gaps, default=float('nan')):.3e} "
-            f"({sum(x < 1e-5 for x in gaps)} of {len(gaps)} routings under "
-            f"1e-5)")
-
-    moe.route = spy
-    try:
-        toks, lens, bt, num_pages, ps = check_model(
-            sub, cut, f"deepseek {DS_CHECK_LAYERS} of {DS_LAYERS} layers")
-    except AssertionError:
-        log_gaps("in the failing check")
-        raise
-    finally:
-        moe.route = inner
-    log_gaps("over the check")
+    toks, lens, bt, num_pages, ps = check_routed(
+        params, full, DS_CHECK_LAYERS,
+        f"deepseek {DS_CHECK_LAYERS} of {DS_LAYERS} layers")
     log(f"[model] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
         f"GB")
     profile_decode(params, full, toks, lens, bt, num_pages, ps,
                    label=f"deepseek bf16 decode step at 4 slots, "
                          f"{DS_LAYERS} layers")
     launches = engine_deepseek(params, full)
-    del params, sub
+    del params
     return launches
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
+def check_routed(params, full, n_check, label):
+    """:func:`check_model` on the first ``n_check`` layers of an MoE model
+    (the plain experts dequantize every expert of every projection per
+    step), logging the smallest gap between the k-th and the next router
+    probability: where a tiny difference between the two paths can swap
+    an expert. In bf16 the plain run routes every token to the experts
+    the kernel run chose, as it is fed the kernel run's tokens: a one-ulp
+    bf16 difference flips a near-tie routing and swaps a whole expert's
+    output, which no logits bar can tell from a fault; the flips it would
+    have made are counted and logged. f32 runs route on their own."""
+    import dataclasses
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    cut = dataclasses.replace(full, n_layers=n_check)
+    sub = dict(params, layers=tf.layer_params(params["layers"],
+                                              slice(0, n_check)))
+    gaps = []
+    forced = dict(mode=None, ids=[], moved=0, rows=0)
+    inner, spy = _route_gaps(gaps, forced)
+
+    def on_run(dtype, plain):
+        if not plain:
+            require(not forced["ids"], "the plain run replayed every routing")
+        forced["mode"] = (None if dtype == "float32"
+                          else "replay" if plain else "record")
+
+    def log_gaps(when):
+        log(f"[model {label}] smallest gap between the k-th and next "
+            f"router probability {when}: "
+            f"{min(gaps, default=float('nan')):.3e} "
+            f"({sum(x < 1e-5 for x in gaps)} of {len(gaps)} routings under "
+            f"1e-5); the bf16 plain run would have routed "
+            f"{forced['moved']} of {forced['rows']} tokens to other "
+            f"experts than the kernel run (it took the kernel run's)")
+
+    moe.route = spy
+    try:
+        toks, lens, bt, num_pages, ps = check_model(sub, cut, label,
+                                                    on_run=on_run)
+    except AssertionError:
+        log_gaps("in the failing check")
+        raise
+    finally:
+        moe.route = inner
+    log_gaps("over the check")
+    require(not forced["ids"], "the plain run replayed every routing")
+    return toks, lens, bt, num_pages, ps
 
 
-def engine_deepseek(params, full):
+def engine_deepseek(params, full, compress="gqsa"):
     """The DeepSeek-V2 main path: the engine serves 8 requests (4-15
-    prompt tokens, 32 new) on 4 slots, max_seq 256, greedy, bf16."""
+    prompt tokens, 32 new) on 4 slots, max_seq 256, greedy, bf16, its
+    linears packed by ``compress`` ("gqsa" or "w4")."""
     from repro_torch.engine import EngineConfig, InferenceEngine
     from repro_torch.launch.serve import make_requests
     prompts = make_requests(8, full.vocab, np.random.default_rng(SEED))
@@ -1482,26 +1578,274 @@ def engine_deepseek(params, full):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_launches()
-    log(f"[engine deepseek] {eng.metrics.format_summary()}")
-    log(f"[engine deepseek] {DS_LAYERS} of 60 layers (host work is a larger "
-        f"share of a step than at full depth); wall {wall:.1f}s; peak "
-        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+    tag = "deepseek" if compress == "gqsa" else f"deepseek {compress}"
+    log(f"[engine {tag}] {eng.metrics.format_summary()}")
+    log(f"[engine {tag}] {full.n_layers} of 60 layers (host work is a "
+        f"larger share of a step than at full depth); wall {wall:.1f}s; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
         f"launches {launches}")
     require(len(res["results"]) == 8, "all 8 requests answered")
     require(all(len(r["tokens"]) == 32 for r in res["results"]),
             "every request got 32 tokens")
     require(all(0 <= int(t) < full.vocab for r in res["results"]
                 for t in r["tokens"]), "tokens in the vocabulary")
-    require(launches["gqsa_gemv_experts"] > 0
+    linear = "gqsa_gemv" if compress == "gqsa" else "w4_matmul"
+    other = "w4_matmul" if compress == "gqsa" else "gqsa_gemv"
+    require(launches[f"{linear}_experts"] > 0
             and launches["paged_attention_latent"] > 0
-            and launches["gqsa_gemv"] > 0,
-            "the expert axis, the latent mode and gqsa_gemv launched on "
-            "the DeepSeek path")
+            and launches[linear] > 0,
+            f"the expert axis, the latent mode and {linear} launched on "
+            f"the DeepSeek path")
     require(launches["paged_attention"] == 0
             and launches["paged_attention_int8"] == 0
             and launches["paged_attention_tree"] == 0
-            and launches["w4_matmul"] == 0,
-            "no other attention mode and no w4_matmul on the DeepSeek path")
+            and launches[other] == 0 and launches[f"{other}_experts"] == 0,
+            f"no other attention mode and no {other} on the DeepSeek path")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# deepseek-moe-16b (moe) and the expert axis of w4_matmul
+# ---------------------------------------------------------------------------
+
+MOE_EXPERTS = 64
+MOE_EXPERT_SHAPES = {"wg/wu": (1408, 2048), "wd": (2048, 1408)}
+MOE_CHECK_LAYERS = 4    # of the 28, the kernel-vs-plain check's depth
+DS_W4_LAYERS = 4        # of the 60: 3.8 GB of W4 experts a layer
+
+
+def _w4_experts_packed(e, n, k, seed):
+    """E experts of dense W4 G16 stacked [E, ...], packed on the card one
+    expert at a time (random N(0, 1/K) weights)."""
+    from repro_torch.core.model_compress import StackedPacker, slice_packer
+    from repro_torch.core.quant import QuantConfig
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    packer = StackedPacker(e, slice_packer(QuantConfig(bits=4,
+                                                       group_size=16)))
+    for i in range(e):
+        packer.put(i, torch.randn((n, k), generator=g, device="cuda")
+                   / k ** 0.5)
+    return packer.result((e,))
+
+
+def phase_w4_experts_check():
+    """The expert axis of w4_matmul against its plain version at the
+    deepseek-moe-16b (64 experts) and DeepSeek-V2 (160 experts) expert
+    shapes and a CUDA-core one (K = 48), C in {1, 3, 8, 20}, bf16 and f32
+    x, ``rows`` absent and given (a third of the experts idle): one launch
+    a call, idle rows exact zeros, repeats bit-identical. Then the idle
+    experts' scales set to NaN and x set to NaN past every expert's rows:
+    every output stays finite, so nothing idle was read. Returns the worst
+    max-abs error."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.w4_matmul import (takes_tensor_cores,
+                                               w4_matmul_experts_cuda)
+    worst = 0.0
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    cases = [(f"deepseek-moe {label}", MOE_EXPERTS, n, k)
+             for label, (n, k) in MOE_EXPERT_SHAPES.items()]
+    cases += [(f"deepseek-v2 {label}", 160, n, k)
+              for label, (n, k) in DS_EXPERT_SHAPES.items()]
+    cases.append(("CUDA cores", 8, 100, 48))
+    for label, e, n, k in cases:
+        p = _w4_experts_packed(e, n, k, SEED + 14)
+        args = (p["qw"], p["scale"], p["zero"])
+        path = "tc" if takes_tensor_cores(
+            k, 16, *(t.data_ptr() for t in args)) else "simt"
+        require(path == ("simt" if label == "CUDA cores" else "tc"),
+                "the expert shapes take the tensor cores")
+        for c in (1, 3, 8, 20):
+            rows = torch.randint(0, c + 1, (e,), generator=g, device="cuda",
+                                 dtype=torch.int32)
+            rows[:e // 3] = 0
+            rows[-1] = c
+            idle = torch.arange(c, device="cuda")[None, :] >= rows[:, None]
+            for dt in (torch.bfloat16, torch.float32):
+                x = torch.randn((e, c, k), generator=g, device="cuda").to(dt)
+                for r in (None, rows):
+                    before = w4_matmul_experts_cuda.launches
+                    y = ops.w4_matmul_experts(x, *args, r, group_size=16)
+                    again = ops.w4_matmul_experts(x, *args, r, group_size=16)
+                    ref = ops.w4_matmul_experts(x, *args, r, group_size=16,
+                                                plain=True)
+                    torch.cuda.synchronize()
+                    require(w4_matmul_experts_cuda.launches == before + 2,
+                            "one expert-axis launch a call")
+                    require(y.shape == (e, c, n)
+                            and bool(torch.isfinite(y).all()),
+                            "experts output shape/finite")
+                    require(torch.equal(y, again), "experts repeat differs")
+                    if r is not None:
+                        require(bool((y[idle] == 0).all()),
+                                "idle expert rows are exact zeros")
+                    err = (y - ref).abs().max().item()
+                    rel = err / ref.abs().max().item()
+                    worst = max(worst, err)
+                    log(f"[w4 experts check] {label} E={e} N={n} K={k} C={c}"
+                        f" x={str(dt)[6:]} path={path} rows="
+                        f"{'none' if r is None else int(r.sum())}: "
+                        f"max_abs_err {err:.3e} rel {rel:.3e}")
+                    require(rel <= TOL, f"w4_matmul experts disagree: "
+                                        f"rel {rel}")
+            x = torch.randn((e, c, k), generator=g, device="cuda",
+                            dtype=torch.bfloat16)
+            ref = ops.w4_matmul_experts(x, *args, rows, group_size=16,
+                                        plain=True)
+            scale = p["scale"].clone()
+            scale[rows == 0] = float("nan")
+            x[idle] = float("nan")
+            y = ops.w4_matmul_experts(x, p["qw"], scale, p["zero"], rows,
+                                      group_size=16)
+            torch.cuda.synchronize()
+            err = (y - ref).abs().max().item()
+            log(f"[w4 experts check] {label} C={c}: "
+                f"{int((rows == 0).sum())} idle experts with NaN scales, x "
+                f"NaN past every expert's rows: output finite "
+                f"{bool(torch.isfinite(y).all())}, max_abs_err {err:.3e}")
+            require(bool(torch.isfinite(y).all()),
+                    "an idle expert or row was read")
+            require(bool((y[idle] == 0).all()) and err <= TOL * ref.abs()
+                    .max().item(), "the poisoned call disagrees")
+            del scale
+        del p, args
+    return worst
+
+
+def w4_experts_layer(timer, g, name, e, shapes):
+    """One decode layer's three expert projections (wg, wu, wd) through
+    the W4 expert axis at C = 1 with one 4-slot step's occupied experts
+    (top-6 of ``e``): kernel, plain, ``torch.bmm`` on the occupied
+    experts' dense bf16 weights gathered beforehand, and the bound: the
+    occupied experts' codes, scales and zeros, their x rows and the whole
+    y over 3.35 TB/s, or their multiply-adds over the bf16 tensor cores'
+    989 TFLOP/s, whichever is larger."""
+    from repro_torch.core.quant import QuantConfig, dequantize, unpack_int4
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.w4_matmul import w4_matmul_experts_cuda
+    rows = _decode_rows(g, e)
+    occ = torch.nonzero(rows).flatten()
+    n_occ = int(occ.numel())
+    ex = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    nbytes_all = flops_all = 0
+    for label, (n, k) in shapes.items():
+        p = _w4_experts_packed(e, n, k, SEED + 15)
+        args = (p["qw"], p["scale"], p["zero"])
+        x = torch.zeros((e, 1, k), device="cuda", dtype=torch.bfloat16)
+        x[occ] = torch.randn((n_occ, 1, k), generator=g, device="cuda",
+                             dtype=torch.bfloat16)
+        nbytes = n_occ * (n * k // 2 + 8 * n * (k // 16) + k * 2) + e * n * 4
+        flops = 2 * n_occ * n * k
+        bound = _bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
+        dense = torch.stack([dequantize(
+            unpack_int4(p["qw"][i]), p["scale"][i], p["zero"][i],
+            QuantConfig(group_size=16), torch.bfloat16) for i in occ])
+        xo = x[occ].contiguous()
+        t_k = timer.ms(lambda: w4_matmul_experts_cuda(x, *args, rows, 16))
+        t_p = timer.ms(lambda: ops.w4_matmul_experts(
+            x, *args, rows, group_size=16, plain=True), iters=3)
+        t_l = timer.ms(lambda: torch.bmm(xo, dense.transpose(1, 2)))
+        log(f"[w4 experts time] {name} {label} E={e} N={n} K={k} C=1, "
+            f"{n_occ} occupied experts, bf16 x: kernel {t_k * 1e3:.1f}us "
+            f"plain {t_p * 1e3:.1f}us torch.bmm(dense bf16, occupied) "
+            f"{t_l * 1e3:.1f}us bound {bound * 1e3:.2f}us "
+            f"({nbytes / 1e6:.1f} MB) -> {bound / t_k:.0%} of bound")
+        c = 2 if label == "wg/wu" else 1
+        for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
+                          (t_k, t_p, t_l, bound)):
+            ex[key] += c * v
+        nbytes_all += c * nbytes
+        flops_all += c * flops
+        del p, args, dense
+    ex["bound_by"] = ("bytes" if nbytes_all / HBM_BYTES_PER_S
+                      >= flops_all / BF16_TC_FLOP_PER_S else "operations")
+    ex["occupied"] = n_occ
+    log(f"[w4 experts time] {name}: one decode layer (3 expert projections, "
+        f"C=1, {n_occ} of {e} occupied): kernel {ex['ms']:.4f}ms plain "
+        f"{ex['plain_ms']:.4f}ms bmm {ex['library_ms']:.4f}ms bound "
+        f"{ex['bound_ms']:.4f}ms by {ex['bound_by']} "
+        f"({ex['bound_ms'] / ex['ms']:.0%} of bound)")
+    return ex
+
+
+def phase_w4_experts_timing(timer):
+    """The W4 expert axis at 4-slot decode: a deepseek-moe-16b layer (the
+    kernel line's numbers) and a DeepSeek-V2 layer."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    out = w4_experts_layer(timer, g, "deepseek-moe-16b", MOE_EXPERTS,
+                           MOE_EXPERT_SHAPES)
+    out["deepseek_v2_layer"] = w4_experts_layer(timer, g, "deepseek-v2",
+                                                160, DS_EXPERT_SHAPES)
+    return {"w4_matmul_experts": out}
+
+
+def _packed_bytes(tree):
+    """Bytes of a tree's packed linears: GQSA payloads, or W4 codes,
+    scales and zeros."""
+    if isinstance(tree, dict):
+        if "qw" in tree:
+            return sum(t.numel() * t.element_size() for t in tree.values())
+        return sum(_packed_bytes(v) for v in tree.values())
+    return tree.nbytes_packed() if hasattr(tree, "nbytes_packed") else 0
+
+
+def phase_model_moe(compress):
+    """deepseek-moe-16b at full width and all 28 layers under ``compress``
+    ("gqsa": GQSA W4 S50 G16; "w4": dense W4 G16), packed on the card
+    expert by expert: kernel vs plain logits on its first 4 layers and a
+    profiled bf16 decode step of all 28."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.gqs_layer import GQSAConfig
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.models import transformer as tf
+    full = get_config("deepseek_moe_16b")
+    packing = (GQSAConfig() if compress == "gqsa"
+               else QuantConfig(bits=4, group_size=16))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = tf.init_params(SEED, full, "cuda", compress=packing)
+    torch.cuda.synchronize()
+    log(f"[model] deepseek-moe-16b full width and depth ({full.n_layers} "
+        f"layers), {compress} packed on the card expert by expert in "
+        f"{time.time() - t0:.1f}s: "
+        f"{_packed_bytes(params['layers']) / 1e9:.3f} GB of packed linears; "
+        f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    toks, lens, bt, num_pages, ps = check_routed(
+        params, full, MOE_CHECK_LAYERS,
+        f"deepseek-moe {compress} {MOE_CHECK_LAYERS} of {full.n_layers} "
+        f"layers")
+    log(f"[model] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB")
+    profile_decode(params, full, toks, lens, bt, num_pages, ps,
+                   label=f"deepseek-moe {compress} bf16 decode step at 4 "
+                         f"slots, {full.n_layers} layers")
+    del params
+
+
+def phase_model_deepseek_w4():
+    """DeepSeek-V2 under dense W4 G16 (``--compress w4``, the paper's
+    W4A16 baseline on the repo's other MoE model) at full width and 4 of
+    its 60 layers: kernel vs plain logits on 2 layers, and its main path,
+    the engine serving 8 requests x 32 new tokens on 4 slots."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.models import transformer as tf
+    full = dataclasses.replace(get_config("deepseek_v2_236b"),
+                               n_layers=DS_W4_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = tf.init_params(SEED, full, "cuda",
+                            compress=QuantConfig(bits=4, group_size=16))
+    torch.cuda.synchronize()
+    log(f"[model] deepseek-v2-236b full width, {DS_W4_LAYERS} of 60 layers, "
+        f"dense W4 G16 packed on the card expert by expert in "
+        f"{time.time() - t0:.1f}s: "
+        f"{_packed_bytes(params['layers']) / 1e9:.3f} GB of packed linears; "
+        f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    check_routed(params, full, DS_CHECK_LAYERS,
+                 f"deepseek w4 {DS_CHECK_LAYERS} of {DS_W4_LAYERS} layers")
+    launches = engine_deepseek(params, full, "w4")
+    del params
     return launches
 
 
@@ -1547,6 +1891,14 @@ KERNELS = {
         replaces="src/repro/kernels/paged_attention.py:181",
         unit="one DeepSeek-V2 layer's latent decode attention: 4 slots, "
              "lengths 20/25/31/29, H=128, D=576, v_rank 512, bf16 pages"),
+    "w4_matmul_experts": dict(
+        source="src/repro_torch/csrc/w4_matmul.cu",
+        replaces="src/repro/kernels/w4_matmul.py:51",
+        unit="one deepseek-moe-16b decode layer's routed experts (wg, wu, "
+             "wd at G16; the Pallas kernel under the vmap at "
+             "src/repro/models/moe.py:91): 64 experts, C=1, the occupied "
+             "experts of one 4-slot step, bf16 x; 'deepseek_v2_layer' "
+             "holds a DeepSeek-V2 layer (160 experts)"),
 }
 
 
@@ -1587,12 +1939,28 @@ def main() -> int:
     times.update(phase_mla_moe_timing(timer))
     torch.cuda.empty_cache()
     launches["deepseek engine"] = phase_model_deepseek()
+    torch.cuda.empty_cache()
+    t_moe = time.time()
+    errs["w4_matmul_experts"] = phase_w4_experts_check()
+    times.update(phase_w4_experts_timing(timer))
+    for compress in ("gqsa", "w4"):
+        torch.cuda.empty_cache()
+        phase_model_moe(compress)
+    for compress in ("gqsa", "w4"):
+        torch.cuda.empty_cache()
+        launches[f"deepseek-moe {compress} serve"] = phase_serve(
+            compress, "deepseek_moe_16b")
+    torch.cuda.empty_cache()
+    launches["deepseek w4 engine"] = phase_model_deepseek_w4()
+    log(f"[time] the W4 expert axis, deepseek-moe-16b and DeepSeek-V2 W4 "
+        f"phases {time.time() - t_moe:.1f}s")
     path_of = {"gqsa_gemv": "gqsa serve", "paged_attention": "gqsa serve",
                "w4_matmul": "w4 serve",
                "paged_attention_int8": "int8-kv engine",
                "paged_attention_tree": "tree serve",
                "gqsa_gemv_experts": "deepseek engine",
-               "paged_attention_latent": "deepseek engine"}
+               "paged_attention_latent": "deepseek engine",
+               "w4_matmul_experts": "deepseek-moe w4 serve"}
     kernels = [dict(name=k, route="cuda", source=v["source"],
                     replaces=v["replaces"],
                     launches=launches[path_of[k]][k],
@@ -1608,6 +1976,13 @@ def main() -> int:
     w4 = next(k for k in kernels if k["name"] == "w4_matmul")
     w4["tc_launches"] = launches["w4 serve"]["w4_matmul_tc"]
     w4["launch_floor_ms"] = times["w4_matmul"]["launch_floor_ms"]
+    w4x = next(k for k in kernels if k["name"] == "w4_matmul_experts")
+    w4x["tc_launches"] = launches["deepseek-moe w4 serve"][
+        "w4_matmul_experts_tc"]
+    w4x["occupied"] = times["w4_matmul_experts"]["occupied"]
+    w4x["deepseek_v2_layer"] = times["w4_matmul_experts"]["deepseek_v2_layer"]
+    require(all(k["launches"] > 0 for k in kernels),
+            "every kernel launched on its main path")
     log(f"[time] chip_smoke total {time.time() - t_start:.1f}s")
     log(f"[power] {smi}")
     print(json.dumps({"kernels": kernels}))

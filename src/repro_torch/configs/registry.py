@@ -6,10 +6,10 @@ from typing import List
 
 from repro_torch.configs.base import ModelConfig
 
-# the paper's own benchmark model and the MLA + MoE family's one config;
-# the reference's other architectures are later slices of the port
-# (ROADMAP queue A)
-ARCH_IDS = ["llama2_7b", "deepseek_v2_236b"]
+# the paper's own benchmark model, the MoE family's and the MLA + MoE
+# family's one config each; the reference's other architectures are later
+# slices of the port (ROADMAP queue A)
+ARCH_IDS = ["llama2_7b", "deepseek_moe_16b", "deepseek_v2_236b"]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 
@@ -19,7 +19,7 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     if name not in ARCH_IDS:
         raise NotImplementedError(
             f"arch {name!r} is not yet ported (ported: {ARCH_IDS}; "
-            f"ROADMAP A.3, A.7)")
+            f"ROADMAP A.3, A.7.3, A.8)")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.reduced() if reduced else mod.full()
 

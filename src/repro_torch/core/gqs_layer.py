@@ -71,17 +71,20 @@ def apply_linear_experts(p: Dict, x: torch.Tensor,
     in x's dtype, expert e's weights on row e of x (the reference's
     ``vmap`` of :func:`apply_linear` over the stacked experts).
 
-    ``{"bsr"}`` (stacked [E, N, M] leaves) goes through the kernel's
-    expert axis, ``rows`` [E] telling it how many leading rows of each
-    expert hold tokens (the others come out as zeros); ``{"w"}`` [E, N, K]
-    is one batched product in x's dtype (the reference's FP path), where
-    the empty rows, zeros in x, give zeros too."""
+    ``{"bsr"}`` (stacked [E, N, M] leaves) and dense W4 ``{"qw",
+    "scale", "zero"}`` ([E, N, K/2] and [E, N, K/G]) go through their
+    kernel's expert axis, ``rows`` [E] telling it how many leading rows of
+    each expert hold tokens (the others come out as zeros); ``{"w"}``
+    [E, N, K] is one batched product in x's dtype (the reference's FP
+    path), where the empty rows, zeros in x, give zeros too."""
     if "bsr" in p:
         return kops.gqsa_gemv_experts(x, p["bsr"], rows,
                                       plain=plain).to(x.dtype)
     if "qw" in p:
-        raise NotImplementedError(
-            "dense-W4 MoE experts are not yet ported (ROADMAP A.7)")
+        g = x.shape[-1] // p["scale"].shape[-1]
+        return kops.w4_matmul_experts(x, p["qw"], p["scale"], p["zero"],
+                                      rows, group_size=g,
+                                      plain=plain).to(x.dtype)
     if "gmask" in p or "q" in p:
         raise NotImplementedError(
             "fake-quant layers are not yet ported (ROADMAP A.6)")

@@ -21,7 +21,7 @@
 // every T: about 41 instructions a kept group and x row (16 bf16
 // widenings, 16 multiply-adds, two 16-byte reads, the zero fold), so it
 // stays far above the byte floor (PERF.md); tensor cores on a densified
-// stage are the next step (ROADMAP.md B.5).
+// stage are the next step (ROADMAP.md B.3).
 //
 // Design (gqsa_gemv_launch, any T in one launch): one block of 16 warps
 // per SM, each block on one token tile of TT <= 8 x rows.

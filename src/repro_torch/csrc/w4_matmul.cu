@@ -10,6 +10,24 @@
 // byte, element 2i in the low nibble; scale, zero [N, K/G] f32; y [T, N]
 // f32. G is even and divides K.
 //
+// Expert axis (w4_matmul_experts_launch): the routed experts of an MoE
+// layer packed as dense W4, which the reference runs as a vmap of the same
+// Pallas kernel over its stacked weights (src/repro/models/moe.py:
+// _expert_ffn): x [E, C, K], qw [E, N, K/2], scale, zero [E, N, K/G],
+// y [E, C, N], y[e] = x[e] @ deq(expert e).T. Both paths below take it:
+// blockIdx.z is the expert, whose operands start one expert's stride
+// past the given pointers. An optional rows [E] int32, read on the card,
+// says how many leading buffer rows of each expert hold tokens: rows at or
+// past rows[e] are written as exact zeros, x rows past it are not read,
+// and a block whose token tile starts at or past rows[e] writes its zeros
+// and returns before any load, so an idle expert's weights are never
+// read. At 4-slot decode of deepseek-moe-16b (24 routed entries, buffers
+// of one row) about 20 of the 64 experts hold a row; DeepSeek-V2 about 23
+// of 160. One launch a projection for any C, K never split (S = 1), so
+// the sums run in a fixed order and repeats are bit-identical. The
+// reference computes every expert on its zero rows; the caller's keep
+// mask discards those products, so the skip changes no number.
+//
 // Bound on the card: bytes. At decode (T = 4 slots) every code byte and
 // every f32 scale/zero is used for T multiply-adds, far below the H100's
 // flop/byte balance, so the floor is (N*K/2 + 8*N*K/G + x + y) bytes over
@@ -73,6 +91,20 @@
 
 namespace {
 
+// The expert axis of a launch: blockIdx.z is the expert (0 for one
+// matrix), whose operands lie e * stride elements past the given
+// pointers; rows [E] (null: every row) counts its buffer rows that hold
+// tokens.
+struct Experts {
+  const int32_t* rows;
+  long long x, qw, sz, y;   // strides: x, codes (bytes), scale/zero, y
+
+  // expert e's rows that hold tokens, of `tokens`
+  __device__ __forceinline__ int live(int e, int tokens) const {
+    return rows == nullptr ? tokens : min(max(__ldg(rows + e), 0), tokens);
+  }
+};
+
 // ---------------------------------------------------------------------------
 // CUDA-core path
 // ---------------------------------------------------------------------------
@@ -131,7 +163,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 w4_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ qw,
                  const float* __restrict__ scale,
                  const float* __restrict__ zero, float* __restrict__ y,
-                 int Trows, int N, int K, int G) {
+                 int Trows, int N, int K, int G, const Experts ex) {
   __shared__ __align__(16) float xs[BT][kChunk];
   __shared__ float part[kWarps][BT][kRows];
   const int tid = threadIdx.x;
@@ -140,6 +172,21 @@ w4_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ qw,
   const int n = blockIdx.x * kRows + lane;
   const int t0 = blockIdx.y * BT;
   const int rows = min(BT, Trows - t0);
+  const size_t e = blockIdx.z;
+  x += e * ex.x;
+  qw += e * ex.qw;
+  scale += e * ex.sz;
+  zero += e * ex.sz;
+  y += e * ex.y;
+  // rows of the tile that hold tokens; the rest are written as zeros
+  const int live = min(max(ex.live(blockIdx.z, Trows) - t0, 0), rows);
+  if (live == 0) {            // an idle tile: zeros, and nothing is read
+    for (int i = tid; i < rows * kRows; i += kWarps * 32) {
+      const int nn = blockIdx.x * kRows + i % kRows;
+      if (nn < N) y[static_cast<size_t>(t0 + i / kRows) * N + nn] = 0.f;
+    }
+    return;
+  }
   const bool row_ok = n < N;
   const int NG = K / G;
   const uint8_t* qrow = qw + static_cast<size_t>(row_ok ? n : 0) * (K / 2);
@@ -176,7 +223,7 @@ w4_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ qw,
     for (int e = tid; e < BT * kChunk; e += kWarps * 32) {
       const int t = e / kChunk;
       const int kk = e - t * kChunk;
-      xs[t][kk] = (t < rows && kc + kk < K)
+      xs[t][kk] = (t < live && kc + kk < K)
           ? to_float(x[static_cast<size_t>(t0 + t) * K + kc + kk]) : 0.f;
     }
     __syncthreads();
@@ -242,7 +289,7 @@ w4_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ qw,
       float sum = 0.f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) sum += part[w][t][l];
-      y[static_cast<size_t>(t0 + t) * N + nn] = sum;
+      y[static_cast<size_t>(t0 + t) * N + nn] = t < live ? sum : 0.f;
     }
   }
 }
@@ -250,27 +297,51 @@ w4_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ qw,
 template <typename T, int BT, bool kVec>
 void launch(const void* x, const void* qw, const void* scale,
             const void* zero, void* y, int Trows, int N, int K, int G,
-            cudaStream_t stream) {
-  const dim3 grid((N + kRows - 1) / kRows, (Trows + BT - 1) / BT);
+            int E, const Experts& ex, cudaStream_t stream) {
+  const dim3 grid((N + kRows - 1) / kRows, (Trows + BT - 1) / BT, E);
   w4_matmul_kernel<T, BT, kVec><<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(qw),
       static_cast<const float*>(scale), static_cast<const float*>(zero),
-      static_cast<float*>(y), Trows, N, K, G);
+      static_cast<float*>(y), Trows, N, K, G, ex);
 }
 
 template <typename T, bool kVec>
 void dispatch(const void* x, const void* qw, const void* scale,
               const void* zero, void* y, int Trows, int N, int K, int G,
-              cudaStream_t s) {
+              int E, const Experts& ex, cudaStream_t s) {
   // the x tile: the smallest power of two >= T, at most 8 rows
   if (Trows <= 1)
-    launch<T, 1, kVec>(x, qw, scale, zero, y, Trows, N, K, G, s);
+    launch<T, 1, kVec>(x, qw, scale, zero, y, Trows, N, K, G, E, ex, s);
   else if (Trows <= 2)
-    launch<T, 2, kVec>(x, qw, scale, zero, y, Trows, N, K, G, s);
+    launch<T, 2, kVec>(x, qw, scale, zero, y, Trows, N, K, G, E, ex, s);
   else if (Trows <= 4)
-    launch<T, 4, kVec>(x, qw, scale, zero, y, Trows, N, K, G, s);
+    launch<T, 4, kVec>(x, qw, scale, zero, y, Trows, N, K, G, E, ex, s);
   else
-    launch<T, 8, kVec>(x, qw, scale, zero, y, Trows, N, K, G, s);
+    launch<T, 8, kVec>(x, qw, scale, zero, y, Trows, N, K, G, E, ex, s);
+}
+
+// Validates and launches the CUDA-core path for E experts (E = 1: one
+// matrix); returns cudaGetLastError().
+int run(const void* x, int x_is_bf16, const void* qw, const void* scale,
+        const void* zero, void* y, int T, int N, int K, int G, int vec,
+        int E, const Experts& ex, cudaStream_t s) {
+  if (T < 1 || N < 1 || K < 2 || G < 2 || G % 2 != 0 || K % G != 0
+      || E < 1 || E > 65535 || (vec && K % kSlice != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (x_is_bf16) {
+    if (vec)
+      dispatch<__nv_bfloat16, true>(x, qw, scale, zero, y, T, N, K, G, E,
+                                    ex, s);
+    else
+      dispatch<__nv_bfloat16, false>(x, qw, scale, zero, y, T, N, K, G, E,
+                                     ex, s);
+  } else {
+    if (vec)
+      dispatch<float, true>(x, qw, scale, zero, y, T, N, K, G, E, ex, s);
+    else
+      dispatch<float, false>(x, qw, scale, zero, y, T, N, K, G, E, ex, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace simt
@@ -313,6 +384,19 @@ struct Args {
   float* work;       // S > 1: partials [S, T, N]
   int* counters;     // S > 1: one per (row tile, x tile), zero between launches
   int tokens, N, K, G, gshift;
+  int n_split;       // S, over blockIdx.z; > 1 only for one matrix
+  Experts ex;        // the expert axis (over blockIdx.z when S = 1)
+
+  // the operands of expert e
+  __device__ __forceinline__ Args at(size_t e) const {
+    Args b = *this;
+    b.x += e * ex.x;
+    b.qw += e * ex.qw;
+    b.scale += e * ex.sz;
+    b.zero += e * ex.sz;
+    b.y += e * ex.y;
+    return b;
+  }
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -470,9 +554,9 @@ struct Loader {
   }
 
   // Issue the copies of the block's stage `c` (K elements k0 + 128c ..)
-  // into `st`.
+  // into `st`; x rows at or past `live` are zeros.
   __device__ __forceinline__ void load(uint8_t* st, const Args<T>& a,
-                                       int t0, int c) const {
+                                       int t0, int live, int c) const {
 #pragma unroll
     for (int i = 0; i < kCodeCopies; ++i)
       cp_async16(st + code_dst[i], code[i] + c * (kK / 2), code_bytes[i]);
@@ -494,7 +578,7 @@ struct Loader {
     for (int i = 0; i < L::kTok * kParts / kThreads; ++i) {
       const int e = threadIdx.x + i * kThreads;
       const int t = e / kParts, part = e - t * kParts;
-      const bool ok = t0 + t < a.tokens;
+      const bool ok = t0 + t < live;
       const uint8_t* src = reinterpret_cast<const uint8_t*>(
           a.x + static_cast<size_t>(ok ? t0 + t : 0) * a.K + kc)
           + 16 * part;
@@ -574,12 +658,21 @@ __device__ __forceinline__ void for_each_output(int n0, int t0, int N,
 
 template <typename T, int NT>
 __global__ void __launch_bounds__(kThreads)
-w4_matmul_tc_kernel(const Args<T> a) {
+w4_matmul_tc_kernel(const Args<T> args) {
   using L = Layout<T, NT>;
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int last;
   const int n0 = blockIdx.x * kRows, t0 = blockIdx.y * L::kTok;
-  const int S = gridDim.z, split = blockIdx.z;
+  // blockIdx.z is the split (one matrix) or the expert (S = 1)
+  const int S = args.n_split;
+  const int split = S > 1 ? blockIdx.z : 0, expert = S > 1 ? 0 : blockIdx.z;
+  const Args<T> a = args.at(expert);
+  const int live = args.ex.live(expert, a.tokens);
+  if (t0 >= live) {     // an idle tile: zeros, and nothing is read
+    for_each_output<NT>(n0, t0, a.N, a.tokens,
+                        [&](int, int, size_t o) { a.y[o] = 0.f; });
+    return;
+  }
   const int chunks = a.K / kK;
   const int c_lo = split * chunks / S;
   const int n_ch = (split + 1) * chunks / S - c_lo;
@@ -593,7 +686,7 @@ w4_matmul_tc_kernel(const Args<T> a) {
   const Loader<T, NT> ld(a, n0, c_lo * kK);
 #pragma unroll
   for (int i = 0; i < L::kStages - 1; ++i) {
-    if (i < n_ch) ld.load(smem + i * L::kStage, a, t0, i);
+    if (i < n_ch) ld.load(smem + i * L::kStage, a, t0, live, i);
     cp_async_commit();
   }
   for (int i = 0; i < n_ch; ++i) {
@@ -601,11 +694,19 @@ w4_matmul_tc_kernel(const Args<T> a) {
     __syncthreads();      // stage i landed; stage i-1's buffer is free
     const int next = i + L::kStages - 1;
     if (next < n_ch)
-      ld.load(smem + (next % L::kStages) * L::kStage, a, t0, next);
+      ld.load(smem + (next % L::kStages) * L::kStage, a, t0, live, next);
     cp_async_commit();
     compute_stage<T, NT>(smem + (i % L::kStages) * L::kStage, acc,
                          a.gshift);
   }
+
+  // rows past the expert's tokens: exact zeros, whatever its weights hold
+  const int col = t0 + 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (col + 8 * j + (e & 1) >= live) acc[j][e] = 0.f;
 
   if (S == 1) {
     for_each_output<NT>(n0, t0, a.N, a.tokens,
@@ -634,7 +735,7 @@ w4_matmul_tc_kernel(const Args<T> a) {
 }
 
 template <typename T, int NT>
-int launch(const Args<T>& a, int n_split, cudaStream_t stream) {
+int launch(const Args<T>& a, int E, cudaStream_t stream) {
   using L = Layout<T, NT>;
   static unsigned sized = 0;       // devices whose limit is raised
   int dev = 0;
@@ -648,19 +749,52 @@ int launch(const Args<T>& a, int n_split, cudaStream_t stream) {
     sized |= 1u << dev;
   }
   const dim3 grid((a.N + kRows - 1) / kRows,
-                  (a.tokens + L::kTok - 1) / L::kTok, n_split);
+                  (a.tokens + L::kTok - 1) / L::kTok, E * a.n_split);
   w4_matmul_tc_kernel<T, NT><<<grid, kThreads, L::kBytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const Args<T>& a, int nt, int n_split, cudaStream_t s) {
+int dispatch(const Args<T>& a, int nt, int E, cudaStream_t s) {
   switch (nt) {
-    case 1: return launch<T, 1>(a, n_split, s);
-    case 2: return launch<T, 2>(a, n_split, s);
-    case 4: return launch<T, 4>(a, n_split, s);
-    default: return launch<T, 8>(a, n_split, s);
+    case 1: return launch<T, 1>(a, E, s);
+    case 2: return launch<T, 2>(a, E, s);
+    case 4: return launch<T, 4>(a, E, s);
+    default: return launch<T, 8>(a, E, s);
   }
+}
+
+// Validates and launches the tensor-core path for E experts (E = 1: one
+// matrix; S > 1 only there); returns cudaGetLastError().
+int run(const void* x, int x_is_bf16, const void* qw, const void* scale,
+        const void* zero, void* y, void* work, void* counters, int T, int N,
+        int K, int G, int nt, int n_split, int E, const Experts& ex,
+        cudaStream_t s) {
+  int gshift = -1;
+  for (int g = 16, i = 0; g <= kK; g *= 2, ++i)
+    if (G == g) gshift = i;
+  if (T < 1 || N < 1 || gshift < 0 || K < kK || K % kK != 0
+      || n_split < 1 || n_split > K / kK || E < 1
+      || E * n_split > 65535 || (E > 1 && n_split > 1)
+      || (n_split > 1 && ex.rows != nullptr)
+      || (nt != 1 && nt != 2 && nt != 4 && nt != 8)
+      || (n_split > 1 && (work == nullptr || counters == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (x_is_bf16) {
+    const Args<__nv_bfloat16> a{
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const uint8_t*>(qw), static_cast<const float*>(scale),
+        static_cast<const float*>(zero), static_cast<float*>(y),
+        static_cast<float*>(work), static_cast<int*>(counters), T, N, K, G,
+        gshift, n_split, ex};
+    return dispatch(a, nt, E, s);
+  }
+  const Args<float> a{
+      static_cast<const float*>(x), static_cast<const uint8_t*>(qw),
+      static_cast<const float*>(scale), static_cast<const float*>(zero),
+      static_cast<float*>(y), static_cast<float*>(work),
+      static_cast<int*>(counters), T, N, K, G, gshift, n_split, ex};
+  return dispatch(a, nt, E, s);
 }
 
 }  // namespace tc
@@ -673,23 +807,9 @@ extern "C" int w4_matmul_launch(const void* x, int x_is_bf16, const void* qw,
                                 const void* scale, const void* zero, void* y,
                                 int T, int N, int K, int G, int vec,
                                 void* stream) {
-  using namespace simt;
-  if (T < 1 || N < 1 || K < 2 || G < 2 || G % 2 != 0 || K % G != 0
-      || (vec && K % kSlice != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_is_bf16) {
-    if (vec)
-      dispatch<__nv_bfloat16, true>(x, qw, scale, zero, y, T, N, K, G, s);
-    else
-      dispatch<__nv_bfloat16, false>(x, qw, scale, zero, y, T, N, K, G, s);
-  } else {
-    if (vec)
-      dispatch<float, true>(x, qw, scale, zero, y, T, N, K, G, s);
-    else
-      dispatch<float, false>(x, qw, scale, zero, y, T, N, K, G, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return simt::run(x, x_is_bf16, qw, scale, zero, y, T, N, K, G, vec, 1,
+                   Experts{nullptr, 0, 0, 0, 0},
+                   static_cast<cudaStream_t>(stream));
 }
 
 // The tensor-core path. `nt`: n8 tiles of x rows a block (1, 2, 4, 8);
@@ -703,29 +823,33 @@ extern "C" int w4_matmul_tc_launch(const void* x, int x_is_bf16,
                                    void* counters, int T, int N, int K,
                                    int G, int nt, int n_split,
                                    void* stream) {
-  using namespace tc;
-  int gshift = -1;
-  for (int g = 16, i = 0; g <= kK; g *= 2, ++i)
-    if (G == g) gshift = i;
-  if (T < 1 || N < 1 || gshift < 0 || K < kK || K % kK != 0
-      || n_split < 1 || n_split > K / kK
-      || (nt != 1 && nt != 2 && nt != 4 && nt != 8)
-      || (n_split > 1 && (work == nullptr || counters == nullptr)))
+  return tc::run(x, x_is_bf16, qw, scale, zero, y, work, counters, T, N, K,
+                 G, nt, n_split, 1, Experts{nullptr, 0, 0, 0, 0},
+                 static_cast<cudaStream_t>(stream));
+}
+
+// The expert axis: x [E, C, K], qw [E, N, K/2], scale, zero [E, N, K/G],
+// y [E, C, N], all contiguous; rows [E] int32 or null (every row holds a
+// token). `tc` picks the tensor-core path (then `nt` as above, no split),
+// else the CUDA-core one (then `vec` as above). One launch for every
+// expert and any C; returns cudaGetLastError() (0 = launched).
+extern "C" int w4_matmul_experts_launch(const void* x, int x_is_bf16,
+                                        const void* qw, const void* scale,
+                                        const void* zero, void* y,
+                                        const void* rows, int E, int C,
+                                        int N, int K, int G, int tc, int nt,
+                                        int vec, void* stream) {
+  if (E < 1 || C < 1 || N < 1 || K < 2 || G < 2 || K % G != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const Experts ex{static_cast<const int32_t*>(rows),
+                   static_cast<long long>(C) * K,
+                   static_cast<long long>(N) * (K / 2),
+                   static_cast<long long>(N) * (K / G),
+                   static_cast<long long>(C) * N};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_is_bf16) {
-    const Args<__nv_bfloat16> a{
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const uint8_t*>(qw), static_cast<const float*>(scale),
-        static_cast<const float*>(zero), static_cast<float*>(y),
-        static_cast<float*>(work), static_cast<int*>(counters), T, N, K, G,
-        gshift};
-    return dispatch(a, nt, n_split, s);
-  }
-  const Args<float> a{
-      static_cast<const float*>(x), static_cast<const uint8_t*>(qw),
-      static_cast<const float*>(scale), static_cast<const float*>(zero),
-      static_cast<float*>(y), static_cast<float*>(work),
-      static_cast<int*>(counters), T, N, K, G, gshift};
-  return dispatch(a, nt, n_split, s);
+  if (tc)
+    return tc::run(x, x_is_bf16, qw, scale, zero, y, nullptr, nullptr, C, N,
+                   K, G, nt, 1, E, ex, s);
+  return simt::run(x, x_is_bf16, qw, scale, zero, y, C, N, K, G, vec, E, ex,
+                   s);
 }

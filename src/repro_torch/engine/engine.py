@@ -125,11 +125,14 @@ class InferenceEngine:
         self._spec_tree = engine_cfg.spec_fanout is not None
         self.spec = engine_cfg.spec_k > 0 or self._spec_tree
         if self.spec and cfg.family != "dense":
-            # the draft/verify rounds and the accepted-path compaction
-            # move K/V pages; the latent pool's are a later slice
+            # the MoE family's rounds (K/V pages, routing over the verify
+            # block's rows, the w4l* drafts on the W4 expert axis) are not
+            # yet held against the reference; the latent pool's rounds
+            # must move latent pages
             raise NotImplementedError(
                 f"speculative decoding on family {cfg.family!r} is not yet "
-                f"ported (ROADMAP A.7)")
+                f"ported (ROADMAP "
+                f"{'A.7.1' if cfg.family == 'moe' else 'A.7.2'})")
         if self.spec and draft_params is None:
             raise ValueError("speculative decoding requires draft_params "
                              "(the same weights under a draft profile: "

@@ -14,7 +14,8 @@ from repro_torch.kernels import ref as kref
 from repro_torch.kernels.gqsa_gemv import (MAX_GEMV_BATCH, gqsa_gemv_cuda,
                                            gqsa_gemv_experts_cuda)
 from repro_torch.kernels.paged_attention import paged_attention_cuda
-from repro_torch.kernels.w4_matmul import w4_matmul_cuda
+from repro_torch.kernels.w4_matmul import (w4_matmul_cuda,
+                                           w4_matmul_experts_cuda)
 
 
 def _use_plain(t: torch.Tensor, plain: bool, name: str) -> bool:
@@ -127,6 +128,26 @@ def w4_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
     if _use_plain(x, plain, "w4_matmul"):
         return kref.w4_matmul_ref(x, qw, scale, zero, group_size)
     return w4_matmul_cuda(x.contiguous(), qw, scale, zero, group_size)
+
+
+def w4_matmul_experts(x: torch.Tensor, qw: torch.Tensor,
+                      scale: torch.Tensor, zero: torch.Tensor,
+                      rows: torch.Tensor = None, *, group_size: int,
+                      plain: bool = False) -> torch.Tensor:
+    """The routed experts' dense-W4 products: y [E, C, N] f32 with y[e] =
+    x[e] [C, K] @ deq(qw[e], scale[e], zero[e]).T, any C.
+
+    ``rows`` [E]: how many leading buffer rows of each expert hold
+    tokens; the others come out as zeros, and on the card an expert with
+    none is not read. On the card every expert and all C rows go through
+    one launch of the kernel's expert axis."""
+    if _use_plain(x, plain, "w4_matmul_experts"):
+        return kref.w4_matmul_experts_ref(x, qw, scale, zero, rows,
+                                          group_size)
+    if rows is not None:
+        rows = rows.to(torch.int32).contiguous()
+    return w4_matmul_experts_cuda(x.contiguous(), qw, scale, zero, rows,
+                                  group_size)
 
 
 def paged_latent_attention(q, lat_pages, lengths, block_tables, *,

@@ -79,6 +79,27 @@ def w4_matmul_ref(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
     return x.float() @ w.T
 
 
+def w4_matmul_experts_ref(x: torch.Tensor, qw: torch.Tensor,
+                          scale: torch.Tensor, zero: torch.Tensor,
+                          rows: torch.Tensor, group_size: int
+                          ) -> torch.Tensor:
+    """The routed experts' dense-W4 products: x [E, C, K] -> y [E, C, N]
+    f32 with y[e] = :func:`w4_matmul_ref` (x[e], qw[e], scale[e],
+    zero[e]), qw [E, N, K/2] and scale / zero [E, N, K/G]. One expert at a
+    time, so at most one expert's dense f32 operand exists. ``rows`` [E]
+    or None: rows at or past ``rows[e]`` are zeros (the kernel skips
+    them); every expert is computed either way."""
+    e, c, _ = x.shape
+    y = torch.empty((e, c, qw.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    for i in range(e):
+        y[i] = w4_matmul_ref(x[i], qw[i], scale[i], zero[i], group_size)
+    if rows is not None:
+        keep = torch.arange(c, device=x.device)[None, :] < rows[:, None]
+        y = torch.where(keep[..., None], y, 0.0)
+    return y
+
+
 def w4_matmul_grouped_ref(x: torch.Tensor, qw: torch.Tensor,
                           scale: torch.Tensor, zero: torch.Tensor,
                           group_size: int) -> torch.Tensor:

@@ -29,6 +29,15 @@ Two paths, chosen here from shapes and pointers alone
 
 ``launches`` counts both. The kernels mask the ragged edges of T, N and K
 themselves: the wrapper pads and copies nothing.
+
+The expert axis (:func:`w4_matmul_experts_cuda`) runs the routed experts
+of an MoE layer packed as dense W4 (the reference's ``vmap`` of the same
+Pallas kernel in ``src/repro/models/moe.py:_expert_ffn``) in one launch:
+the expert is the grid's third axis, on the same two paths chosen the
+same way, without a split of K. An expert's buffer rows at or past
+``rows[e]`` come out as zeros and a tile with none is not read, so an idle
+expert's weights never leave device memory. Its own counters are
+``w4_matmul_experts_cuda.launches`` and ``.tc_launches``.
 """
 from __future__ import annotations
 
@@ -55,6 +64,15 @@ def _launcher():
     fn = load("w4_matmul").w4_matmul_launch
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _experts_launcher():
+    fn = load("w4_matmul").w4_matmul_experts_launch
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -121,6 +139,13 @@ def plan(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
     return "tc", split_count(t, qw.shape[0], k, sm_count(x.device.index))
 
 
+def _check_x(x: torch.Tensor, name: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: x must be a CUDA tensor")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: x must be f32 or bf16, got {x.dtype}")
+
+
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"w4_matmul: {name} must be a CUDA tensor")
@@ -141,11 +166,7 @@ def w4_matmul_cuda(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
     x: f32 or bf16; qw: uint8 [N, K/2]; scale/zero: f32 [N, K/G]; all
     contiguous on one card. G must be even and divide K. ``n_split``
     overrides :func:`split_count` on the tensor-core path (1 .. K/128)."""
-    if x.device.type != "cuda":
-        raise ValueError("w4_matmul_cuda: x must be a CUDA tensor")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"w4_matmul_cuda: x must be f32 or bf16, "
-                        f"got {x.dtype}")
+    _check_x(x, "w4_matmul_cuda")
     t, k = x.shape
     n = qw.shape[0]
     g = group_size
@@ -197,3 +218,60 @@ def w4_matmul_cuda(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
 
 w4_matmul_cuda.launches = 0      # both paths
 w4_matmul_cuda.tc_launches = 0   # the tensor-core path
+
+
+def w4_matmul_experts_cuda(x: torch.Tensor, qw: torch.Tensor,
+                           scale: torch.Tensor, zero: torch.Tensor,
+                           rows: Optional[torch.Tensor],
+                           group_size: int) -> torch.Tensor:
+    """y [E, C, N] f32 with y[e] = x[e] @ deq(qw[e], scale[e], zero[e]).T
+    on the card, every expert and any C >= 1 in one launch.
+
+    x: [E, C, K] f32 or bf16; qw: uint8 [E, N, K/2]; scale/zero: f32
+    [E, N, K/G]; ``rows`` [E] int32 or None: rows at or past ``rows[e]``
+    are written as zeros and a tile of x rows with none is not read (nor
+    are its weights). All contiguous on one card. The path is
+    :func:`takes_tensor_cores`'s, from shapes and pointers."""
+    _check_x(x, "w4_matmul_experts_cuda")
+    if x.dim() != 3:
+        raise ValueError(f"w4_matmul_experts_cuda takes x [E, C, K], got "
+                         f"{tuple(x.shape)}")
+    e, c, k = x.shape
+    n = qw.shape[-2]
+    g = group_size
+    if c < 1 or g < 2 or g % 2 or k % g:
+        raise ValueError(f"w4_matmul_experts_cuda takes C >= 1 rows and an "
+                         f"even group size dividing K, got C={c}, K={k}, "
+                         f"G={g}")
+    _check(x, "x", x.dtype, (e, c, k))
+    _check(qw, "qw", torch.uint8, (e, n, k // 2))
+    _check(scale, "scale", torch.float32, (e, n, k // g))
+    _check(zero, "zero", torch.float32, (e, n, k // g))
+    devices = {x.device, qw.device, scale.device, zero.device}
+    if rows is not None:
+        _check(rows, "rows", torch.int32, (e,))
+        devices.add(rows.device)
+    if len(devices) != 1:
+        raise ValueError("w4_matmul_experts_cuda: operands lie on different "
+                         "cards")
+    tc = takes_tensor_cores(k, g, x.data_ptr(), qw.data_ptr(),
+                            scale.data_ptr(), zero.data_ptr())
+    vec = k % VEC_K == 0 and qw.data_ptr() % 16 == 0
+    y = torch.empty((e, c, n), dtype=torch.float32, device=x.device)
+    rc = _experts_launcher()(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), qw.data_ptr(),
+        scale.data_ptr(), zero.data_ptr(), y.data_ptr(),
+        None if rows is None else rows.data_ptr(), e, c, n, k, g, int(tc),
+        token_tiles(c), int(vec),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"w4_matmul experts kernel launch failed: CUDA "
+                           f"error {rc}")
+    w4_matmul_experts_cuda.launches += 1
+    if tc:
+        w4_matmul_experts_cuda.tc_launches += 1
+    return y
+
+
+w4_matmul_experts_cuda.launches = 0      # both paths
+w4_matmul_experts_cuda.tc_launches = 0   # the tensor-core path

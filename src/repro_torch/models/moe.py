@@ -14,7 +14,7 @@ is computed on the device and handed to the expert kernel, which skips
 the empty buffer rows and never reads an expert that holds none. Those
 rows are zeros whose products the keep mask discards, so the skip changes
 no number. Expert parallelism and the router's aux loss (training's) are
-not ported (ROADMAP A.9, A.7).
+not ported (ROADMAP A.9, A.7.4).
 """
 from __future__ import annotations
 

@@ -6,8 +6,9 @@
     logits, cache = api.prefill(params, cache, tokens, lengths, tables, cfg)
     logits, cache = api.decode_step(params, cache, tok, pos, cfg, tables)
 
-The dense and MLA + MoE (``mla_moe``) families are ported; the
-reference's other families are later slices (ROADMAP A.7, A.8).
+The dense, MoE (``moe``) and MLA + MoE (``mla_moe``) families are
+ported; the reference's other families are later slices (ROADMAP A.7.3,
+A.8).
 """
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ class ModelAPI:
 _DECODER = ModelAPI(transformer.init_params, transformer.decode_step,
                     init_paged_cache=transformer.init_paged_cache,
                     prefill=transformer.prefill)
-_FAMILIES: Dict[str, ModelAPI] = {"dense": _DECODER, "mla_moe": _DECODER}
+_FAMILIES: Dict[str, ModelAPI] = {"dense": _DECODER, "moe": _DECODER,
+                                  "mla_moe": _DECODER}
 
 
 def paged_families() -> List[str]:

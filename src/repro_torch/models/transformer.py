@@ -1,5 +1,6 @@
-"""Decoder-only LM, dense and MLA + MoE (``mla_moe``) families: init,
-batched prefill into the paged pool, and the fused decode step.
+"""Decoder-only LM, dense, MoE (``moe``) and MLA + MoE (``mla_moe``)
+families: init, batched prefill into the paged pool, and the fused decode
+step.
 
 Parameters keep the reference's tree layout: nested dicts whose per-layer
 leaves are stacked [L, ...] (``params["layers"]["attn"]["wq"]["w"]`` is
@@ -7,7 +8,7 @@ leaves are stacked [L, ...] (``params["layers"]["attn"]["wq"]["w"]`` is
 ``{"qw", "scale", "zero"}`` with stacked leaves; the routed experts of
 ``params["layers"]["moe"]["experts"]`` are stacked [L, E, ...]). The layer
 loop is a Python loop over slices of those leaves. ``mla_moe`` pages one
-latent pool (``{"lat_pages"}``), the dense family a K and a V pool.
+latent pool (``{"lat_pages"}``), the other families a K and a V pool.
 """
 from __future__ import annotations
 
@@ -45,9 +46,8 @@ def _layer_weights(cfg) -> List[Tuple[Tuple[str, ...], Tuple[int, ...],
         return (path, (n, k), 1.0 / math.sqrt(k), kind)
 
     if cfg.family == "mla_moe":
-        m, moe = cfg.mla, cfg.moe
-        r, de = m.kv_lora_rank, moe.d_expert
-        ds = moe.n_shared * de
+        m = cfg.mla
+        r = m.kv_lora_rank
         out = [lin(("attn", "w_qa"), m.q_lora_rank, d),
                lin(("attn", "w_qb"), h * (m.qk_nope_dim + m.qk_rope_dim),
                    m.q_lora_rank),
@@ -56,25 +56,31 @@ def _layer_weights(cfg) -> List[Tuple[Tuple[str, ...], Tuple[int, ...],
                 "raw"),
                (("attn", "w_uv"), (h, m.v_dim, r), 1.0 / math.sqrt(r),
                 "raw"),
-               lin(("attn", "wo"), d, h * m.v_dim),
-               lin(("moe", "router"), moe.n_experts, d, "fp")]
-        # every expert stack, wd included, at 1/sqrt(d_model)
-        out += [(("moe", "experts", name), (moe.n_experts,) + nk,
-                 1.0 / math.sqrt(d), "experts")
-                for name, nk in (("wg", (de, d)), ("wu", (de, d)),
-                                 ("wd", (d, de)))]
-        if moe.n_shared:
-            out += [lin(("moe", "shared", "wg"), ds, d),
-                    lin(("moe", "shared", "wu"), ds, d),
-                    lin(("moe", "shared", "wd"), d, ds)]
-        return out
-    khn, hd = cfg.n_kv_heads, cfg.hd
-    out = [lin(("attn", "wq"), h * hd, d), lin(("attn", "wk"), khn * hd, d),
-           lin(("attn", "wv"), khn * hd, d), lin(("attn", "wo"), d, h * hd)]
-    if cfg.mlp_type == "swiglu":
-        out.append(lin(("mlp", "wg"), cfg.d_ff, d))
-    return out + [lin(("mlp", "wu"), cfg.d_ff, d),
-                  lin(("mlp", "wd"), d, cfg.d_ff)]
+               lin(("attn", "wo"), d, h * m.v_dim)]
+    else:
+        khn, hd = cfg.n_kv_heads, cfg.hd
+        out = [lin(("attn", "wq"), h * hd, d),
+               lin(("attn", "wk"), khn * hd, d),
+               lin(("attn", "wv"), khn * hd, d),
+               lin(("attn", "wo"), d, h * hd)]
+    if cfg.moe is None:
+        if cfg.mlp_type == "swiglu":
+            out.append(lin(("mlp", "wg"), cfg.d_ff, d))
+        return out + [lin(("mlp", "wu"), cfg.d_ff, d),
+                      lin(("mlp", "wd"), d, cfg.d_ff)]
+    moe = cfg.moe
+    de, ds = moe.d_expert, moe.n_shared * moe.d_expert
+    out.append(lin(("moe", "router"), moe.n_experts, d, "fp"))
+    # every expert stack, wd included, at 1/sqrt(d_model)
+    out += [(("moe", "experts", name), (moe.n_experts,) + nk,
+             1.0 / math.sqrt(d), "experts")
+            for name, nk in (("wg", (de, d)), ("wu", (de, d)),
+                             ("wd", (d, de)))]
+    if moe.n_shared:
+        out += [lin(("moe", "shared", "wg"), ds, d),
+                lin(("moe", "shared", "wu"), ds, d),
+                lin(("moe", "shared", "wd"), d, ds)]
+    return out
 
 
 def _layer_norms(cfg) -> Dict[Tuple[str, ...], int]:
@@ -128,7 +134,7 @@ def _draw(seed: int, cfg, device, targets) -> List[Dict]:
     """One draw of the weights, packed into one tree per ``(compression
     or None, layer count)`` of ``targets``; every tree holds the leading
     layers of the same draw and the same embedding and head tensors."""
-    if cfg.family not in ("dense", "mla_moe") or cfg.qk_norm \
+    if cfg.family not in ("dense", "moe", "mla_moe") or cfg.qk_norm \
             or cfg.tie_embeddings:
         raise NotImplementedError(
             f"init for family {cfg.family!r} (qk_norm={cfg.qk_norm}, "

@@ -397,6 +397,147 @@ def test_w4_matmul_routes_by_shape(cuda):
                        p["scale"], p["zero"], 6, n_split=2)
 
 
+def _w4_experts(cuda, e, n, k, g=16):
+    """E experts of dense W4 stacked [E, ...], packed one at a time."""
+    from repro_torch.core.model_compress import StackedPacker, slice_packer
+    packer = StackedPacker(e, slice_packer(QuantConfig(bits=4,
+                                                       group_size=g)))
+    for i in range(e):
+        packer.put(i, torch.randn((n, k), generator=cuda, device="cuda")
+                   / k ** 0.5)
+    return packer.result((e,))
+
+
+def _w4_experts_call(x, p, rows, g=16, plain=False):
+    return ops.w4_matmul_experts(x, p["qw"], p["scale"], p["zero"], rows,
+                                 group_size=g, plain=plain)
+
+
+W4_EXPERT_SHAPES = [(64, 1408, 2048), (64, 2048, 1408), (160, 1536, 5120),
+                    (160, 5120, 1536)]
+
+
+@pytest.mark.parametrize("e,n,k", W4_EXPERT_SHAPES + [(8, 96, 64),
+                                                      (5, 300, 512)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_w4_matmul_experts_kernel_matches_plain(cuda, e, n, k, dtype):
+    """The expert axis at the deepseek-moe-16b and DeepSeek-V2 expert
+    shapes and two small ones: C = 1, 3, 8, 20 and 70 buffer rows in one
+    launch, with ``rows`` absent and given (idle experts, partly filled
+    and full buffers): rows at or past rows[e] are exact zeros."""
+    from repro_torch.kernels.w4_matmul import w4_matmul_experts_cuda
+    p = _w4_experts(cuda, e, n, k)
+    for c in (1, 3, 8, 20, 70):
+        x = torch.randn((e, c, k), generator=cuda, device="cuda").to(dtype)
+        rows = torch.randint(0, c + 1, (e,), generator=cuda, device="cuda",
+                             dtype=torch.int32)
+        rows[:2] = 0
+        rows[2] = c
+        for r in (None, rows):
+            before = w4_matmul_experts_cuda.launches
+            y = _w4_experts_call(x, p, r)
+            assert w4_matmul_experts_cuda.launches == before + 1
+            assert y.shape == (e, c, n) and y.dtype == torch.float32
+            _close(y, _w4_experts_call(x, p, r, plain=True))
+            if r is not None:
+                idle = torch.arange(c, device="cuda")[None, :] >= r[:, None]
+                assert (y[idle] == 0).all()
+
+
+@pytest.mark.parametrize("e,n,k,g", [(64, 1408, 2048, 16),
+                                     (5, 100, 48, 16)])
+def test_w4_matmul_experts_never_reads_an_idle_expert(cuda, e, n, k, g):
+    """Idle experts' scales are NaN and x is NaN past every expert's
+    rows: the output stays finite (nothing idle was read), idle rows are
+    exact zeros, and the live rows match the plain version on the clean
+    operands. On both paths (tensor cores, then CUDA cores)."""
+    p = _w4_experts(cuda, e, n, k, g)
+    for c in (1, 3, 20):
+        x = torch.randn((e, c, k), generator=cuda, device="cuda")
+        rows = torch.randint(0, c + 1, (e,), generator=cuda, device="cuda",
+                             dtype=torch.int32)
+        rows[:e // 2] = 0
+        rows[-1] = c
+        ref = _w4_experts_call(x, p, rows, g, plain=True)
+        idle = torch.arange(c, device="cuda")[None, :] >= rows[:, None]
+        poisoned = dict(p, scale=p["scale"].clone())
+        poisoned["scale"][rows == 0] = float("nan")
+        xp = x.clone()
+        xp[idle] = float("nan")
+        y = _w4_experts_call(xp, poisoned, rows, g)
+        assert torch.isfinite(y).all()
+        assert (y[idle] == 0).all()
+        _close(y, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_w4_matmul_experts_bit_identical(cuda, dtype):
+    """No split of K: a repeat gives the same bits, and an expert's rows
+    give the same bits whatever the other experts hold."""
+    e, n, k = W4_EXPERT_SHAPES[0]
+    p = _w4_experts(cuda, e, n, k)
+    for c in (1, 8, 70):
+        x = torch.randn((e, c, k), generator=cuda, device="cuda").to(dtype)
+        rows = torch.randint(0, c + 1, (e,), generator=cuda, device="cuda",
+                             dtype=torch.int32)
+        y = _w4_experts_call(x, p, rows)
+        assert torch.equal(y, _w4_experts_call(x, p, rows))
+        other = x.clone()
+        other[1:] = torch.randn_like(other[1:])
+        assert torch.equal(y[0], _w4_experts_call(other, p, rows)[0])
+
+
+def test_w4_matmul_experts_routes_by_shape(cuda):
+    """The expert axis routes as ``w4_matmul`` does: G = 6, K = 48,
+    G = 256 and misaligned codes to the CUDA-core path, G in {16, 32, 64,
+    128} with K a multiple of 128 to the tensor cores; both match the
+    plain version, with ``rows`` too."""
+    from repro_torch.kernels.w4_matmul import w4_matmul_experts_cuda
+    cases = [(3, 37, 96, 6, "simt", False), (3, 100, 48, 16, "simt", False),
+             (3, 64, 512, 256, "simt", False), (3, 64, 256, 16, "simt", True),
+             (3, 1408, 2048, 16, "tc", False), (3, 300, 512, 128, "tc", False),
+             (3, 70, 256, 32, "tc", False), (3, 70, 256, 64, "tc", False)]
+    for e, n, k, g, path, misaligned in cases:
+        p = _w4_experts(cuda, e, n, k, g)
+        qw = p["qw"]
+        if misaligned:
+            buf = torch.empty(qw.numel() + 1, dtype=torch.uint8,
+                              device="cuda")
+            qw = buf[1:].view(qw.shape)
+            qw.copy_(p["qw"])
+        x = torch.randn((e, 5, k), generator=cuda, device="cuda")
+        rows = torch.tensor([0, 2, 5], dtype=torch.int32, device="cuda")
+        for r in (None, rows):
+            before = (w4_matmul_experts_cuda.launches,
+                      w4_matmul_experts_cuda.tc_launches)
+            y = ops.w4_matmul_experts(x, qw, p["scale"], p["zero"], r,
+                                      group_size=g)
+            assert w4_matmul_experts_cuda.launches == before[0] + 1
+            assert (w4_matmul_experts_cuda.tc_launches
+                    == before[1] + (path == "tc"))
+            _close(y, _w4_experts_call(x, p, r, g, plain=True))
+
+
+def test_w4_matmul_experts_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.w4_matmul import w4_matmul_experts_cuda
+    p = _w4_experts(cuda, 3, 64, 128)
+    args = (p["qw"], p["scale"], p["zero"])
+    before = w4_matmul_experts_cuda.launches
+    x = torch.randn((3, 2, 128), device="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        w4_matmul_experts_cuda(x.cpu(), *args, None, 16)
+    with pytest.raises(ValueError, match="x \\[E, C, K\\]"):
+        w4_matmul_experts_cuda(x[0], *args, None, 16)
+    with pytest.raises(ValueError, match="shape"):
+        w4_matmul_experts_cuda(x[:2], *args, None, 16)
+    with pytest.raises(TypeError, match="rows"):
+        w4_matmul_experts_cuda(x, *args, torch.ones(3, device="cuda"), 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        w4_matmul_experts_cuda(x.transpose(0, 1).contiguous()
+                               .transpose(0, 1), *args, None, 16)
+    assert w4_matmul_experts_cuda.launches == before
+
+
 def _latent_case(cuda, b, t, h, d, dtype, ps=16, mp=16):
     """Latent pool over a shuffled table with sentinel tails; slot 1 is
     all-sentinel with length 0 when b > 2, and a length-0 row sits in the
@@ -781,6 +922,37 @@ def test_int8_pool_and_deepseek_decode_steps_never_read_the_device_on_the_host(
     torch.cuda.synchronize()
     assert paged_attention_cuda.int8_launches > before[0]
     assert paged_attention_cuda.latent_launches > before[1]
+    reads = [e.key for e in prof.key_averages()
+             if e.key in ("aten::_local_scalar_dense", "aten::item")]
+    assert not reads, reads
+
+
+def test_moe_w4_decode_step_never_reads_the_device_on_the_host(cuda):
+    """A decode step of the reduced deepseek-moe-16b under dense W4 (the
+    W4 expert axis, whose ``rows`` stay on the card) reads no tensor value
+    on the host."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.w4_matmul import w4_matmul_experts_cuda
+    from repro_torch.models import transformer as ttf
+    cfg = get_config("deepseek_moe_16b", reduced=True)
+    params = ttf.init_params(0, cfg, "cuda",
+                             compress=QuantConfig(bits=4, group_size=16))
+    cache = ttf.init_paged_cache(cfg, 16, 4, device="cuda")
+    bt = torch.tensor([[0, 1, 2, 3, 4, 5], [16] * 6], dtype=torch.int32,
+                      device="cuda")
+    ttf.prefill(params, cache, torch.tensor([[5, 6, 7, 1, 2], [0] * 5],
+                                            device="cuda"),
+                torch.tensor([5, 0], device="cuda"), bt, cfg)
+    pos = torch.tensor([5, 0], dtype=torch.int32, device="cuda")
+    before = w4_matmul_experts_cuda.launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ttf.decode_step(params, cache, torch.tensor([[1], [2]],
+                                                    device="cuda"),
+                        pos, cfg, bt, max_live_pages=2)
+    torch.cuda.synchronize()
+    assert w4_matmul_experts_cuda.launches == before + 3 * cfg.n_layers
     reads = [e.key for e in prof.key_averages()
              if e.key in ("aten::_local_scalar_dense", "aten::item")]
     assert not reads, reads

@@ -33,6 +33,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs.registry import get_config as jget_config  # noqa: E402
 from repro.core.gqs_layer import GQSAConfig as JGQSAConfig  # noqa: E402
 from repro.core.model_compress import compress_params as jcompress  # noqa: E402
+from repro.core.model_compress import compress_params_w4 as jcompress_w4  # noqa: E402
+from repro.core.quant import QuantConfig as JQuantConfig  # noqa: E402
 from repro.engine import EngineConfig as JEngineConfig  # noqa: E402
 from repro.engine import InferenceEngine as JInferenceEngine  # noqa: E402
 from repro.engine.spec import TreeTemplate as JTreeTemplate  # noqa: E402
@@ -235,10 +237,26 @@ def test_gqsa_gemv_experts_ref_matches_reference_per_expert(model):
         assert (got[e, rows[e]:] == 0).all()
 
 
-def test_expert_stacked_linear_refuses_w4_experts():
-    x = torch.zeros((2, 1, 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        apply_linear_experts({"qw": None, "scale": torch.ones(2, 4, 2)}, x)
+def test_expert_stacked_linear_refuses_w4_experts(model):
+    """Dense-W4 routed experts (``{"qw"}`` stacks) run through
+    ``apply_linear_experts`` and match the reference's ``_expert_ffn``
+    (a vmap of its W4 linear) per expert, rows past ``rows[e]`` zeros;
+    fake-quant experts are still refused."""
+    jcfg, jfp = model[0], model[1]
+    jp = jcompress_w4({"experts": jfp["layers"]["moe"]["experts"]}, jcfg,
+                      JQuantConfig(bits=4, group_size=16))["experts"]
+    jl = jax.tree_util.tree_map(lambda a: a[1], jp)
+    tl = {name: {f: v[1] for f, v in node.items()} for name, node in
+          params_from_numpy(jax_tree_to_numpy(jp), "cpu").items()}
+    x = np.random.default_rng(8).normal(size=(8, 3, 64)).astype(np.float32)
+    rows = np.array([0, 3, 1, 2, 3, 0, 1, 3], np.int32)
+    want = np.array(jmoe._expert_ffn(jl, jnp.asarray(x)))
+    got = tmoe.expert_ffn(tl, torch.from_numpy(x), torch.from_numpy(rows))
+    for e in range(8):
+        _close(got[e, :rows[e]], want[e, :rows[e]])
+        assert (got[e, rows[e]:] == 0).all()
+    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+        apply_linear_experts({"gmask": None}, torch.from_numpy(x))
 
 
 # ---------------------------------------------------------------------------
