@@ -74,7 +74,20 @@ Phases (any failure exits non-zero before the result line is printed):
      w4`` (4 slots, 8 requests x 32 new tokens);
  17. DeepSeek-V2 under dense W4 G16 at 4 of its 60 layers: kernel vs
      plain logits on 2 layers and the engine serving 8 requests x 32 new
-     tokens on 4 slots.
+     tokens on 4 slots;
+ 18. the static-batch contiguous path: kv_decode_attention (the int8 mode
+     of the page walk over a contiguous int8 cache viewed as pages under
+     identity tables) against its plain version at B=4 KH=32 R=1 D=128,
+     S in {64, 1000, 4096, 32768}, shared, per-slot (a row of 0: exact
+     zeros) and full lengths, repeats bit-identical; timed at 4096 and
+     32768 beside the plain version, SDPA and the bound; llama2-7b at
+     full width and depth (GQSA W4 S50 G16): the serve step through the
+     kernels against the plain versions on an int8 cache of 4096
+     positions (f32 and bf16), f32 serve steps against the prefill
+     step's forward at every prompt position, the main path (bf16, int8
+     cache of 32768 positions, 4 sequences x 32 greedy tokens after their
+     teacher-forced prompts) and a profiled decode step at 32704
+     positions of synthetic history.
 Each main path is driven with every kernel's launch count set to 0 just
 before it and read just after. The line before the last is a JSON object
 with every kernel's numbers; the last line is {"ok": true, "device": {...}}.
@@ -631,26 +644,31 @@ def check_model(params, full, label, tol_f32=LOGITS_TOL_F32, on_run=None):
         # the plain run is fed the kernel run's tokens (teacher forcing)
         plain, _ = run(cfg, plain=True, feed=fed)
         for i, (a, p) in enumerate(zip(kern, plain)):
-            require(bool(torch.isfinite(a).all())
-                    and a.shape == (b, full.vocab), "logits finite, [B, V]")
-            err = (a - p).abs().max().item()
-            scale = p.abs().max().item()
-            top2 = p.topk(2, dim=-1).values
-            clear = (top2[:, 0] - top2[:, 1]) > 2 * err
-            agree = a.argmax(-1) == p.argmax(-1)
-            log(f"[model {label} {dtype}] "
-                f"{'prefill' if i == 0 else f'decode {i}'}: logits "
-                f"max_abs_diff {err:.4e} (max |logit| {scale:.3f}, "
-                f"rel {err / scale:.2e}), argmax agrees "
-                f"{int(agree.sum())}/{b}")
-            require(err <= tol * scale,
-                    f"kernel vs plain logits differ by {err} ({label} "
-                    f"{dtype})")
-            require(bool(agree[clear].all()),
-                    "argmax differs where the top-2 margin is clear")
+            compare_logits(a, p, tol, f"model {label} {dtype}",
+                           "prefill" if i == 0 else f"decode {i}")
         log(f"[model {label} {dtype}] kernel path prefill + 4 decode steps "
             f"{t_k:.2f}s wall (first calls, eager)")
     return toks_d, lens_d, bt, b * mp, ps
+
+
+def compare_logits(a, p, tol, label, step):
+    """Kernel-path logits ``a`` [B, V] against the plain path's ``p``:
+    finite, max-abs difference within ``tol`` of max |p|, argmax equal
+    wherever p's top-2 margin exceeds twice that difference."""
+    require(bool(torch.isfinite(a).all()) and a.shape == p.shape,
+            "logits finite, [B, V]")
+    err = (a - p).abs().max().item()
+    scale = p.abs().max().item()
+    top2 = p.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+    agree = a.argmax(-1) == p.argmax(-1)
+    log(f"[{label}] {step}: logits max_abs_diff {err:.4e} (max |logit| "
+        f"{scale:.3f}, rel {err / scale:.2e}), argmax agrees "
+        f"{int(agree.sum())}/{a.shape[0]}")
+    require(err <= tol * scale,
+            f"kernel vs plain logits differ by {err} ({label})")
+    require(bool(agree[clear].all()),
+            "argmax differs where the top-2 margin is clear")
 
 
 def reset_launches():
@@ -665,6 +683,7 @@ def reset_launches():
     paged_attention_cuda.int8_launches = 0
     paged_attention_cuda.tree_launches = 0
     paged_attention_cuda.latent_launches = 0
+    paged_attention_cuda.kv_decode_launches = 0
     w4_matmul_cuda.launches = 0
     w4_matmul_cuda.tc_launches = 0
     w4_matmul_experts_cuda.launches = 0
@@ -686,7 +705,8 @@ def read_launches():
             "gqsa_gemv_experts": gqsa_gemv_experts_cuda.launches,
             "paged_attention_latent": paged_attention_cuda.latent_launches,
             "w4_matmul_experts": w4_matmul_experts_cuda.launches,
-            "w4_matmul_experts_tc": w4_matmul_experts_cuda.tc_launches}
+            "w4_matmul_experts_tc": w4_matmul_experts_cuda.tc_launches,
+            "kv_decode_attention": paged_attention_cuda.kv_decode_launches}
 
 
 def phase_model_gqsa():
@@ -776,15 +796,8 @@ def phase_model_w4():
 
 def profile_decode(params, cfg, toks, lens, bt, num_pages, ps, steps=8,
                    label="bf16 decode step at 4 slots"):
-    """Where a full-width bf16 decode step's time goes: wall time per step
-    (host clock around synchronised steps, no profiler), then device time
-    by kernel from a torch.profiler trace of as many steps; the device's
-    busy share is device time over wall time. Only the trace's kernel
-    events are summed: a CPU-side op's device time repeats the time of
-    the kernels it launched."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.kernels import ops
+    """:func:`profile_steps` of full-width bf16 decode steps on the paged
+    pool after a batched prefill of ``toks``."""
     from repro_torch.models import transformer as tf
     cache = tf.init_paged_cache(cfg, num_pages, ps, device="cuda")
     logits, _ = tf.prefill(params, cache, toks, lens, bt, cfg)
@@ -796,6 +809,20 @@ def profile_decode(params, cfg, toks, lens, bt, num_pages, ps, steps=8,
         tf.decode_step(params, cache, tok, pos, cfg, bt, max_live_pages=2)
         pos = pos + 1
 
+    profile_steps(step, steps, label)
+
+
+def profile_steps(step, steps, label):
+    """Where a decode step's time goes: wall time per step (host clock
+    around synchronised steps, no profiler), then device time by kernel
+    from a torch.profiler trace of as many steps; the device's busy share
+    is device time over wall time. Only the trace's kernel events are
+    summed: a CPU-side op's device time repeats the time of the kernels it
+    launched. ``step()`` runs one step; it is called 2 * steps + 1
+    times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import ops
     step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1458,8 +1485,8 @@ def _route_gaps(gaps, forced):
     from repro_torch.models import moe
     inner = moe.route
 
-    def spy(router_p, x, cfg_moe):
-        gates, ids = inner(router_p, x, cfg_moe)
+    def spy(router_p, x, cfg_moe, aux=True):
+        gates, ids, loss = inner(router_p, x, cfg_moe, aux)
         probs = torch.softmax(x.float() @ router_p["w"].float().T, dim=-1)
         top = probs.topk(cfg_moe.top_k + 1, dim=-1).values
         gaps.append((top[:, -2] - top[:, -1]).min().item())
@@ -1473,7 +1500,7 @@ def _route_gaps(gaps, forced):
             vals = probs.gather(1, want)
             gates = vals / vals.sum(-1, keepdim=True).clamp_min(1e-9)
             ids = want
-        return gates, ids
+        return gates, ids, loss
     return inner, spy
 
 
@@ -1849,6 +1876,254 @@ def phase_model_deepseek_w4():
     return launches
 
 
+STATIC_B = 4
+KV_DECODE_S = (64, 1000, 4096, 32768)   # pages of 64, 8, 64, 64
+KV_DECODE_TIMED = (4096, 32768)          # lengths of the timing
+STATIC_MAX_SEQ = 32768                   # the main path's cache
+STATIC_CHECK_SEQ = 4096                  # the kernel-vs-plain model check
+STATIC_PROMPTS = (7, 12, 4, 15)
+STATIC_FILL = 32704                      # positions of synthetic history
+
+
+def _kv_cache_case(g, s, b=STATIC_B, kh=32, r=1, d=128):
+    """q [B, KH, R, D] f32 and a contiguous int8 cache of random K/V
+    quantized per token and head: (q, k, k_scale, v, v_scale)."""
+    from repro_torch.models.layers import quantize_kv
+    q = torch.randn((b, kh, r, d), generator=g, device="cuda")
+    (k8, ks), (v8, vs) = (quantize_kv(torch.randn(
+        (b, s, kh, d), generator=g, device="cuda", dtype=torch.bfloat16))
+        for _ in range(2))
+    return q, k8, ks, v8, vs
+
+
+def phase_kv_decode_check():
+    """(a) kv_decode_attention against its plain version, B=4 KH=32 R=1
+    D=128: every S of ``KV_DECODE_S`` at a shared length, per-slot lengths
+    with a row of 0 (exact zeros), and the full length; one launch a
+    call, repeats bit-identical. Returns the worst max-abs error."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     split_count)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst = 0.0
+    for s in KV_DECODE_S:
+        case = _kv_cache_case(g, s)
+        kp = ops.contiguous_pages(*case[1:])[0]
+        ps = kp.shape[1]
+        n = split_count(STATIC_B, 32, 1, s // ps, sms, ps)
+        for label, ln in (("shared", s - 7),
+                          ("per-slot", [s, 0, s // 3, 5]),
+                          ("full", s)):
+            ln = torch.tensor(ln, dtype=torch.int32, device="cuda")
+            before = paged_attention_cuda.kv_decode_launches
+            o = ops.kv_decode_attention(*case, ln)
+            require(paged_attention_cuda.kv_decode_launches == before + 1,
+                    "one launch a call")
+            ref = ops.kv_decode_attention(*case, ln, plain=True)
+            torch.cuda.synchronize()
+            err = (o - ref).abs().max().item()
+            rel = err / ref.abs().max().item()
+            worst = max(worst, err)
+            require(bool(torch.isfinite(o).all()) and rel <= TOL,
+                    f"kv_decode_attention S={s} {label}: rel {rel}")
+            require(torch.equal(o, ops.kv_decode_attention(*case, ln)),
+                    "repeat not bit-identical")
+            if ln.ndim:
+                require(bool((o[1] == 0).all()), "length-0 row is zeros")
+            log(f"[kv_decode check] S={s} (pages of {ps}, {s // ps} a "
+                f"slot, split S={n}) {label} lengths: max_abs_err "
+                f"{err:.3e} (rel {rel:.2e}); repeat bit-identical")
+        del case, kp
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_kv_decode_timing(timer):
+    """(b) kv_decode_attention at B=4 KH=32 R=1 D=128, full lengths 4096
+    and 32768: the kernel alone on the dispatcher's operands, the plain
+    version, SDPA on K/V dequantized to bf16 beforehand (dequantization
+    not timed) and the bound (codes and scales read once)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    g = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    b, kh, d = STATIC_B, 32, 128
+    out = {}
+    for s in KV_DECODE_TIMED:
+        q, k8, ks, v8, vs = _kv_cache_case(g, s)
+        ln = torch.tensor(s, dtype=torch.int32, device="cuda")
+        kp, ksp, vp, vsp, tables = ops.contiguous_pages(k8, ks, v8, vs)
+        lq, live = ops.paged_query_prep(ln, tables, b, 1, kp.shape[1])
+        t_k = timer.ms(lambda: paged_attention_cuda(
+            q, kp, vp, lq, tables, live, 1, ksp, vsp, contiguous=True))
+        t_p = timer.ms(lambda: ops.kv_decode_attention(
+            q, k8, ks, v8, vs, ln, plain=True), iters=5)
+        kk, vv = ((c.float() * sc[..., None]).to(torch.bfloat16)
+                  .permute(0, 2, 1, 3).contiguous()
+                  for c, sc in ((k8, ks), (v8, vs)))
+        qs = q.to(torch.bfloat16)
+        t_l = timer.ms(lambda: F.scaled_dot_product_attention(qs, kk, vv))
+        nbytes = 2 * b * s * kh * (d + 4) + 2 * b * kh * d * 4
+        bound = _bound_ms(nbytes, 4 * b * s * kh * d)
+        log(f"[kv_decode time] B=4 KH=32 R=1 D=128 S=length={s} (pages of "
+            f"{kp.shape[1]}): kernel {t_k * 1e3:.1f}us plain "
+            f"{t_p * 1e3:.1f}us sdpa {t_l * 1e3:.1f}us bound "
+            f"{bound * 1e3:.1f}us ({nbytes / 1e9:.4f} GB) -> "
+            f"{bound / t_k:.0%} of bound")
+        out[str(s)] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                           bound_ms=bound)
+        del q, k8, ks, v8, vs, kp, ksp, vp, vsp, kk, vv, qs
+        torch.cuda.empty_cache()
+    return dict(out[str(KV_DECODE_TIMED[-1])], lengths=out)
+
+
+def _static_prompts(vocab, seed=SEED):
+    rng = np.random.default_rng(seed)
+    toks = np.zeros((STATIC_B, max(STATIC_PROMPTS)), np.int32)
+    for i, n in enumerate(STATIC_PROMPTS):
+        toks[i, :n] = rng.integers(0, vocab, n)
+    return (torch.from_numpy(toks).cuda(),
+            torch.tensor(STATIC_PROMPTS, device="cuda"))
+
+
+def serve_static(params, cfg, cache, new, plain=False, feed=None,
+                 with_logits=False):
+    """The static-batch serve loop through ``build_serve_step`` at a
+    shared ``pos``: each prompt teacher-forced, then greedy tokens, until
+    every sequence has ``new`` of them. ``feed``: tokens to feed instead
+    of the greedy ones (the plain run takes the kernel run's). Returns
+    (fed tokens, logits per step or None)."""
+    from repro_torch.launch.steps import build_serve_step
+    toks, lens = _static_prompts(cfg.vocab)
+    step = build_serve_step(cfg, plain=plain, with_logits=with_logits)
+    n_steps = int(max(STATIC_PROMPTS)) + new - 1
+    tok = toks[:, :1].int()
+    fed, logits = [], []
+    for i in range(n_steps):
+        fed.append(tok)
+        out = step(params, cache, tok,
+                   torch.tensor(i, dtype=torch.int32, device="cuda"))
+        if with_logits:
+            logits.append(out[2].float())
+        nxt = out[0] if feed is None else feed[i + 1]
+        prompt = toks[:, i + 1:i + 2] if i + 1 < toks.shape[1] \
+            else toks[:, :1]
+        tok = torch.where((i + 1 < lens)[:, None], prompt.int(), nxt)
+    return fed + [tok], (logits if with_logits else None)
+
+
+def phase_static():
+    """Phase 18, the static-batch contiguous path at llama2-7b full width
+    and depth, GQSA W4 S50 G16 packed on the card: (c) the serve step
+    through the kernels against the plain versions on an int8 cache of
+    4096 positions, f32 and bf16; (d) f32 serve steps with an f32 cache
+    against the prefill step's forward at every prompt position; (e) the
+    main path: bf16, int8 cache of 32768 positions, 4 sequences each
+    served 32 greedy tokens after its teacher-forced prompt; (f) a
+    profiled decode step at 32704-32711 positions of synthetic history.
+    Returns the main path's launch counts."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.gqs_layer import GQSAConfig
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import quantize_kv
+    full = dataclasses.replace(get_config("llama2_7b"), kv_cache_dtype="int8")
+    t0 = time.time()
+    params = tf.init_params(SEED, full, "cuda", compress=GQSAConfig())
+    torch.cuda.synchronize()
+    log(f"[static] llama2-7b full width, GQSA W4 S50 G16 packed on the card "
+        f"in {time.time() - t0:.1f}s")
+
+    # (c) kernels vs plain, int8 cache
+    for dtype, tol in (("float32", LOGITS_TOL_INT8_F32),
+                       ("bfloat16", LOGITS_TOL_BF16)):
+        cfg = dataclasses.replace(full, dtype=dtype)
+        runs = []
+        for plain in (False, True):
+            cache = tf.init_cache(cfg, STATIC_B, STATIC_CHECK_SEQ,
+                                  device="cuda")
+            runs.append(serve_static(params, cfg, cache, 4, plain,
+                                     feed=runs[0][0] if plain else None,
+                                     with_logits=True))
+            del cache
+        for i, (a, p) in enumerate(zip(runs[0][1], runs[1][1])):
+            compare_logits(a, p, tol, f"static int8 {dtype}", f"step {i}")
+    # (d) the serve step against the prefill step's forward, f32
+    cfg = dataclasses.replace(full, dtype="float32", kv_cache_dtype="bf16")
+    toks = _static_prompts(cfg.vocab, SEED + 1)[0][:, :12]
+    serve = build_serve_step(cfg, with_logits=True)
+    prefill = build_prefill_step(cfg, with_logits=True)
+    cache = tf.init_cache(cfg, STATIC_B, 16, device="cuda")
+    for i in range(toks.shape[1]):
+        tok, _, logits = serve(params, cache, toks[:, i:i + 1].int(),
+                               torch.tensor(i, device="cuda"))
+        ptok, plogits = prefill(params, {"tokens": toks[:, :i + 1]})
+        compare_logits(logits, plogits, LOGITS_TOL_F32,
+                       "static f32 serve vs forward", f"position {i}")
+    del cache
+    torch.cuda.empty_cache()
+
+    # (e) the main path
+    cfg = dataclasses.replace(full, dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    cache = tf.init_cache(cfg, STATIC_B, STATIC_MAX_SEQ, device="cuda")
+    nbytes = {k: v.numel() * v.element_size() for k, v in cache.items()}
+    log(f"[static] int8 cache, {STATIC_B} x {STATIC_MAX_SEQ} positions: "
+        f"codes {(nbytes['k'] + nbytes['v']) / 1e9:.2f} GB, scales "
+        f"{(nbytes['k_scale'] + nbytes['v_scale']) / 1e9:.2f} GB")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fed, _ = serve_static(params, cfg, cache, 32)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches()
+    n_steps = len(fed) - 1
+    out = torch.cat(fed[1:], dim=1)
+    log(f"[static serve] {n_steps} steps of 4 sequences in {wall:.2f}s "
+        f"({wall / n_steps * 1e3:.2f} ms a step, "
+        f"{STATIC_B * 32 / wall:.1f} tok/s over the 32 greedy tokens a "
+        f"sequence); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"{launches}")
+    require(out.shape == (STATIC_B, n_steps)
+            and bool(((out >= 0) & (out < cfg.vocab)).all()),
+            "every step gave a token of the vocabulary per sequence")
+    require(launches["kv_decode_attention"] == cfg.n_layers * n_steps,
+            "kv_decode_attention launched once a layer a step")
+    require(launches["gqsa_gemv"] > 0
+            and launches["paged_attention_int8"] == 0
+            and launches["paged_attention"] == 0,
+            "gqsa_gemv launched and no paged-pool attention launch on the "
+            "static path")
+
+    # (f) a profiled step at 32k positions of synthetic history
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    for i in range(cfg.n_layers):
+        for name in ("k", "v"):
+            codes, scales = quantize_kv(torch.randn(
+                (STATIC_B, STATIC_FILL, cfg.n_kv_heads, cfg.hd),
+                generator=g, device="cuda", dtype=torch.bfloat16))
+            cache[name][i, :, :STATIC_FILL] = codes
+            cache[f"{name}_scale"][i, :, :STATIC_FILL] = scales
+    step = build_serve_step(cfg)
+    pos = torch.tensor(STATIC_FILL, dtype=torch.int32, device="cuda")
+    tok = out[:, -1:]
+
+    def one():
+        nonlocal pos
+        step(params, cache, tok, pos)
+        pos = pos + 1
+
+    profile_steps(one, 8, f"bf16 static int8 decode step at 4 x "
+                          f"{STATIC_FILL}-{STATIC_FILL + 16} positions "
+                          f"(synthetic history)")
+    del cache, params
+    return launches
+
+
 KERNELS = {
     "gqsa_gemv": dict(
         source="src/repro_torch/csrc/gqsa_gemv.cu",
@@ -1899,6 +2174,14 @@ KERNELS = {
              "src/repro/models/moe.py:91): 64 experts, C=1, the occupied "
              "experts of one 4-slot step, bf16 x; 'deepseek_v2_layer' "
              "holds a DeepSeek-V2 layer (160 experts)"),
+    "kv_decode_attention": dict(
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/ops.py:261",
+        unit="one layer's int8 decode attention over the contiguous cache "
+             "(paged_attention_pallas in int8 mode under identity block "
+             "tables; the int8 mode of the CUDA page walk over the cache "
+             "viewed as pages of 64): 4 sequences, KH=32, R=1, D=128, "
+             "length 32768; 'lengths' holds 4096 and 32768"),
 }
 
 
@@ -1954,13 +2237,21 @@ def main() -> int:
     launches["deepseek w4 engine"] = phase_model_deepseek_w4()
     log(f"[time] the W4 expert axis, deepseek-moe-16b and DeepSeek-V2 W4 "
         f"phases {time.time() - t_moe:.1f}s")
+    torch.cuda.empty_cache()
+    t_static = time.time()
+    errs["kv_decode_attention"] = phase_kv_decode_check()
+    times["kv_decode_attention"] = phase_kv_decode_timing(timer)
+    launches["static int8 serve"] = phase_static()
+    log(f"[time] the static-batch contiguous path (phase 18) "
+        f"{time.time() - t_static:.1f}s")
     path_of = {"gqsa_gemv": "gqsa serve", "paged_attention": "gqsa serve",
                "w4_matmul": "w4 serve",
                "paged_attention_int8": "int8-kv engine",
                "paged_attention_tree": "tree serve",
                "gqsa_gemv_experts": "deepseek engine",
                "paged_attention_latent": "deepseek engine",
-               "w4_matmul_experts": "deepseek-moe w4 serve"}
+               "w4_matmul_experts": "deepseek-moe w4 serve",
+               "kv_decode_attention": "static int8 serve"}
     kernels = [dict(name=k, route="cuda", source=v["source"],
                     replaces=v["replaces"],
                     launches=launches[path_of[k]][k],
@@ -1981,6 +2272,8 @@ def main() -> int:
         "w4_matmul_experts_tc"]
     w4x["occupied"] = times["w4_matmul_experts"]["occupied"]
     w4x["deepseek_v2_layer"] = times["w4_matmul_experts"]["deepseek_v2_layer"]
+    kvd = next(k for k in kernels if k["name"] == "kv_decode_attention")
+    kvd["lengths"] = times["kv_decode_attention"]["lengths"]
     require(all(k["launches"] > 0 for k in kernels),
             "every kernel launched on its main path")
     log(f"[time] chip_smoke total {time.time() - t_start:.1f}s")

@@ -17,7 +17,13 @@ the plain version (30 launches):
   * tree, bf16, the (4,2,2) verify (T=29), lengths ~64 and ~256;
   * latent (DeepSeek-V2: H=128, D=576, v_rank 512, bf16), T=1 at the same
     serve lengths (both tables) and 256 x 4, and the (2,2) verify block
-    (T=7) at ~256.
+    (T=7) at ~256;
+  * contiguous (``kv_decode_attention``: the int8 mode over a contiguous
+    int8 cache viewed as pages of 64 under identity tables), KH=32, R=1,
+    D=128, full lengths 4096 and 32768 (a checkout without the route
+    skips them).
+``--cases`` keeps the cases whose label starts with one of its comma
+list of prefixes.
 Inputs come from the same seed in every turn, and each turn checks its
 output against the plain version first. ``--splits`` also times the named
 split counts in turns whose wrapper takes ``n_split`` in that mode (a
@@ -54,7 +60,36 @@ CASES = (("plain serve", "plain", None, SERVE, None),
          ("latent serve, live table", "latent", None, SERVE, 2),
          ("latent 256", "latent", None, [256] * 4, None),
          ("latent tree (2,2) ~256", "latent", (2, 2), [240, 235, 245, 230],
-          None))
+          None),
+         ("contiguous 4096", "contiguous", None, [4096] * 4, None),
+         ("contiguous 32768", "contiguous", None, [32768] * 4, None))
+
+
+def _contiguous(cs, lens, g):
+    """The ``_operands`` of a contiguous int8 cache of max(lens)
+    positions, through ``kv_decode_attention``'s page view."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    b = len(lens)
+    q, k8, ks, v8, vs = cs._kv_cache_case(g, max(lens), b)
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    kp, ksp, vp, vsp, tables = ops.contiguous_pages(k8, ks, v8, vs)
+    lq, live = ops.paged_query_prep(ln, tables, b, 1, kp.shape[1])
+
+    def call(**extra):
+        return paged_attention_cuda(q, kp, vp, lq, tables, live, 1, ksp,
+                                    vsp, contiguous=True, **extra)
+
+    def plain():
+        return ops.kv_decode_attention(q, k8, ks, v8, vs, ln, plain=True)
+    kk, vv = ((c.float() * sc[..., None]).to(torch.bfloat16)
+              .permute(0, 2, 1, 3).contiguous()
+              for c, sc in ((k8, ks), (v8, vs)))
+    qs = q.to(torch.bfloat16)
+    return call, plain(), plain, lambda: F.scaled_dot_product_attention(
+        qs, kk, vv), tables.shape[1]
 
 
 def latent_bound(cs, fanout, lens):
@@ -160,7 +195,7 @@ def _operands(cs, mode, fanout, lens, cols, g):
     return call, ref, plain, sdpa
 
 
-def time_cases(name: str, root: str, splits) -> None:
+def time_cases(name: str, root: str, splits, prefixes=()) -> None:
     root = os.path.abspath(root)
     sys.path[:0] = [os.path.join(root, "src"), root]
     import torch
@@ -174,8 +209,15 @@ def time_cases(name: str, root: str, splits) -> None:
     timer = cs.Timer()
     g = torch.Generator(device="cuda").manual_seed(cs.SEED + 12)
     for label, mode, fanout, lens, cols in CASES:
-        call, ref, plain, sdpa = _operands(cs, mode, fanout, lens, cols,
-                                           g)
+        if prefixes and not label.startswith(tuple(prefixes)):
+            continue
+        if mode == "contiguous":
+            if not hasattr(cs, "_kv_cache_case"):
+                continue
+            call, ref, plain, sdpa, cols = _contiguous(cs, lens, g)
+        else:
+            call, ref, plain, sdpa = _operands(cs, mode, fanout, lens, cols,
+                                               g)
         o = call()
         rel = ((o - ref).abs().max() / ref.abs().max()).item()
         if not rel <= cs.TOL:
@@ -188,7 +230,7 @@ def time_cases(name: str, root: str, splits) -> None:
             bound = "; bound %.2fus by %s" % latent_bound(cs, fanout, lens)
         print(f"RESULT {name} {label} {us:.2f}us (rel {rel:.1e}; sdpa "
               f"{sd:.2f}us; plain {pl:.1f}us{bound})", flush=True)
-        if mode != "plain" and not every_mode:
+        if mode not in ("plain", "contiguous") and not every_mode:
             continue
         for s in splits:
             if s > (cols or 16):                # at most a split a column
@@ -206,6 +248,8 @@ def main(argv=None) -> int:
                     help="comma list of names (default: each tree once)")
     ap.add_argument("--splits", default="",
                     help="comma list of split counts to time as well")
+    ap.add_argument("--cases", default="",
+                    help="comma list of case-label prefixes to time")
     ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.bounds:
@@ -219,13 +263,15 @@ def main(argv=None) -> int:
         return 0
     trees = dict(t.split("=", 1) for t in args.trees)
     splits = [int(s) for s in args.splits.split(",") if s]
+    prefixes = [c for c in args.cases.split(",") if c]
     if args.one is not None:
-        time_cases(args.one, trees[args.one], splits)
+        time_cases(args.one, trees[args.one], splits, prefixes)
         return 0
     order = args.order.split(",") if args.order else list(trees)
     for name in order:
         subprocess.run([sys.executable, os.path.abspath(__file__),
                         *args.trees, "--splits", args.splits,
+                        "--cases", args.cases,
                         "--one", name], check=True)
     return 0
 

@@ -7,8 +7,10 @@ from typing import List
 from repro_torch.configs.base import ModelConfig
 
 # the paper's own benchmark model, the MoE family's and the MLA + MoE
-# family's one config each; the reference's other architectures are later
-# slices of the port (ROADMAP queue A)
+# family's one config each; not yet ported: the other dense configs
+# (yi_34b, starcoder2_3b, qwen3_14b, mistral_nemo_12b: ROADMAP A.3), the
+# vlm family's llava_next_mistral_7b (A.7.3) and the families without a
+# paged cache, zamba2_7b, mamba2_130m and seamless_m4t_large_v2 (A.8)
 ARCH_IDS = ["llama2_7b", "deepseek_moe_16b", "deepseek_v2_236b"]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}

@@ -2,9 +2,9 @@
 oracles that the CUDA kernels are held against on the card.
 
 Same math as the reference's oracles (``src/repro/kernels/ref.py``), with
-one deliberate difference: a paged-attention row (plain or latent) whose
-length is 0 returns exact zeros, as both the TPU and the CUDA kernels do,
-where the reference's oracle returns NaN.
+one deliberate difference: an attention row (paged plain or latent, or
+the contiguous int8 cache) whose length is 0 returns exact zeros, as both
+the TPU and the CUDA kernels do, where the reference's oracle returns NaN.
 """
 from __future__ import annotations
 
@@ -130,6 +130,24 @@ def attention_scale(d: int) -> float:
     """1/sqrt(D) rounded as f32 arithmetic rounds it (the reference and
     the kernel compute it in f32); exact as a Python float."""
     return float(np.float32(1.0) / np.sqrt(np.float32(d)))
+
+
+def kv_decode_attention_ref(q, k_cache, k_scale, v_cache, v_scale, length):
+    """int8-KV decode attention over a contiguous cache, in f32.
+
+    q: [B, KH, R, D]; k/v_cache: int8 [B, S, KH, D]; k/v_scale: f32
+    [B, S, KH] (dequantized as code * scale); length: [] / [B] valid
+    prefix. Returns [B, KH, R, D] f32; rows of length 0 are zeros (the
+    reference's oracle returns NaN there)."""
+    b, s, khn, d = k_cache.shape
+    k = k_cache.float() * k_scale[..., None]
+    v = v_cache.float() * v_scale[..., None]
+    sco = torch.einsum("bkrd,bskd->bkrs", q.float(), k) * attention_scale(d)
+    lq = torch.as_tensor(length, device=q.device).reshape(-1, 1)
+    valid = (torch.arange(s, device=q.device)[None, :] < lq)[:, None, None]
+    sco = torch.where(valid, sco, -torch.inf)
+    p = torch.where(valid, torch.softmax(sco, dim=-1), 0.0)
+    return torch.einsum("bkrs,bskd->bkrd", p, v)
 
 
 def paged_attention_ref(q, k_pages, v_pages, lengths, block_tables,

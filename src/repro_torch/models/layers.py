@@ -1,6 +1,7 @@
-"""Shared building blocks: norms, RoPE, prefill attention, paged decode
-attention, MLP. Every linear routes through ``core.gqs_layer.apply_linear``
-so the blocks accept FP or packed-GQSA parameters alike.
+"""Shared building blocks: norms, RoPE, full-sequence attention, decode
+attention on the paged pool and on the contiguous cache, MLP. Every
+linear routes through ``core.gqs_layer.apply_linear`` so the blocks
+accept FP or packed-GQSA parameters alike.
 
 ``plain=True`` (kernel-vs-plain checks only) sends the kernels' work
 through their plain PyTorch versions even on the card.
@@ -323,6 +324,114 @@ def attention_decode_paged(p: Dict, x: torch.Tensor, cache: Dict,
         anc=step.anc, anc_base=step.base, anc_window=step.window,
         plain=plain, prep=step.kernel_prep).to(q.dtype)
     return apply_linear(p["wo"], o.reshape(b, t, -1), plain=plain)
+
+
+def attention_block(p: Dict, x: torch.Tensor, positions: torch.Tensor, cfg,
+                    plain: bool = False, rope=None) -> torch.Tensor:
+    """Full-sequence causal attention (forward / prefill): x [B, S, d] at
+    ``positions`` [B, S] (``rope``: their :func:`rope_table`)."""
+    b, s, _ = x.shape
+    q, k, v = attn_qkv(p, x, positions, cfg, plain, rope)
+    o = causal_attention(q, k, v)
+    return apply_linear(p["wo"], o.reshape(b, s, -1), plain=plain)
+
+
+# ---------------------------------------------------------------------------
+# contiguous cache (static batch): [B, S, ...] per layer, one token a step
+# ---------------------------------------------------------------------------
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, length) -> torch.Tensor:
+    """Short-query attention against a contiguous bf16/f32 cache, plain
+    PyTorch, the reference's math: q [B, T, H, D] cast to the cache's
+    dtype, products summed in f32, p cast to the values' dtype before
+    P.V. k_cache [B, S, KH, D]; v_cache [B, S, KH, Dv]; length [] / [B] /
+    [B, T] valid prefix per query. Returns [B, T, H, Dv] in q's dtype
+    (rows of length 0: NaN, as the reference's)."""
+    b, s, khn, d = k_cache.shape
+    dv = v_cache.shape[-1]
+    t, h = q.shape[1], q.shape[2]
+    r = h // khn
+    # the cache's dtype rounds q; the products of two bf16 values are exact
+    # in f32, so f32 operands give the reference's f32-accumulated dot
+    qh = q.reshape(b, t, khn, r, d).to(k_cache.dtype).float()
+    sco = torch.einsum("btkrd,bskd->bkrts", qh, k_cache.float()) \
+        * attention_scale(d)
+    valid = staircase_mask(length, b, t, s)[:, None, None]   # [B,1,1,T,S]
+    sco = torch.where(valid, sco, -torch.inf)
+    p = torch.softmax(sco, dim=-1).to(v_cache.dtype).float()
+    o = torch.einsum("bkrts,bskd->btkrd", p, v_cache.float())
+    return o.reshape(b, t, h, dv).to(q.dtype)
+
+
+@dataclasses.dataclass
+class CacheWrite:
+    """Where a contiguous decode step writes its token in every layer: row
+    ``slot`` [B] at position ``index`` [B], kept where ``keep`` [B]. A
+    write at ``pos >= max_seq`` is dropped (the reference's shared-``pos``
+    update clamps it into the last position and its per-slot one drops
+    it); ``index`` is clamped so the dropped entry rewrites its own old
+    value. No index is a 0-dim tensor (a host read per layer)."""
+    slot: torch.Tensor
+    index: torch.Tensor
+    keep: torch.Tensor
+
+
+def plan_cache_write(pos: torch.Tensor, b: int, max_seq: int) -> CacheWrite:
+    """``pos``: [] shared or [B] per-slot write position."""
+    pos = torch.as_tensor(pos).reshape(-1).expand(b).long()
+    return CacheWrite(slot=torch.arange(b, device=pos.device),
+                      index=pos.clamp(0, max_seq - 1), keep=pos < max_seq)
+
+
+def write_cache_(buf: torch.Tensor, w: CacheWrite,
+                 new: torch.Tensor) -> None:
+    """In place: ``buf`` [B, S, ...] gets ``new`` [B, 1, ...] at each kept
+    slot's position."""
+    new = new[:, 0].to(buf.dtype)
+    keep = w.keep.reshape((-1,) + (1,) * (new.ndim - 1))
+    buf.index_put_((w.slot, w.index),
+                   torch.where(keep, new, buf[w.slot, w.index]))
+
+
+def attention_decode(p: Dict, x: torch.Tensor, cache: Dict,
+                     pos: torch.Tensor, cfg, plain: bool = False,
+                     rope=None, write: Optional[CacheWrite] = None
+                     ) -> torch.Tensor:
+    """One decode step of one token against one layer's contiguous cache,
+    which it writes IN PLACE: {"k"/"v": [B, S, KH, D]} in bf16 or f32, or
+    int8 codes with {"k_scale"/"v_scale": [B, S, KH]} f32 (the token's K/V
+    quantized by :func:`quantize_kv`).
+
+    x: [B, 1, d]; pos: [] shared step index or [B] per-slot positions;
+    query b sees positions < pos + 1. The int8 cache always takes the
+    kernel's math (``ops.kv_decode_attention``: dequantized tiles, f32
+    products), for a shared and a per-slot ``pos`` alike; the reference
+    takes it only for a shared ``pos`` under ``use_pallas`` and
+    re-quantizes q and p otherwise (ROADMAP C.4). The bf16/f32 cache
+    takes :func:`decode_attention`. ``rope`` / ``write``: the step's
+    :func:`rope_table` and :func:`plan_cache_write`, which the model
+    computes once for all layers; built here when absent."""
+    b = x.shape[0]
+    h, khn, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    positions = torch.as_tensor(pos).reshape(-1, 1).expand(b, 1)
+    if write is None:
+        write = plan_cache_write(pos, b, cache["k"].shape[1])
+    q, k, v = attn_qkv(p, x, positions, cfg, plain, rope)
+    if "k_scale" in cache:
+        (k, k_sc), (v, v_sc) = quantize_kv(k), quantize_kv(v)
+        for name, new in (("k", k), ("v", v), ("k_scale", k_sc),
+                          ("v_scale", v_sc)):
+            write_cache_(cache[name], write, new)
+        o = kops.kv_decode_attention(
+            q.reshape(b, khn, h // khn, hd), cache["k"], cache["k_scale"],
+            cache["v"], cache["v_scale"], pos + 1, plain=plain)
+        o = o.reshape(b, 1, h, hd).to(x.dtype)
+    else:
+        write_cache_(cache["k"], write, k)
+        write_cache_(cache["v"], write, v)
+        o = decode_attention(q, cache["k"], cache["v"], pos + 1)
+    return apply_linear(p["wo"], o.reshape(b, 1, -1), plain=plain)
 
 
 def mlp_block(p: Dict, x: torch.Tensor, mlp_type: str,

@@ -1,5 +1,5 @@
 """Multi-head Latent Attention (DeepSeek-V2, arXiv:2405.04434) on the paged
-latent pool.
+latent pool and on the contiguous latent cache.
 
 KV is compressed to a rank-``kv_lora_rank`` latent plus one shared RoPE
 key head; the pool stores one row of ``kv_lora_rank + qk_rope_dim`` per
@@ -8,7 +8,8 @@ and no V pool. Prefill attends unabsorbed (K and V up-projected once for
 the whole sequence); decode uses the absorbed form: q_nope goes through
 W_UK so scores contract against the latent rows directly, and the context
 goes through W_UV after attention (the latent mode of the paged-attention
-kernel in between).
+kernel in between; on the contiguous cache, plain attention as in the
+reference).
 
 w_qa / w_qb / w_kva / wo are GQS-compressible linears; w_uk / w_uv stay
 dense f32 and are cast to the activation dtype before their einsums, as
@@ -74,6 +75,24 @@ def mla_prefill_paged(p: Dict, x: torch.Tensor, cfg, rope,
     return out, torch.cat([c_kv, k_rope], dim=-1)
 
 
+def mla_block(p: Dict, x: torch.Tensor, cfg, rope,
+              plain: bool = False) -> torch.Tensor:
+    """Full-sequence causal MLA (forward / prefill). x: [B, S, d] ->
+    [B, S, d]; ``rope`` as :func:`mla_q`."""
+    return mla_prefill_paged(p, x, cfg, rope, plain)[0]
+
+
+def mla_cache_init(cfg, batch: int, max_seq: int, dtype,
+                   device=None) -> Dict:
+    """One layer's contiguous latent cache: post-norm ``c_kv`` [B, S, R]
+    and post-RoPE ``k_rope`` [B, S, rope], zeroed."""
+    m = cfg.mla
+    return {"c_kv": torch.zeros((batch, max_seq, m.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_seq, m.qk_rope_dim),
+                                  dtype=dtype, device=device)}
+
+
 def absorbed_q(p: Dict, q_nope: torch.Tensor, q_rope: torch.Tensor,
                cfg) -> torch.Tensor:
     """W_UK absorbed into q, so scores contract against the latent rows:
@@ -115,3 +134,28 @@ def mla_decode_paged(p: Dict, x: torch.Tensor, cache: Dict, cfg,
         plain=plain, prep=step.kernel_prep).to(q.dtype)
     v = torch.einsum("bshr,hvr->bshv", ctx, p["w_uv"].to(ctx.dtype))
     return apply_linear(p["wo"], v.reshape(b, t, -1), plain=plain)
+
+
+def mla_decode(p: Dict, x: torch.Tensor, cache: Dict, pos, cfg, rope,
+               write: L.CacheWrite, plain: bool = False) -> torch.Tensor:
+    """Absorbed single-token decode against one layer's contiguous latent
+    cache ``{"c_kv": [B, S, R], "k_rope": [B, S, rope]}``, which it writes
+    IN PLACE before attention reads it. Attention is
+    :func:`layers.decode_attention` over the concatenated latent rows (one
+    KV head; the values are the ``c_kv`` part), plain PyTorch as in the
+    reference.
+
+    x: [B, 1, d]; pos: [] shared or [B] per-slot positions (the reference
+    takes a shared one only); ``rope``: the step's rope-width table;
+    ``write``: its :func:`layers.plan_cache_write`. Returns [B, 1, d]."""
+    b = x.shape[0]
+    q_nope, q_rope = mla_q(p, x, cfg, rope, plain)
+    c_kv_new, k_rope_new = mla_kv_latent(p, x, cfg, rope, plain)
+    L.write_cache_(cache["c_kv"], write, c_kv_new)
+    L.write_cache_(cache["k_rope"], write, k_rope_new)
+    c_kv = cache["c_kv"]
+    q = absorbed_q(p, q_nope, q_rope, cfg)                  # [B,1,H,R+r]
+    k_cat = torch.cat([c_kv, cache["k_rope"]], dim=-1)[:, :, None, :]
+    ctx = L.decode_attention(q, k_cat, c_kv[:, :, None, :], pos + 1)
+    v = torch.einsum("bshr,hvr->bshv", ctx, p["w_uv"].to(ctx.dtype))
+    return apply_linear(p["wo"], v.reshape(b, 1, -1), plain=plain)

@@ -13,12 +13,12 @@ Beyond the reference: each expert's row count (``min(count, capacity)``)
 is computed on the device and handed to the expert kernel, which skips
 the empty buffer rows and never reads an expert that holds none. Those
 rows are zeros whose products the keep mask discards, so the skip changes
-no number. Expert parallelism and the router's aux loss (training's) are
-not ported (ROADMAP A.9, A.7.4).
+no number. The router's aux loss is computed for ``forward``; training,
+which uses it, and expert parallelism are not ported (ROADMAP A.6, A.9).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,22 +33,29 @@ def capacity(tokens: int, moe) -> int:
                       * moe.capacity_factor))
 
 
-def route(router_p: Dict, x: torch.Tensor, moe) -> Tuple[torch.Tensor,
-                                                         torch.Tensor]:
-    """x: [T, d] -> (gates [T, K] f32, expert ids [T, K] int64).
+def route(router_p: Dict, x: torch.Tensor, moe, aux: bool = True
+          ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """x: [T, d] -> (gates [T, K] f32, expert ids [T, K] int64, the
+    load-balancing aux loss E * sum_e f_e * mean_t P_e, or None without
+    ``aux``), f_e the share of tokens that route to expert e.
 
     Router logits and softmax in f32; the top k probabilities with ties
     broken toward the lower expert id, as the reference's ``lax.top_k``
     breaks them (``torch.topk`` promises no order for ties, so a stable
     descending sort picks them); gates renormalised over the k with a
-    1e-9 floor."""
+    1e-9 floor. The serving steps pass ``aux=False``: eager PyTorch would
+    compute the unused loss (XLA drops it from the reference's steps)."""
     logits = apply_linear(router_p, x.float())
     probs = torch.softmax(logits, dim=-1)                   # [T, E]
     top_vals, top_idx = torch.sort(probs, dim=-1, descending=True,
                                    stable=True)
     top_vals, top_idx = top_vals[:, :moe.top_k], top_idx[:, :moe.top_k]
     gates = top_vals / torch.clamp_min(top_vals.sum(-1, keepdim=True), 1e-9)
-    return gates, top_idx
+    loss = None
+    if aux:
+        f = torch.zeros_like(probs).scatter_(1, top_idx, 1.0).mean(0)
+        loss = moe.n_experts * torch.sum(f * probs.mean(0))
+    return gates, top_idx, loss
 
 
 def expert_ffn(experts: Dict, x_buf: torch.Tensor, rows: torch.Tensor,
@@ -88,16 +95,18 @@ def dispatch_compute(x: torch.Tensor, gates: torch.Tensor,
     return y.reshape(t, k, d).sum(1)
 
 
-def moe_block(p: Dict, x: torch.Tensor, cfg,
-              plain: bool = False) -> torch.Tensor:
-    """x: [B, S, d] -> y [B, S, d]: the routed experts plus the fused
-    shared experts. Capacity counts all B * S rows."""
+def moe_block(p: Dict, x: torch.Tensor, cfg, plain: bool = False,
+              aux: bool = True) -> Tuple[torch.Tensor,
+                                         Optional[torch.Tensor]]:
+    """x: [B, S, d] -> (y [B, S, d], the router's aux loss, or None
+    without ``aux``): the routed experts plus the fused shared experts.
+    Capacity counts all B * S rows."""
     moe = cfg.moe
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
-    gates, top_idx = route(p["router"], xf, moe)
+    gates, top_idx, loss = route(p["router"], xf, moe, aux)
     y = dispatch_compute(xf, gates, top_idx, p["experts"], moe.n_experts,
                          capacity(b * s, moe), plain)
     if "shared" in p:
         y = y + mlp_block(p["shared"], xf, "swiglu", plain)
-    return y.reshape(b, s, d)
+    return y.reshape(b, s, d), loss

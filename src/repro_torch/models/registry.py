@@ -5,10 +5,14 @@
     cache = api.init_paged_cache(cfg, num_pages, page_size, device=device)
     logits, cache = api.prefill(params, cache, tokens, lengths, tables, cfg)
     logits, cache = api.decode_step(params, cache, tok, pos, cfg, tables)
+    logits, aux = api.forward(params, {"tokens": tokens}, cfg)
+    cache = api.init_cache(cfg, batch_size, max_seq, device=device)
+    logits, cache = api.decode_step(params, cache, tok, pos, cfg)
 
-The dense, MoE (``moe``) and MLA + MoE (``mla_moe``) families are
-ported; the reference's other families are later slices (ROADMAP A.7.3,
-A.8).
+``batch`` is a dict, as in the reference: ``tokens`` [B, S]. The dense,
+MoE (``moe``) and MLA + MoE (``mla_moe``) families are ported, on the
+paged pool and on the contiguous cache; the reference's other families
+are later slices (ROADMAP A.7.3, A.8).
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ from repro_torch.models import transformer
 class ModelAPI:
     init_params: Callable
     decode_step: Callable
+    forward: Callable        # (params, batch, cfg, plain, last_only)
+    init_cache: Callable     # (cfg, batch_size, max_seq, dtype, device)
     init_paged_cache: Optional[Callable] = None
     prefill: Optional[Callable] = None
 
@@ -32,7 +38,14 @@ class ModelAPI:
         return self.init_paged_cache is not None and self.prefill is not None
 
 
+def _tf_forward(params, batch: Dict, cfg, plain: bool = False,
+                last_only: bool = False):
+    return transformer.forward(params, batch["tokens"], cfg, plain,
+                               last_only)
+
+
 _DECODER = ModelAPI(transformer.init_params, transformer.decode_step,
+                    _tf_forward, transformer.init_cache,
                     init_paged_cache=transformer.init_paged_cache,
                     prefill=transformer.prefill)
 _FAMILIES: Dict[str, ModelAPI] = {"dense": _DECODER, "moe": _DECODER,

@@ -1,6 +1,6 @@
 """Decoder-only LM, dense, MoE (``moe``) and MLA + MoE (``mla_moe``)
-families: init, batched prefill into the paged pool, and the fused decode
-step.
+families: init, the full-sequence forward, batched prefill into the paged
+pool, and the decode step on the paged pool or on the contiguous cache.
 
 Parameters keep the reference's tree layout: nested dicts whose per-layer
 leaves are stacked [L, ...] (``params["layers"]["attn"]["wq"]["w"]`` is
@@ -239,6 +239,111 @@ def unembed(params: Dict, h: torch.Tensor, cfg) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# forward (full sequence)
+# ---------------------------------------------------------------------------
+
+def _mixer(lp: Dict, hn: torch.Tensor, cfg, plain: bool,
+           aux: bool = False) -> Tuple[torch.Tensor,
+                                       Optional[torch.Tensor]]:
+    """The layer's feed-forward half: routed + shared experts, or the
+    MLP; with the router's aux loss when ``aux`` and the layer has one
+    (else None)."""
+    if cfg.moe is not None:
+        return MOE.moe_block(lp["moe"], hn, cfg, plain, aux)
+    return L.mlp_block(lp["mlp"], hn, cfg.mlp_type, plain), None
+
+
+def forward(params: Dict, tokens: torch.Tensor, cfg, plain: bool = False,
+            last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: [B, S] -> (logits [B, S, V] (``last_only``: [B, 1, V] at
+    the last position), the router's aux loss summed over the layers and
+    divided by their count: f32 [], 0 without routed experts). Causal
+    attention over the whole sequence, no cache."""
+    b, s = tokens.shape
+    h = embed_tokens(params, tokens, cfg)
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device)[None, :].expand(b, s)
+    rope = L.rope_table(positions, L.rope_dim(cfg), cfg.rope_theta)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        hn = L.rmsnorm(h, lp["ln1"], cfg.norm_eps)
+        if cfg.family == "mla_moe":
+            h = h + MLA.mla_block(lp["attn"], hn, cfg, rope, plain)
+        else:
+            h = h + L.attention_block(lp["attn"], hn, positions, cfg, plain,
+                                      rope)
+        hn = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)
+        m, aux_l = _mixer(lp, hn, cfg, plain, aux=True)
+        h = h + m
+        if aux_l is not None:
+            aux = aux + aux_l
+    if last_only:
+        h = h[:, -1:]
+    return unembed(params, h, cfg), aux / cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# contiguous cache (static batch)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, max_seq: int, dtype=None,
+               device=None) -> Dict:
+    """Contiguous decode cache, zeroed, leaves [L, B, S, ...]: K/V [L, B,
+    S, KH, D] in ``dtype`` (default the compute dtype), or, with
+    ``cfg.kv_cache_dtype == "int8"``, int8 codes beside f32 scales [L, B,
+    S, KH]; ``mla_moe`` keeps its latent, ``{"c_kv": [L, B, S, R],
+    "k_rope": [L, B, S, rope]}`` in ``dtype`` whatever
+    ``kv_cache_dtype`` says, as in the reference. The decode step writes
+    it in place."""
+    dev = resolve_device(device)
+    dt = dtype or cfg.compute_dtype
+    lyr = cfg.n_layers
+    if cfg.family == "mla_moe":
+        # one layer's layout, on the meta device (nothing allocated)
+        one = MLA.mla_cache_init(cfg, batch, max_seq, dt, "meta")
+        return {k: torch.zeros((lyr,) + v.shape, dtype=dt, device=dev)
+                for k, v in one.items()}
+    shape = (lyr, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "k_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=dev),
+                "v_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=dev)}
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def _decode_contiguous(params: Dict, cache: Dict, tokens: torch.Tensor,
+                       pos: torch.Tensor, cfg, plain: bool) -> torch.Tensor:
+    """The contiguous branch of :func:`decode_step`: logits [B, 1, V]."""
+    b, t = tokens.shape
+    if t != 1:
+        raise ValueError(f"the contiguous cache decodes one token a step, "
+                         f"got T={t}")
+    max_seq = next(iter(cache.values())).shape[2]
+    # rotations and cache rows are the same in every layer
+    positions = torch.as_tensor(pos).reshape(-1, 1).expand(b, 1)
+    rope = L.rope_table(positions, L.rope_dim(cfg), cfg.rope_theta)
+    write = L.plan_cache_write(pos, b, max_seq)
+    h = embed_tokens(params, tokens, cfg)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        hn = L.rmsnorm(h, lp["ln1"], cfg.norm_eps)
+        if cfg.family == "mla_moe":
+            h = h + MLA.mla_decode(lp["attn"], hn, layer_cache(cache, i),
+                                   pos, cfg, rope, write, plain)
+        else:
+            h = h + L.attention_decode(lp["attn"], hn, layer_cache(cache, i),
+                                       pos, cfg, plain, rope, write)
+        hn = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)
+        h = h + _mixer(lp, hn, cfg, plain)[0]
+    return unembed(params, h, cfg)
+
+
+# ---------------------------------------------------------------------------
 # paged KV pool, prefill, decode
 # ---------------------------------------------------------------------------
 
@@ -282,14 +387,6 @@ def pool_geometry(cache: Dict) -> Tuple[int, int]:
     return num_pages, page_size
 
 
-def _mixer(lp: Dict, hn: torch.Tensor, cfg, plain: bool) -> torch.Tensor:
-    """The layer's feed-forward half: routed + shared experts, or the
-    MLP."""
-    if cfg.moe is not None:
-        return MOE.moe_block(lp["moe"], hn, cfg, plain)
-    return L.mlp_block(lp["mlp"], hn, cfg.mlp_type, plain)
-
-
 def prefill(params: Dict, cache: Dict, tokens: torch.Tensor,
             lengths: torch.Tensor, block_tables: torch.Tensor, cfg,
             plain: bool = False) -> Tuple[torch.Tensor, Dict]:
@@ -326,19 +423,24 @@ def prefill(params: Dict, cache: Dict, tokens: torch.Tensor,
                                  plain=plain)
             L.write_kv_(layer_cache(cache, i), write, k, v)
         hn = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)
-        h = h + _mixer(lp, hn, cfg, plain)
+        h = h + _mixer(lp, hn, cfg, plain)[0]
     last = (lengths.long() - 1).clamp_min(0)
     h_last = h[torch.arange(b, device=h.device), last][:, None]
     return unembed(params, h_last, cfg), cache
 
 
 def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
-                pos: torch.Tensor, cfg, block_tables: torch.Tensor,
+                pos: torch.Tensor, cfg,
+                block_tables: Optional[torch.Tensor] = None,
                 max_live_pages: Optional[int] = None,
                 plain: bool = False,
                 tree: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
-    """tokens: [B, T]; pos: [B] per-slot write positions (token t lands at
-    pos + t); block_tables: [B, MP]. Writes the pool in place.
+    """tokens: [B, T]. ``cache`` is the paged pool of
+    :func:`init_paged_cache` (``block_tables`` [B, MP] required; pos: [B]
+    per-slot write positions, token t lands at pos + t) or the contiguous
+    cache of :func:`init_cache` (T = 1; pos: [] shared step index or [B]
+    per-slot positions; no ``tree``), told apart by their keys as the
+    reference does. Writes the cache in place.
 
     ``tree`` switches the T fed tokens to token-tree semantics:
     ``{"depths": [T], "anc": [T], "window": int, "start": int}`` — RoPE at
@@ -351,6 +453,13 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     page count: every slot's reservation fits in the leading entries, so
     the trailing all-sentinel columns carry no information. Returns
     (logits [B, T, V], cache)."""
+    if "k_pages" not in cache and "lat_pages" not in cache:
+        if tree is not None:
+            raise ValueError("token-tree decode requires the paged cache")
+        return _decode_contiguous(params, cache, tokens, pos, cfg,
+                                  plain), cache
+    if block_tables is None:
+        raise ValueError("paged cache decode requires block_tables")
     if max_live_pages is not None:
         block_tables = block_tables[
             :, :max(1, min(max_live_pages, block_tables.shape[1]))]
@@ -372,5 +481,5 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
                                              step.block_tables, pos, cfg,
                                              plain, step)
         hn = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)
-        h = h + _mixer(lp, hn, cfg, plain)
+        h = h + _mixer(lp, hn, cfg, plain)[0]
     return unembed(params, h, cfg), cache

@@ -956,3 +956,81 @@ def test_moe_w4_decode_step_never_reads_the_device_on_the_host(cuda):
     reads = [e.key for e in prof.key_averages()
              if e.key in ("aten::_local_scalar_dense", "aten::item")]
     assert not reads, reads
+
+
+def _kv_cache(cuda, b, s, kh=32, d=128):
+    """A contiguous int8 cache of quantized random K/V: (k, k_scale, v,
+    v_scale)."""
+    from repro_torch.models.layers import quantize_kv
+    (k8, ks), (v8, vs) = (quantize_kv(torch.randn((b, s, kh, d),
+                                                  generator=cuda,
+                                                  device="cuda"))
+                          for _ in range(2))
+    return k8, ks, v8, vs
+
+
+@pytest.mark.parametrize("s", [64, 1000, 4096, 37])
+def test_kv_decode_attention_kernel_matches_plain(cuda, s):
+    """The int8 mode over a contiguous cache's page view (pages of
+    gcd(S, 64): 64, 8, 64, 1) at the smoke's shapes, B=4 KH=32 R=1 D=128:
+    a shared length, per-slot lengths with a row of 0 (exact zeros) and
+    the full length; one launch a call, counted apart from the paged
+    pool's int8 mode; repeats bit-identical."""
+    b = 4
+    q = torch.randn((b, 32, 1, 128), generator=cuda, device="cuda")
+    cache = _kv_cache(cuda, b, s)
+    for ln in (s - 7, [s, 0, s // 3, 5], s):
+        ln = torch.tensor(ln, dtype=torch.int32, device="cuda")
+        before = (paged_attention_cuda.kv_decode_launches,
+                  paged_attention_cuda.int8_launches)
+        o = ops.kv_decode_attention(q, *cache, ln)
+        assert (paged_attention_cuda.kv_decode_launches,
+                paged_attention_cuda.int8_launches) == (before[0] + 1,
+                                                        before[1])
+        _close(o, ops.kv_decode_attention(q, *cache, ln, plain=True))
+        assert torch.equal(o, ops.kv_decode_attention(q, *cache, ln))
+        if ln.ndim:
+            assert (o[1] == 0).all()
+
+
+def test_kv_decode_attention_kernel_on_a_layer_slice(cuda):
+    """A layer's slice of an [L, B, S, KH, D] cache reaches the kernel as
+    it is (its pages stay 16-byte aligned: nothing is copied), with R = 4
+    query rows a KV head."""
+    k8, ks, v8, vs = _kv_cache(cuda, 3 * 2, 96, kh=4, d=64)
+    k8, ks, v8, vs = (t.reshape((3, 2) + t.shape[1:]) for t in
+                      (k8, ks, v8, vs))
+    q = torch.randn((2, 4, 4, 64), generator=cuda, device="cuda")
+    ln = torch.tensor([50, 96], device="cuda")
+    o = ops.kv_decode_attention(q, k8[1], ks[1], v8[1], vs[1], ln)
+    _close(o, ops.kv_decode_attention(q, k8[1], ks[1], v8[1], vs[1], ln,
+                                      plain=True))
+
+
+def test_static_serve_step_never_reads_the_device_on_the_host(cuda):
+    """The contiguous serve step of the reduced llama2-7b with an int8
+    cache (``kv_decode_attention`` in every layer), shared and per-slot
+    ``pos``, reads no tensor value on the host."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import transformer as ttf
+    cfg = dataclasses.replace(get_config("llama2_7b", reduced=True),
+                              kv_cache_dtype="int8")
+    params = ttf.init_params(0, cfg, "cuda", compress=GQSAConfig())
+    cache = ttf.init_cache(cfg, 2, 64, device="cuda")
+    serve = build_serve_step(cfg)
+    tok, _ = serve(params, cache, torch.tensor([[1], [2]], device="cuda"),
+                   torch.tensor(0, device="cuda"))
+    before = paged_attention_cuda.kv_decode_launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tok, _ = serve(params, cache, tok, torch.tensor(1, device="cuda"))
+        serve(params, cache, tok, torch.tensor([2, 5], device="cuda"))
+    torch.cuda.synchronize()
+    assert paged_attention_cuda.kv_decode_launches == \
+        before + 2 * cfg.n_layers
+    reads = [e.key for e in prof.key_averages()
+             if e.key in ("aten::_local_scalar_dense", "aten::item")]
+    assert not reads, reads

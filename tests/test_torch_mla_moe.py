@@ -128,11 +128,13 @@ def _router_inputs(d=64, e=8, t=12, seed=0, ties=False):
 def test_route_matches_reference(ties):
     cfg = get_config(ARCH, reduced=True)
     w, x = _router_inputs(ties=ties)
-    jg, ji, _ = jmoe._route({"w": jnp.asarray(w)}, jnp.asarray(x), cfg.moe)
-    tg, ti = tmoe.route({"w": torch.from_numpy(w)}, torch.from_numpy(x),
-                        cfg.moe)
+    jg, ji, jaux = jmoe._route({"w": jnp.asarray(w)}, jnp.asarray(x),
+                               cfg.moe)
+    tg, ti, taux = tmoe.route({"w": torch.from_numpy(w)},
+                              torch.from_numpy(x), cfg.moe)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     _close(tg, jg, 1e-6)
+    _close(taux, jaux, 1e-6)
 
 
 def test_route_breaks_ties_toward_the_lower_expert_id():
@@ -141,7 +143,8 @@ def test_route_breaks_ties_toward_the_lower_expert_id():
     moe = dataclasses.replace(get_config(ARCH, reduced=True).moe, top_k=1)
     w, x = _router_inputs(ties=True)
     w[:] = w[2]                                  # every expert ties
-    _, ti = tmoe.route({"w": torch.from_numpy(w)}, torch.from_numpy(x), moe)
+    _, ti, _ = tmoe.route({"w": torch.from_numpy(w)}, torch.from_numpy(x),
+                          moe)
     _, ji, _ = jmoe._route({"w": jnp.asarray(w)}, jnp.asarray(x), moe)
     assert (ti == 0).all() and (np.asarray(ji) == 0).all()
 
@@ -215,9 +218,10 @@ def test_moe_block_matches_reference(model, capacity_factor):
     jl, tl = _layer(model, True, "moe", 1)
     x = np.random.default_rng(2).normal(size=(3, 5, 64)).astype(np.float32)
     x[1, 3:] = 0.0                                      # padding rows
-    want, _ = jmoe.moe_block(jl, jnp.asarray(x), jcfg)
-    got = tmoe.moe_block(tl, torch.from_numpy(x), tcfg)
+    want, jaux = jmoe.moe_block(jl, jnp.asarray(x), jcfg)
+    got, aux = tmoe.moe_block(tl, torch.from_numpy(x), tcfg)
     _close(got, want)
+    _close(aux, jaux, 1e-6)
 
 
 def test_gqsa_gemv_experts_ref_matches_reference_per_expert(model):

@@ -241,9 +241,10 @@ def test_moe_block_matches_reference(model, packed, capacity_factor):
     tl = ttf.layer_params(tl, 1)
     x = np.random.default_rng(2).normal(size=(3, 5, 64)).astype(np.float32)
     x[1, 3:] = 0.0
-    want, _ = jmoe.moe_block(jl, jnp.asarray(x), jcfg)
-    got = tmoe.moe_block(tl, torch.from_numpy(x), tcfg)
+    want, jaux = jmoe.moe_block(jl, jnp.asarray(x), jcfg)
+    got, aux = tmoe.moe_block(tl, torch.from_numpy(x), tcfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
 
 
 def test_w4_experts_wrapper_never_falls_back(model):
