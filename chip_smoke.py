@@ -75,12 +75,12 @@ Phases (any failure exits non-zero before the result line is printed):
  17. DeepSeek-V2 under dense W4 G16 at 4 of its 60 layers: kernel vs
      plain logits on 2 layers and the engine serving 8 requests x 32 new
      tokens on 4 slots;
- 18. the static-batch contiguous path: kv_decode_attention (the int8 mode
-     of the page walk over a contiguous int8 cache viewed as pages under
-     identity tables) against its plain version at B=4 KH=32 R=1 D=128,
-     S in {64, 1000, 4096, 32768}, shared, per-slot (a row of 0: exact
-     zeros) and full lengths, repeats bit-identical; timed at 4096 and
-     32768 beside the plain version, SDPA and the bound; llama2-7b at
+ 18. the static-batch contiguous path: kv_decode_attention (its own
+     kernel over the contiguous int8 cache) against its plain version at
+     B=4 KH=32 R=1 D=128, S in {64, 1000, 4096, 32768}, shared, per-slot
+     (a row of 0: exact zeros) and full lengths, one launch a call,
+     repeats bit-identical; timed at 4096 and 32768 beside the plain
+     version, SDPA and the bound; llama2-7b at
      full width and depth (GQSA W4 S50 G16): the serve step through the
      kernels against the plain versions on an int8 cache of 4096
      positions (f32 and bf16), f32 serve steps against the prefill
@@ -674,6 +674,8 @@ def compare_logits(a, p, tol, label, step):
 def reset_launches():
     from repro_torch.kernels.gqsa_gemv import (gqsa_gemv_cuda,
                                                gqsa_gemv_experts_cuda)
+    from repro_torch.kernels.kv_decode_attention import \
+        kv_decode_attention_cuda
     from repro_torch.kernels.paged_attention import paged_attention_cuda
     from repro_torch.kernels.w4_matmul import (w4_matmul_cuda,
                                                w4_matmul_experts_cuda)
@@ -683,7 +685,7 @@ def reset_launches():
     paged_attention_cuda.int8_launches = 0
     paged_attention_cuda.tree_launches = 0
     paged_attention_cuda.latent_launches = 0
-    paged_attention_cuda.kv_decode_launches = 0
+    kv_decode_attention_cuda.launches = 0
     w4_matmul_cuda.launches = 0
     w4_matmul_cuda.tc_launches = 0
     w4_matmul_experts_cuda.launches = 0
@@ -693,6 +695,8 @@ def reset_launches():
 def read_launches():
     from repro_torch.kernels.gqsa_gemv import (gqsa_gemv_cuda,
                                                gqsa_gemv_experts_cuda)
+    from repro_torch.kernels.kv_decode_attention import \
+        kv_decode_attention_cuda
     from repro_torch.kernels.paged_attention import paged_attention_cuda
     from repro_torch.kernels.w4_matmul import (w4_matmul_cuda,
                                                w4_matmul_experts_cuda)
@@ -706,7 +710,7 @@ def read_launches():
             "paged_attention_latent": paged_attention_cuda.latent_launches,
             "w4_matmul_experts": w4_matmul_experts_cuda.launches,
             "w4_matmul_experts_tc": w4_matmul_experts_cuda.tc_launches,
-            "kv_decode_attention": paged_attention_cuda.kv_decode_launches}
+            "kv_decode_attention": kv_decode_attention_cuda.launches}
 
 
 def phase_model_gqsa():
@@ -872,7 +876,8 @@ def profile_steps(step, steps, label):
         # drop the anonymous namespace of a kernel of the port's csrc
         short = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+\d+", "", name)
         log(f"[profile]   {ms:8.3f} ms  x{n:<5d} {short[:70]}")
-    for family in ("paged_attention", "gqsa_gemv", "w4_matmul"):
+    for family in ("paged_attention", "gqsa_gemv", "w4_matmul",
+                   "kv_decode"):
         fam = [(ms, n) for ms, n, name in rows if family in name]
         if fam:
             log(f"[profile]   {family}, every kernel: "
@@ -1877,7 +1882,7 @@ def phase_model_deepseek_w4():
 
 
 STATIC_B = 4
-KV_DECODE_S = (64, 1000, 4096, 32768)   # pages of 64, 8, 64, 64
+KV_DECODE_S = (64, 1000, 4096, 32768)   # 1000: a partial last chunk
 KV_DECODE_TIMED = (4096, 32768)          # lengths of the timing
 STATIC_MAX_SEQ = 32768                   # the main path's cache
 STATIC_CHECK_SEQ = 4096                  # the kernel-vs-plain model check
@@ -1902,23 +1907,21 @@ def phase_kv_decode_check():
     with a row of 0 (exact zeros), and the full length; one launch a
     call, repeats bit-identical. Returns the worst max-abs error."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
-                                                     split_count)
+    from repro_torch.kernels.kv_decode_attention import (
+        kv_decode_attention_cuda, plan)
     g = torch.Generator(device="cuda").manual_seed(SEED + 18)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = 0.0
     for s in KV_DECODE_S:
         case = _kv_cache_case(g, s)
-        kp = ops.contiguous_pages(*case[1:])[0]
-        ps = kp.shape[1]
-        n = split_count(STATIC_B, 32, 1, s // ps, sms, ps)
+        p = plan(STATIC_B, 32, s, 1, 128, sms)
         for label, ln in (("shared", s - 7),
                           ("per-slot", [s, 0, s // 3, 5]),
                           ("full", s)):
             ln = torch.tensor(ln, dtype=torch.int32, device="cuda")
-            before = paged_attention_cuda.kv_decode_launches
+            before = kv_decode_attention_cuda.launches
             o = ops.kv_decode_attention(*case, ln)
-            require(paged_attention_cuda.kv_decode_launches == before + 1,
+            require(kv_decode_attention_cuda.launches == before + 1,
                     "one launch a call")
             ref = ops.kv_decode_attention(*case, ln, plain=True)
             torch.cuda.synchronize()
@@ -1931,10 +1934,11 @@ def phase_kv_decode_check():
                     "repeat not bit-identical")
             if ln.ndim:
                 require(bool((o[1] == 0).all()), "length-0 row is zeros")
-            log(f"[kv_decode check] S={s} (pages of {ps}, {s // ps} a "
-                f"slot, split S={n}) {label} lengths: max_abs_err "
-                f"{err:.3e} (rel {rel:.2e}); repeat bit-identical")
-        del case, kp
+            log(f"[kv_decode check] S={s} ({p.heads} heads a block, "
+                f"{p.stages} stages, {p.n_split} splits) {label} lengths: "
+                f"max_abs_err {err:.3e} (rel {rel:.2e}); repeat "
+                f"bit-identical")
+        del case
     torch.cuda.empty_cache()
     return worst
 
@@ -1946,17 +1950,18 @@ def phase_kv_decode_timing(timer):
     not timed) and the bound (codes and scales read once)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.kernels.kv_decode_attention import (
+        kv_decode_attention_cuda, plan)
     g = torch.Generator(device="cuda").manual_seed(SEED + 19)
     b, kh, d = STATIC_B, 32, 128
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     for s in KV_DECODE_TIMED:
         q, k8, ks, v8, vs = _kv_cache_case(g, s)
         ln = torch.tensor(s, dtype=torch.int32, device="cuda")
-        kp, ksp, vp, vsp, tables = ops.contiguous_pages(k8, ks, v8, vs)
-        lq, live = ops.paged_query_prep(ln, tables, b, 1, kp.shape[1])
-        t_k = timer.ms(lambda: paged_attention_cuda(
-            q, kp, vp, lq, tables, live, 1, ksp, vsp, contiguous=True))
+        p = plan(b, kh, s, 1, d, sms)
+        t_k = timer.ms(lambda: kv_decode_attention_cuda(q, k8, ks, v8, vs,
+                                                        ln))
         t_p = timer.ms(lambda: ops.kv_decode_attention(
             q, k8, ks, v8, vs, ln, plain=True), iters=5)
         kk, vv = ((c.float() * sc[..., None]).to(torch.bfloat16)
@@ -1966,14 +1971,14 @@ def phase_kv_decode_timing(timer):
         t_l = timer.ms(lambda: F.scaled_dot_product_attention(qs, kk, vv))
         nbytes = 2 * b * s * kh * (d + 4) + 2 * b * kh * d * 4
         bound = _bound_ms(nbytes, 4 * b * s * kh * d)
-        log(f"[kv_decode time] B=4 KH=32 R=1 D=128 S=length={s} (pages of "
-            f"{kp.shape[1]}): kernel {t_k * 1e3:.1f}us plain "
-            f"{t_p * 1e3:.1f}us sdpa {t_l * 1e3:.1f}us bound "
-            f"{bound * 1e3:.1f}us ({nbytes / 1e9:.4f} GB) -> "
-            f"{bound / t_k:.0%} of bound")
+        log(f"[kv_decode time] B=4 KH=32 R=1 D=128 S=length={s} "
+            f"({p.heads} heads a block, {p.stages} stages, {p.n_split} "
+            f"splits): kernel {t_k * 1e3:.1f}us plain {t_p * 1e3:.1f}us "
+            f"sdpa {t_l * 1e3:.1f}us bound {bound * 1e3:.1f}us "
+            f"({nbytes / 1e9:.4f} GB) -> {bound / t_k:.0%} of bound")
         out[str(s)] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                            bound_ms=bound)
-        del q, k8, ks, v8, vs, kp, ksp, vp, vsp, kk, vv, qs
+        del q, k8, ks, v8, vs, kk, vv, qs
         torch.cuda.empty_cache()
     return dict(out[str(KV_DECODE_TIMED[-1])], lengths=out)
 
@@ -2094,8 +2099,9 @@ def phase_static():
     require(launches["kv_decode_attention"] == cfg.n_layers * n_steps,
             "kv_decode_attention launched once a layer a step")
     require(launches["gqsa_gemv"] > 0
-            and launches["paged_attention_int8"] == 0
-            and launches["paged_attention"] == 0,
+            and all(launches[k] == 0 for k in (
+                "paged_attention", "paged_attention_int8",
+                "paged_attention_tree", "paged_attention_latent")),
             "gqsa_gemv launched and no paged-pool attention launch on the "
             "static path")
 
@@ -2175,13 +2181,12 @@ KERNELS = {
              "experts of one 4-slot step, bf16 x; 'deepseek_v2_layer' "
              "holds a DeepSeek-V2 layer (160 experts)"),
     "kv_decode_attention": dict(
-        source="src/repro_torch/csrc/paged_attention.cu",
+        source="src/repro_torch/csrc/kv_decode_attention.cu",
         replaces="src/repro/kernels/ops.py:261",
         unit="one layer's int8 decode attention over the contiguous cache "
              "(paged_attention_pallas in int8 mode under identity block "
-             "tables; the int8 mode of the CUDA page walk over the cache "
-             "viewed as pages of 64): 4 sequences, KH=32, R=1, D=128, "
-             "length 32768; 'lengths' holds 4096 and 32768"),
+             "tables): 4 sequences, KH=32, R=1, D=128, length 32768; "
+             "'lengths' holds 4096 and 32768"),
 }
 
 

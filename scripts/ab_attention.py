@@ -18,10 +18,13 @@ the plain version (30 launches):
   * latent (DeepSeek-V2: H=128, D=576, v_rank 512, bf16), T=1 at the same
     serve lengths (both tables) and 256 x 4, and the (2,2) verify block
     (T=7) at ~256;
-  * contiguous (``kv_decode_attention``: the int8 mode over a contiguous
-    int8 cache viewed as pages of 64 under identity tables), KH=32, R=1,
-    D=128, full lengths 4096 and 32768 (a checkout without the route
-    skips them).
+  * contiguous (``kv_decode_attention`` over a contiguous int8 cache:
+    its own kernel, ``kv_decode_attention_cuda``, or in an older checkout
+    the paged kernel's int8 mode over the cache viewed as pages of 64
+    under identity tables), KH=32, R=1, D=128, full lengths 4096 and
+    32768 (a checkout without the route skips them); ``--heads 4,8
+    --stages 2,3,4`` also times those heads a block and ring depths of
+    the kernel (each at its plan's split count).
 ``--cases`` keeps the cases whose label starts with one of its comma
 list of prefixes.
 Inputs come from the same seed in every turn, and each turn checks its
@@ -67,20 +70,32 @@ CASES = (("plain serve", "plain", None, SERVE, None),
 
 def _contiguous(cs, lens, g):
     """The ``_operands`` of a contiguous int8 cache of max(lens)
-    positions, through ``kv_decode_attention``'s page view."""
+    positions, plus the count of columns ``--splits`` may take: through
+    ``kv_decode_attention_cuda`` (32-position chunks), or, in a checkout
+    without it, through the paged kernel's int8 mode over the cache
+    viewed as pages of 64 (``ops.contiguous_pages``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
     b = len(lens)
     q, k8, ks, v8, vs = cs._kv_cache_case(g, max(lens), b)
     ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    kp, ksp, vp, vsp, tables = ops.contiguous_pages(k8, ks, v8, vs)
-    lq, live = ops.paged_query_prep(ln, tables, b, 1, kp.shape[1])
+    if hasattr(ops, "contiguous_pages"):
+        from repro_torch.kernels.paged_attention import paged_attention_cuda
+        kp, ksp, vp, vsp, tables = ops.contiguous_pages(k8, ks, v8, vs)
+        lq, live = ops.paged_query_prep(ln, tables, b, 1, kp.shape[1])
+        cols = tables.shape[1]
 
-    def call(**extra):
-        return paged_attention_cuda(q, kp, vp, lq, tables, live, 1, ksp,
-                                    vsp, contiguous=True, **extra)
+        def call(**extra):
+            return paged_attention_cuda(q, kp, vp, lq, tables, live, 1, ksp,
+                                        vsp, contiguous=True, **extra)
+    else:
+        from repro_torch.kernels.kv_decode_attention import (
+            CHUNK, kv_decode_attention_cuda)
+        cols = -(-max(lens) // CHUNK)
+
+        def call(**extra):
+            return kv_decode_attention_cuda(q, k8, ks, v8, vs, ln, **extra)
 
     def plain():
         return ops.kv_decode_attention(q, k8, ks, v8, vs, ln, plain=True)
@@ -89,7 +104,7 @@ def _contiguous(cs, lens, g):
               for c, sc in ((k8, ks), (v8, vs)))
     qs = q.to(torch.bfloat16)
     return call, plain(), plain, lambda: F.scaled_dot_product_attention(
-        qs, kk, vv), tables.shape[1]
+        qs, kk, vv), cols
 
 
 def latent_bound(cs, fanout, lens):
@@ -195,11 +210,32 @@ def _operands(cs, mode, fanout, lens, cols, g):
     return call, ref, plain, sdpa
 
 
-def time_cases(name: str, root: str, splits, prefixes=()) -> None:
+def _sweep(name, label, call, lens, timer, sweep):
+    """Time ``kv_decode_attention_cuda`` at every (heads, stages) of
+    ``sweep``, as :func:`plan` takes them (too deep a ring is cut to what
+    fits), each at the plan's split count."""
+    import torch
+    from repro_torch.kernels.kv_decode_attention import plan
+    from repro_torch.kernels.build import sm_count
+    heads, stages = sweep
+    sms = sm_count(torch.cuda.current_device())
+    for h in heads:
+        for st in stages:
+            p = plan(len(lens), 32, max(lens), 1, 128, sms, h, st)
+            if p.stages != st:
+                continue
+            us = timer.ms(lambda: call(heads=h, stages=st), iters=200) * 1e3
+            print(f"RESULT {name} {label} heads={h} stages={st} "
+                  f"S={p.n_split} {us:.2f}us (smem {p.smem})", flush=True)
+
+
+def time_cases(name: str, root: str, splits, prefixes=(),
+               sweep=None) -> None:
     root = os.path.abspath(root)
     sys.path[:0] = [os.path.join(root, "src"), root]
     import torch
     import chip_smoke as cs
+    from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
     if not cs.__file__.startswith(root):
         raise RuntimeError(f"imported {cs.__file__}, not {root}")
@@ -230,6 +266,9 @@ def time_cases(name: str, root: str, splits, prefixes=()) -> None:
             bound = "; bound %.2fus by %s" % latent_bound(cs, fanout, lens)
         print(f"RESULT {name} {label} {us:.2f}us (rel {rel:.1e}; sdpa "
               f"{sd:.2f}us; plain {pl:.1f}us{bound})", flush=True)
+        if mode == "contiguous" and sweep and not hasattr(
+                ops, "contiguous_pages"):
+            _sweep(name, label, call, lens, timer, sweep)
         if mode not in ("plain", "contiguous") and not every_mode:
             continue
         for s in splits:
@@ -250,6 +289,11 @@ def main(argv=None) -> int:
                     help="comma list of split counts to time as well")
     ap.add_argument("--cases", default="",
                     help="comma list of case-label prefixes to time")
+    ap.add_argument("--heads", default="",
+                    help="contiguous cases: comma list of heads a block "
+                         "to sweep (with --stages)")
+    ap.add_argument("--stages", default="",
+                    help="contiguous cases: comma list of ring stages")
     ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.bounds:
@@ -264,14 +308,19 @@ def main(argv=None) -> int:
     trees = dict(t.split("=", 1) for t in args.trees)
     splits = [int(s) for s in args.splits.split(",") if s]
     prefixes = [c for c in args.cases.split(",") if c]
+    sweep = None
+    if args.heads or args.stages:
+        sweep = ([int(h) for h in (args.heads or "8").split(",")],
+                 [int(t) for t in (args.stages or "3").split(",")])
     if args.one is not None:
-        time_cases(args.one, trees[args.one], splits, prefixes)
+        time_cases(args.one, trees[args.one], splits, prefixes, sweep)
         return 0
     order = args.order.split(",") if args.order else list(trees)
     for name in order:
         subprocess.run([sys.executable, os.path.abspath(__file__),
                         *args.trees, "--splits", args.splits,
-                        "--cases", args.cases,
+                        "--cases", args.cases, "--heads", args.heads,
+                        "--stages", args.stages,
                         "--one", name], check=True)
     return 0
 

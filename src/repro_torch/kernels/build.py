@@ -22,7 +22,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("gqsa_gemv", "paged_attention", "w4_matmul")
+SOURCES = ("gqsa_gemv", "kv_decode_attention", "paged_attention",
+           "w4_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
               # registers, shared memory and spills of every kernel

@@ -7,16 +7,15 @@ dispatcher launches the kernel or raises, it never falls back.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
 from repro_torch.core.bsr import BSRMatrix
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.gqsa_gemv import (MAX_GEMV_BATCH, gqsa_gemv_cuda,
                                            gqsa_gemv_experts_cuda)
-from repro_torch.kernels.paged_attention import (SPLIT_MAX_PAGE,
-                                                 paged_attention_cuda)
+from repro_torch.kernels.kv_decode_attention import \
+    kv_decode_attention_cuda
+from repro_torch.kernels.paged_attention import paged_attention_cuda
 from repro_torch.kernels.w4_matmul import (w4_matmul_cuda,
                                            w4_matmul_experts_cuda)
 
@@ -188,24 +187,6 @@ def paged_latent_attention(q, lat_pages, lengths, block_tables, *,
     return o.reshape(b, t, h, v_rank)
 
 
-def contiguous_pages(k_cache, k_scale, v_cache, v_scale):
-    """The contiguous int8 cache as the paged kernel's operands, with no
-    copy: ``(k_pages, k_scale_pages, v_pages, v_scale_pages,
-    block_tables)``. The [B, S, KH, D] codes are viewed as [B*S/ps, ps,
-    KH, D] pages and the [B, S, KH] scales as [B*S/ps, ps, KH], under the
-    identity tables ``arange(B*S/ps)`` reshaped to [B, S/ps]; ps =
-    gcd(S, SPLIT_MAX_PAGE), the largest page the kernel takes that
-    divides S, so the view is a reshape for every S (the reference pads
-    to pages of 512 with a copy)."""
-    b, s, khn, d = k_cache.shape
-    ps = math.gcd(s, SPLIT_MAX_PAGE)
-    n = b * s // ps
-    tables = torch.arange(n, dtype=torch.int32,
-                          device=k_cache.device).reshape(b, s // ps)
-    return (k_cache.view(n, ps, khn, d), k_scale.view(n, ps, khn),
-            v_cache.view(n, ps, khn, d), v_scale.view(n, ps, khn), tables)
-
-
 def kv_decode_attention(q, k_cache, k_scale, v_cache, v_scale, length, *,
                         plain: bool = False):
     """int8-KV decode attention over a contiguous cache: q [B, KH, R, D];
@@ -213,20 +194,14 @@ def kv_decode_attention(q, k_cache, k_scale, v_cache, v_scale, length, *,
     [B] valid prefix. Returns [B, KH, R, D] f32 (rows of length 0 are
     zeros).
 
-    On the card, the int8 mode of the paged kernel over
-    :func:`contiguous_pages`, one launch a call, counted in
-    ``paged_attention_cuda.kv_decode_launches``. Live pages are derived
-    on the device and the split count from shapes, so nothing is read on
-    the host. The views keep the cache's storage, so a layer slice of a
-    [L, B, S, KH, D] buffer reaches the wrapper's alignment check as it
-    is."""
+    On the card, the kernel of ``csrc/kv_decode_attention.cu``, one
+    launch a call (its split combine included), counted in
+    ``kv_decode_attention_cuda.launches``. The length is read on the
+    device and the split count comes from shapes, so nothing is read on
+    the host; a layer slice of a [L, B, S, KH, D] buffer reaches the
+    kernel as it is."""
     if _use_plain(q, plain, "kv_decode_attention"):
         return kref.kv_decode_attention_ref(q, k_cache, k_scale, v_cache,
                                             v_scale, length)
-    b, khn, r, d = q.shape
-    kp, ks, vp, vs, tables = contiguous_pages(k_cache, k_scale, v_cache,
-                                              v_scale)
-    lq, live = paged_query_prep(length, tables, b, 1, kp.shape[1])
-    return paged_attention_cuda(q.float().contiguous(), kp, vp, lq, tables,
-                                live, 1, ks, vs,
-                                contiguous=True)
+    return kv_decode_attention_cuda(q.float().contiguous(), k_cache, k_scale,
+                                    v_cache, v_scale, length)

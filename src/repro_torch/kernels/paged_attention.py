@@ -127,8 +127,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          anc: Optional[torch.Tensor] = None,
                          anc_base: Optional[torch.Tensor] = None,
                          window: int = 0, v_rank: int = 0,
-                         n_split: Optional[int] = None,
-                         contiguous: bool = False) -> torch.Tensor:
+                         n_split: Optional[int] = None) -> torch.Tensor:
     """out [B, KH, T*R, D] f32 on the card ([B, 1, T*H, v_rank] in the
     latent mode).
 
@@ -147,9 +146,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     ``int8_launches``, tree-mode launches (any page type) in
     ``tree_launches``, latent-mode launches (tree or not) in
     ``latent_launches``, one a call whatever number of kernels it
-    launches. ``contiguous`` (the int8 mode over a contiguous cache's
-    page view, ``ops.kv_decode_attention``) counts the call in
-    ``kv_decode_launches`` instead."""
+    launches."""
     b, khn, tr, d = q.shape
     p, ps = k_pages.shape[0], k_pages.shape[1]
     mp = block_tables.shape[1]
@@ -222,9 +219,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     if rc != 0:     # 1: shapes the launcher refuses (shared memory too)
         raise RuntimeError(
             f"paged_attention kernel launch failed: CUDA error {rc}")
-    if contiguous:
-        paged_attention_cuda.kv_decode_launches += 1
-    elif latent:
+    if latent:
         paged_attention_cuda.latent_launches += 1
     elif tree:
         paged_attention_cuda.tree_launches += 1
@@ -239,4 +234,3 @@ paged_attention_cuda.launches = 0        # plain mode (bf16/f32 pages)
 paged_attention_cuda.int8_launches = 0   # int8 mode
 paged_attention_cuda.tree_launches = 0   # tree mode (any page type)
 paged_attention_cuda.latent_launches = 0  # latent mode (tree or not)
-paged_attention_cuda.kv_decode_launches = 0  # int8, contiguous cache

@@ -150,6 +150,42 @@ def kv_decode_attention_ref(q, k_cache, k_scale, v_cache, v_scale, length):
     return torch.einsum("bkrs,bskd->bkrd", p, v)
 
 
+def kv_decode_split_ref(q, k_cache, k_scale, v_cache, v_scale, length,
+                        n_split: int):
+    """:func:`kv_decode_attention_ref` computed as the CUDA kernel
+    (``csrc/kv_decode_attention.cu``) computes it (tests only): each
+    slot's live length (clipped to [0, S]) is cut into n = ceil(length /
+    ``CHUNK``) chunks and split i of ``n_split`` takes chunks [i * n //
+    n_split, (i + 1) * n // n_split); each split keeps, per query row,
+    m = its largest score, l = the sum of e^(score - m) and acc = the sum
+    of (e^(score - m) * v_scale) * codes, a score being (q . codes) *
+    (1/sqrt(D) * k_scale); :func:`merge_splits` merges them in split
+    order. Returns [B, KH, R, D] f32; rows of length 0 are zeros."""
+    from repro_torch.kernels.kv_decode_attention import CHUNK
+    b, s, khn, d = k_cache.shape
+    lq = torch.as_tensor(length, device=q.device).reshape(-1).expand(b)
+    lq = lq.clamp(0, s)
+    n = (lq + CHUNK - 1) // CHUNK                                  # [B]
+    pos = torch.arange(s, device=q.device)
+    c = pos // CHUNK
+    sco = torch.einsum("bkrd,bskd->bkrs", q.float(), k_cache.float())
+    sco = sco * (attention_scale(d) * k_scale.transpose(1, 2))[:, :, None]
+    vs = v_scale.transpose(1, 2)[:, :, None]                       # [B,KH,1,S]
+    ms, ls, accs = [], [], []
+    for i in range(n_split):
+        c0, c1 = i * n // n_split, (i + 1) * n // n_split
+        vis = ((pos[None] < lq[:, None]) & (c[None] >= c0[:, None])
+               & (c[None] < c1[:, None]))[:, None, None]           # [B,1,1,S]
+        sc = torch.where(vis, sco, -torch.inf)
+        m = sc.amax(dim=-1)
+        e = torch.where(vis, torch.exp(sc - torch.where(
+            torch.isinf(m), 0.0, m)[..., None]), 0.0)
+        ms.append(m)
+        ls.append(e.sum(dim=-1))
+        accs.append(torch.einsum("bkrs,bskd->bkrd", e * vs, v_cache.float()))
+    return merge_splits(torch.stack(ms), torch.stack(ls), torch.stack(accs))
+
+
 def paged_attention_ref(q, k_pages, v_pages, lengths, block_tables,
                         k_scale_pages=None, v_scale_pages=None, *, anc=None,
                         anc_base=None, anc_window: int = 0):
@@ -263,6 +299,14 @@ def paged_attention_split_ref(q, k_pages, v_pages, lengths, block_tables,
         q, k_pages, v_pages, lengths, block_tables, n_split, k_scale_pages,
         v_scale_pages, anc=anc, anc_base=anc_base, anc_window=anc_window,
         v_rank=v_rank)
+    return merge_splits(m_i, l_i, acc_i)
+
+
+def merge_splits(m_i, l_i, acc_i):
+    """The split kernels' combine: partials m_i, l_i [S, ...] and acc_i
+    [S, ..., DV] merged in split order as m = max m_i, l = sum l_i
+    e^(m_i - m), o = sum acc_i e^(m_i - m) / l (splits with m_i = -inf
+    skipped; a row with none left is zeros)."""
     m = m_i.amax(dim=0)
     w = torch.where(torch.isinf(m_i), 0.0,
                     torch.exp(m_i - torch.where(torch.isinf(m), 0.0, m)))

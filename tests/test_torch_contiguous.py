@@ -1,6 +1,6 @@
 """Port conformance, the static-batch contiguous-cache path: the int8
 decode attention over a contiguous cache (``kv_decode_attention``: its
-plain version and the paged kernel's identity-table view of the cache),
+plain version and the card kernel's split walk, ``kv_decode_split_ref``),
 ``attention_decode`` on the bf16/f32 and the int8 cache, ``init_cache``,
 ``forward`` (logits and the router's aux loss), the contiguous
 ``decode_step`` and the serve and prefill steps, against the JAX
@@ -10,9 +10,8 @@ by the reference and carried over through the bridge).
 Tolerances (f32, the reduced configs' compute dtype):
   * int8 attention: 1e-4 abs and rel against the reference's Pallas
     kernel (interpret mode) and its oracle, the bar of the reference's
-    own kernel test; the page view through the split walk's plain
-    version: 1e-5 (the same dequantized f32 operands, summed in another
-    order);
+    own kernel test, for the plain version and for the card kernel's
+    split walk alike;
   * ``attention_decode``: 1e-5 abs on the f32 cache (the same math; a
     bf16 cache rounds q and p to bf16 where an f32 order difference can
     flip one rounding: 2e-3); the int8 cache 1e-4 against the
@@ -51,6 +50,7 @@ from repro.models import transformer as jtf  # noqa: E402
 
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.kernels import kv_decode_attention as kvd  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
@@ -145,29 +145,65 @@ def test_kv_decode_attention_ref_matches_reference(b, s, kh, r, d, bs,
                                atol=1e-4)
 
 
-@pytest.mark.parametrize("s,ps", [(64, 64), (96, 32), (100, 4), (37, 1)])
-def test_contiguous_page_view_through_the_split_walk(s, ps):
-    """The card's route: the cache viewed as pages of gcd(S, 64) under
-    identity tables (no copy), through the plain version of the kernel's
-    split walk, equals the plain version at every split count; a row of
-    length 0 is exact zeros."""
-    b, kh, r, d = 3, 2, 2, 16
-    q, k8, ks, v8, vs = map(torch.from_numpy, _kv_case(b, s, kh, r, d, 1))
-    kp, ksp, vp, vsp, tables = ops.contiguous_pages(k8, ks, v8, vs)
-    assert kp.shape == (b * s // ps, ps, kh, d) and ksp.shape[1] == ps
-    assert kp.data_ptr() == k8.data_ptr() and vsp.data_ptr() == vs.data_ptr()
-    np.testing.assert_array_equal(
-        tables.numpy(), np.arange(b * s // ps).reshape(b, s // ps))
-    for ln in (torch.tensor(s - 3), torch.tensor([s, 0, 1])):
-        want = tref.kv_decode_attention_ref(q, k8, ks, v8, vs, ln)
-        for n_split in sorted({1, 3, tables.shape[1]}):
-            got = tref.paged_attention_split_ref(
-                q.reshape(b, 1, kh * r, d), kp, vp, ln, tables, n_split,
-                ksp, vsp).reshape(b, kh, r, d)
-            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
-                                       atol=1e-5)
-        if ln.ndim:
-            assert (want[1] == 0).all()
+@pytest.mark.parametrize("s,r,d", [(37, 1, 16), (37, 4, 64), (100, 1, 64),
+                                   (100, 4, 16)])
+@pytest.mark.parametrize("per_slot", [False, True])
+def test_kv_decode_split_ref_matches_reference(s, r, d, per_slot):
+    """The card kernel's order of arithmetic (its chunks of 32 positions
+    shared out over 1, 2, 3 and more splits than positions, partials and
+    combine) against the reference's kernel (interpret mode) and its
+    oracle, at odd S, R in {1, 4}, D in {16, 64}, with shared lengths
+    (S - 3, 1 and 0) and per-slot ones (S, 0, 1); a row of length 0 is
+    exact zeros (the reference's oracle gives NaN there)."""
+    b, kh = 3, 2
+    case = _kv_case(b, s, kh, r, d, seed=s + r + d)
+    tcase = tuple(map(torch.from_numpy, case))
+    lens = [np.array([s, 0, 1], np.int32)] if per_slot \
+        else [np.int32(s - 3), np.int32(1), np.int32(0)]
+    for ln in lens:
+        live = np.broadcast_to(ln, (b,)) > 0
+        want = None
+        if live.any():
+            jargs = tuple(map(jnp.asarray, case)) + (jnp.asarray(ln),)
+            want = [np.asarray(jops.kv_decode_attention(*jargs,
+                                                        interpret=True)),
+                    np.asarray(jref.kv_decode_attention_ref(*jargs))]
+        for n_split in (1, 2, 3, s + 13):
+            got = tref.kv_decode_split_ref(*tcase, torch.as_tensor(ln),
+                                           n_split).numpy()
+            assert got.shape == (b, kh, r, d) and np.isfinite(got).all()
+            assert (got[~live] == 0).all()
+            for w in want or ():
+                np.testing.assert_allclose(got[live], w[live], rtol=1e-4,
+                                           atol=1e-4)
+
+
+def test_kv_decode_plan_from_shapes():
+    """Heads a block, ring stages, split count and shared memory come
+    from shapes and the SM count alone: the static int8 cell's (4 slots x
+    32 KV heads of 128 at 32768 and 4096 positions, 132 SMs; 114 SMs; 4
+    heads a block; a ring too deep to fit) and a reduced config's (2
+    slots x 4 heads of 16 over 64 positions: two chunks, two splits)."""
+    plan = kvd.plan
+    assert plan(4, 32, 32768, 1, 128, 132) == kvd.Plan(8, 3, 16, 210944)
+    assert plan(4, 32, 4096, 1, 128, 132) == kvd.Plan(8, 3, 16, 210944)
+    assert plan(4, 32, 32768, 1, 128, 114).n_split == 14
+    assert plan(4, 32, 32768, 1, 128, 132, heads=4) == kvd.Plan(4, 3, 16,
+                                                                107008)
+    assert plan(4, 32, 32768, 1, 128, 132, stages=4).stages == 3
+    assert plan(2, 4, 64, 1, 16, 132) == kvd.Plan(4, 3, 2, 19200)
+    assert plan(2, 6, 64, 4, 64, 132).heads == 2
+    assert kvd.smem_bytes(4, 3, 64, 2) == kvd.smem_bytes(4, 3, 64, 3) \
+        - 2 * 32 * (4 * 64 + 16) - 2 * 32 * 4 * 4
+
+
+def test_kv_decode_kernel_wrapper_takes_only_the_card():
+    """The kernel's wrapper raises on a CPU tensor: it never computes on
+    the CPU (the dispatcher sends CPU tensors to the plain version)."""
+    case = tuple(map(torch.from_numpy, _kv_case(2, 64, 2, 1, 16)))
+    with pytest.raises(ValueError, match="CUDA"):
+        kvd.kv_decode_attention_cuda(*case, torch.tensor([7, 64]))
+    assert kvd.kv_decode_attention_cuda.launches == 0
 
 
 def test_kv_decode_attention_dispatch():

@@ -17,6 +17,7 @@ from repro_torch.core.model_compress import pack_linear
 from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda
+from repro_torch.kernels.kv_decode_attention import kv_decode_attention_cuda
 from repro_torch.kernels.paged_attention import paged_attention_cuda
 from repro_torch.kernels.w4_matmul import plan as w4_plan
 from repro_torch.kernels.w4_matmul import w4_matmul_cuda
@@ -969,22 +970,24 @@ def _kv_cache(cuda, b, s, kh=32, d=128):
     return k8, ks, v8, vs
 
 
-@pytest.mark.parametrize("s", [64, 1000, 4096, 37])
-def test_kv_decode_attention_kernel_matches_plain(cuda, s):
-    """The int8 mode over a contiguous cache's page view (pages of
-    gcd(S, 64): 64, 8, 64, 1) at the smoke's shapes, B=4 KH=32 R=1 D=128:
-    a shared length, per-slot lengths with a row of 0 (exact zeros) and
-    the full length; one launch a call, counted apart from the paged
-    pool's int8 mode; repeats bit-identical."""
+@pytest.mark.parametrize("s,r,d", [(64, 1, 128), (1000, 1, 128),
+                                   (4096, 1, 128), (37, 1, 128),
+                                   (32768, 1, 128), (100, 4, 64)])
+def test_kv_decode_attention_kernel_matches_plain(cuda, s, r, d):
+    """The contiguous-cache kernel at the smoke's shapes, B=4 KH=32 R=1
+    D=128 (S = 37 and 1000: a partial last chunk), and at R=4 D=64: a
+    shared length, per-slot lengths with a row of 0 (exact zeros) and the
+    full length; one launch a call, no paged-mode launch; repeats
+    bit-identical."""
     b = 4
-    q = torch.randn((b, 32, 1, 128), generator=cuda, device="cuda")
-    cache = _kv_cache(cuda, b, s)
+    q = torch.randn((b, 32, r, d), generator=cuda, device="cuda")
+    cache = _kv_cache(cuda, b, s, d=d)
     for ln in (s - 7, [s, 0, s // 3, 5], s):
         ln = torch.tensor(ln, dtype=torch.int32, device="cuda")
-        before = (paged_attention_cuda.kv_decode_launches,
+        before = (kv_decode_attention_cuda.launches,
                   paged_attention_cuda.int8_launches)
         o = ops.kv_decode_attention(q, *cache, ln)
-        assert (paged_attention_cuda.kv_decode_launches,
+        assert (kv_decode_attention_cuda.launches,
                 paged_attention_cuda.int8_launches) == (before[0] + 1,
                                                         before[1])
         _close(o, ops.kv_decode_attention(q, *cache, ln, plain=True))
@@ -993,16 +996,44 @@ def test_kv_decode_attention_kernel_matches_plain(cuda, s):
             assert (o[1] == 0).all()
 
 
+@pytest.mark.parametrize("heads,stages,n_split", [(8, 3, None), (4, 3, None),
+                                                  (8, 2, 1), (4, 4, 3),
+                                                  (2, 6, 40), (1, 2, None)])
+def test_kv_decode_attention_kernel_options(cuda, heads, stages, n_split):
+    """Every heads / stages / split setting the sweep takes gives the
+    plain version's output (S = 1000: 32 chunks, so 40 splits leave some
+    empty), and the kernel's split walk its plain version's
+    (``kv_decode_split_ref``) at the same split count; an int64 length
+    and a shared one; a row of 0 is zeros."""
+    from repro_torch.kernels.kv_decode_attention import plan
+    from repro_torch.kernels.ref import kv_decode_split_ref
+    b, kh, s = 3, 8, 1000
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    q = torch.randn((b, kh, 1, 128), generator=cuda, device="cuda")
+    cache = _kv_cache(cuda, b, s, kh=kh)
+    for ln in ([s, 0, 617], 999):
+        ln = torch.tensor(ln, device="cuda")
+        o = kv_decode_attention_cuda(q, *cache, ln, heads=heads,
+                                     stages=stages, n_split=n_split)
+        ns = n_split or plan(b, kh, s, 1, 128, sms, heads, stages).n_split
+        _close(o, ops.kv_decode_attention(q, *cache, ln, plain=True))
+        _close(o, kv_decode_split_ref(q, *cache, ln, ns))
+        if ln.ndim:
+            assert (o[1] == 0).all()
+
+
 def test_kv_decode_attention_kernel_on_a_layer_slice(cuda):
     """A layer's slice of an [L, B, S, KH, D] cache reaches the kernel as
-    it is (its pages stay 16-byte aligned: nothing is copied), with R = 4
-    query rows a KV head."""
+    it is (16-byte aligned: nothing is copied), with R = 4 query rows a
+    KV head."""
     k8, ks, v8, vs = _kv_cache(cuda, 3 * 2, 96, kh=4, d=64)
     k8, ks, v8, vs = (t.reshape((3, 2) + t.shape[1:]) for t in
                       (k8, ks, v8, vs))
     q = torch.randn((2, 4, 4, 64), generator=cuda, device="cuda")
     ln = torch.tensor([50, 96], device="cuda")
+    before = kv_decode_attention_cuda.launches
     o = ops.kv_decode_attention(q, k8[1], ks[1], v8[1], vs[1], ln)
+    assert kv_decode_attention_cuda.launches == before + 1
     _close(o, ops.kv_decode_attention(q, k8[1], ks[1], v8[1], vs[1], ln,
                                       plain=True))
 
@@ -1023,14 +1054,13 @@ def test_static_serve_step_never_reads_the_device_on_the_host(cuda):
     serve = build_serve_step(cfg)
     tok, _ = serve(params, cache, torch.tensor([[1], [2]], device="cuda"),
                    torch.tensor(0, device="cuda"))
-    before = paged_attention_cuda.kv_decode_launches
+    before = kv_decode_attention_cuda.launches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         tok, _ = serve(params, cache, tok, torch.tensor(1, device="cuda"))
         serve(params, cache, tok, torch.tensor([2, 5], device="cuda"))
     torch.cuda.synchronize()
-    assert paged_attention_cuda.kv_decode_launches == \
-        before + 2 * cfg.n_layers
+    assert kv_decode_attention_cuda.launches == before + 2 * cfg.n_layers
     reads = [e.key for e in prof.key_averages()
              if e.key in ("aten::_local_scalar_dense", "aten::item")]
     assert not reads, reads
