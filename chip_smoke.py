@@ -51,9 +51,14 @@ Phases (any failure exits non-zero before the result line is printed):
      DeepSeek-V2 width (B=4 slots plus two of length 0, H=128, D=576,
      v_rank 512, ps=16; bf16 and f32 pages; serve lengths, 256, the T=2
      staircase and a tree block; each at S in {1, 2, the table's width}
-     too, repeats bit-identical), and the expert axis of gqsa_gemv (160
-     experts at the w_g/w_u and w_d shapes, C in {1, 3}, with and without
-     ``rows``; idle rows exact zeros); both timed;
+     too, repeats bit-identical), and the expert axis of gqsa_gemv at the
+     DeepSeek-V2 (160 experts) and deepseek-moe-16b (64) expert shapes, C
+     in {1, 3, 7, 9, 30}, with and without ``rows``: one launch a call,
+     idle rows exact zeros, repeats bit-identical, and idle experts with
+     NaN scales (x NaN past every expert's rows) leaving the output equal
+     to the plain version's; both timed: the expert axis for a DeepSeek-V2
+     and a deepseek-moe-16b decode layer and three prefill dispatches (C =
+     3, 7, 30), and single-matrix gqsa_gemv at DeepSeek-V2's kv_a;
  14. DeepSeek-V2 (``deepseek_v2_236b``) at full width and 8 of its 60
      layers, GQSA W4 S50 G16 packed on the card expert by expert: kernel
      vs plain logits on 2 of the 8 layers (prefill + 4 decode steps, f32
@@ -1214,6 +1219,7 @@ def phase_serve_spec(label):
 
 DS_H, DS_D, DS_R = 128, 576, 512      # heads, latent row, value rank
 DS_EXPERT_SHAPES = {"wg/wu": (1536, 5120), "wd": (5120, 1536)}
+DS_KV_A = (576, 5120)     # DeepSeek-V2's kv_a projection (N, K)
 
 
 def _latent_case(b, t, lens, dtype, g, ps=16, mp=16):
@@ -1321,55 +1327,98 @@ def _experts_packed(n, k, seed, e=160):
     return packer.result((e,))["bsr"]
 
 
-def _decode_rows(g, e=160, tokens=4, top_k=6):
-    """rows [E] of one 4-slot decode step's dispatch: each token's top-6
-    distinct experts, capacity 1 (so rows are 0 or 1)."""
+def _dispatch_rows(g, e, tokens, top_k=6):
+    """(rows [E], capacity C) of one dispatch of ``tokens`` routed rows
+    (``models/moe.py``): each token's top-6 distinct experts, C = max(1,
+    int(tokens * 6 / E * 1.25)), rows = min(count, C)."""
+    cap = max(1, int(tokens * top_k / e * 1.25))
     ids = torch.stack([torch.randperm(e, generator=g, device="cuda")[:top_k]
                        for _ in range(tokens)]).reshape(-1)
-    return torch.bincount(ids, minlength=e).clamp(max=1).to(torch.int32)
+    return (torch.bincount(ids, minlength=e).clamp(max=cap)
+            .to(torch.int32), cap)
+
+
+def _decode_rows(g, e=160):
+    """rows [E] of one 4-slot decode step's dispatch: capacity 1, so rows
+    are 0 or 1."""
+    return _dispatch_rows(g, e, 4)[0]
+
+
+EXPERT_CAPS = (1, 3, 7, 9, 30)   # C of the gqsa_gemv expert-axis checks
 
 
 def phase_experts_check():
-    """The expert axis at the DeepSeek-V2 expert shapes: 160 experts,
-    C in {1, 3}, bf16 and f32 x, ``rows`` absent and given (idle experts
-    and partly filled buffers). Returns the worst max-abs error."""
+    """The expert axis of gqsa_gemv against its plain version at the
+    DeepSeek-V2 (160 experts) and deepseek-moe-16b (64 experts) expert
+    shapes, C in {1, 3, 7, 9, 30}, bf16 and f32 x, ``rows`` absent and
+    given (a third of the experts idle, partly filled buffers): one launch
+    a call at every C, idle rows exact zeros, repeats bit-identical. Then
+    the idle experts' scales set to NaN and x set to NaN past every
+    expert's rows: the output stays finite and equal to the plain
+    version's on the clean operands, so nothing idle was read. Returns
+    the worst max-abs error."""
+    import dataclasses
     from repro_torch.kernels import ops
     from repro_torch.kernels.gqsa_gemv import gqsa_gemv_experts_cuda
     worst = 0.0
     g = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    for label, (n, k) in DS_EXPERT_SHAPES.items():
-        bsr = _experts_packed(n, k, SEED + 10)
-        for c in (1, 3):
-            rows = torch.randint(0, c + 1, (160,), generator=g,
-                                 device="cuda", dtype=torch.int32)
-            rows[:40] = 0
+    cases = [(f"deepseek-v2 {label}", 160, n, k)
+             for label, (n, k) in DS_EXPERT_SHAPES.items()]
+    cases += [(f"deepseek-moe {label}", MOE_EXPERTS, n, k)
+              for label, (n, k) in MOE_EXPERT_SHAPES.items()]
+    for label, e, n, k in cases:
+        bsr = _experts_packed(n, k, SEED + 10, e)
+        for c in EXPERT_CAPS:
+            rows = torch.randint(0, c + 1, (e,), generator=g, device="cuda",
+                                 dtype=torch.int32)
+            rows[:e // 3] = 0
+            rows[-1] = c
+            idle = torch.arange(c, device="cuda")[None, :] >= rows[:, None]
             for dt in (torch.bfloat16, torch.float32):
-                x = torch.randn((160, c, k), generator=g,
+                x = torch.randn((e, c, k), generator=g,
                                 device="cuda").to(dt)
                 for r in (None, rows):
                     before = gqsa_gemv_experts_cuda.launches
                     y = ops.gqsa_gemv_experts(x, bsr, r)
+                    again = ops.gqsa_gemv_experts(x, bsr, r)
                     ref = ops.gqsa_gemv_experts(x, bsr, r, plain=True)
                     torch.cuda.synchronize()
-                    require(gqsa_gemv_experts_cuda.launches == before + 1,
-                            "one expert-axis launch")
-                    require(y.shape == (160, c, n)
+                    require(gqsa_gemv_experts_cuda.launches == before + 2,
+                            "one expert-axis launch a call")
+                    require(y.shape == (e, c, n)
                             and bool(torch.isfinite(y).all()),
                             "experts output shape/finite")
+                    require(torch.equal(y, again), "experts repeat differs")
                     if r is not None:
-                        idle = (torch.arange(c, device="cuda")[None, :]
-                                >= r[:, None])
                         require(bool((y[idle] == 0).all()),
                                 "idle expert rows are exact zeros")
                     err = (y - ref).abs().max().item()
                     rel = err / ref.abs().max().item()
                     worst = max(worst, err)
-                    log(f"[experts check] {label} E=160 N={n} K={k} C={c} "
+                    log(f"[experts check] {label} E={e} N={n} K={k} C={c} "
                         f"x={str(dt)[6:]} rows="
                         f"{'none' if r is None else int(r.sum())}: "
                         f"max_abs_err {err:.3e} rel {rel:.3e}")
                     require(rel <= TOL, f"gqsa_gemv experts disagree: "
                                         f"rel {rel}")
+            x = torch.randn((e, c, k), generator=g, device="cuda",
+                            dtype=torch.bfloat16)
+            ref = ops.gqsa_gemv_experts(x, bsr, rows, plain=True)
+            poisoned = dataclasses.replace(bsr, scale=bsr.scale.clone())
+            poisoned.scale[rows == 0] = float("nan")
+            x[idle] = float("nan")
+            y = ops.gqsa_gemv_experts(x, poisoned, rows)
+            torch.cuda.synchronize()
+            err = (y - ref).abs().max().item()
+            log(f"[experts check] {label} C={c}: "
+                f"{int((rows == 0).sum())} idle experts with NaN scales, x "
+                f"NaN past every expert's rows: output finite "
+                f"{bool(torch.isfinite(y).all())}, max_abs_err {err:.3e}")
+            require(bool(torch.isfinite(y).all()),
+                    "an idle expert or row was read")
+            require(bool((y[idle] == 0).all()) and err <= TOL * ref.abs()
+                    .max().item(), "the poisoned call disagrees")
+            del poisoned
         del bsr
     return worst
 
@@ -1430,49 +1479,123 @@ def phase_mla_moe_timing(timer):
                 ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound,
                 bound_by=by)
 
-    rows = _decode_rows(g)
+    out["gqsa_gemv_kv_a"] = kv_a_time(timer, g)
+    ex = experts_layer(timer, g, "deepseek-v2", 160, DS_EXPERT_SHAPES, 4)
+    ex["deepseek_moe_layer"] = experts_layer(
+        timer, g, "deepseek-moe-16b", MOE_EXPERTS, MOE_EXPERT_SHAPES, 4)
+    ex["prefill"] = [
+        experts_layer(timer, g, name, e, shapes, tokens, plain=False)
+        for name, e, shapes, tokens in (
+            ("deepseek-v2", 160, DS_EXPERT_SHAPES, 64),
+            ("deepseek-moe-16b", MOE_EXPERTS, MOE_EXPERT_SHAPES, 64),
+            ("deepseek-moe-16b", MOE_EXPERTS, MOE_EXPERT_SHAPES, 256))]
+    out["gqsa_gemv_experts"] = ex
+    return out
+
+
+def kv_a_time(timer, g, t=4):
+    """Single-matrix gqsa_gemv at DeepSeek-V2's kv_a projection (N = 576 =
+    kv_lora_rank 512 + rope 64, K = 5120), T = 4 decode rows, bf16 x:
+    kernel, plain, ``torch.matmul`` on the dense bf16 W and the bound, as
+    :func:`gemv_layer` counts it."""
+    from repro_torch.core.bsr import to_dense
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.build import sm_count
+    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda, plan
+    n, k = DS_KV_A
+    bsr = _packed(n, k, SEED + 17)
+    x = torch.randn((t, k), generator=g, device="cuda", dtype=torch.bfloat16)
+    dense = to_dense(bsr).to(torch.bfloat16)
+    m = bsr.idx.shape[1]
+    nbytes = n * m * 20 + t * k * 2 + t * n * 4
+    flops = 2 * t * n * m * 16
+    bound = _bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
+    t_k = timer.ms(lambda: gqsa_gemv_cuda(x, bsr))
+    t_p = timer.ms(lambda: ops.gqsa_gemv(x, bsr, plain=True))
+    t_l = timer.ms(lambda: torch.matmul(x, dense.T))
+    p = plan(t, n, k, 2, sm_count(0))
+    by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_TC_FLOP_PER_S
+          else "operations")
+    log(f"[gemv time] deepseek-v2 kv_a N={n} K={k} M={m} T={t} bf16 (tile "
+        f"{p.tile}, {p.blocks} blocks): kernel {t_k * 1e3:.1f}us plain "
+        f"{t_p * 1e3:.1f}us torch.matmul(dense bf16) {t_l * 1e3:.1f}us "
+        f"bound {bound * 1e3:.2f}us by {by} ({nbytes / 1e6:.2f} MB) -> "
+        f"{bound / t_k:.0%} of bound")
+    return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound,
+                bound_by=by)
+
+
+def experts_layer(timer, g, name, e, shapes, tokens, plain=True):
+    """One MoE layer's three expert projections (w_g, w_u, w_d) through
+    the gqsa_gemv expert axis, bf16 x, with the buffer rows of one
+    dispatch of ``tokens`` routed rows (4: a 4-slot decode step, C = 1;
+    64 or 256: a prefill): kernel (one launch a projection), plain (when
+    ``plain``), ``torch.bmm`` on the occupied experts' dense bf16 weights
+    gathered beforehand, and the bound: the larger of the bytes the
+    function must move (the occupied experts' payload, 20 bytes a kept
+    group, their filled x rows and the whole y) over 3.35 TB/s and its
+    multiply-adds (bf16 x by 4-bit codes) over the tensor cores' 989
+    TFLOP/s."""
+    from repro_torch.core.bsr import to_dense
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_experts_cuda
+    rows, cap = _dispatch_rows(g, e, tokens)
     occ = torch.nonzero(rows).flatten()
     n_occ = int(occ.numel())
-    ex = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    n_rows = int(rows.sum())
+    keep = torch.arange(cap, device="cuda")[None, :] < rows[:, None]
+    ex = dict(ms=0.0, plain_ms=0.0 if plain else None, library_ms=0.0,
+              bound_ms=0.0)
     nbytes_all = flops_all = 0
-    for label, (n, k) in DS_EXPERT_SHAPES.items():
-        bsr = _experts_packed(n, k, SEED + 12)
-        x = torch.zeros((160, 1, k), device="cuda", dtype=torch.bfloat16)
-        x[occ] = torch.randn((n_occ, 1, k), generator=g, device="cuda",
-                             dtype=torch.bfloat16)
+    for label, (n, k) in shapes.items():
+        bsr = _experts_packed(n, k, SEED + 12, e)
+        x = (torch.randn((e, cap, k), generator=g, device="cuda",
+                         dtype=torch.bfloat16) * keep[..., None])
         m = bsr.idx.shape[-1]
-        nbytes = n_occ * (n * m * 20 + k * 2) + 160 * n * 4
-        flops = 2 * n_occ * n * m * 16
+        nbytes = n_occ * n * m * 20 + n_rows * k * 2 + e * cap * n * 4
+        flops = 2 * n_rows * n * m * 16
         bound = _bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
         # library yardstick: torch.bmm over the occupied experts' dense
         # bf16 weights, gathered beforehand
         dense = torch.stack([to_dense(bsr.layer(int(i))).to(torch.bfloat16)
                              for i in occ])
         xo = x[occ].contiguous()
+        before = gqsa_gemv_experts_cuda.launches
+        gqsa_gemv_experts_cuda(x, bsr, rows)
+        require(gqsa_gemv_experts_cuda.launches == before + 1,
+                "one expert-axis launch a projection")
         t_k = timer.ms(lambda: gqsa_gemv_experts_cuda(x, bsr, rows))
-        t_p = timer.ms(lambda: ops.gqsa_gemv_experts(x, bsr, rows,
-                                                     plain=True), iters=3)
+        t_p = timer.ms(lambda: ops.gqsa_gemv_experts(
+            x, bsr, rows, plain=True), iters=3) if plain else None
         t_l = timer.ms(lambda: torch.bmm(xo, dense.transpose(1, 2)))
-        log(f"[experts time] {label} E=160 N={n} K={k} M={m} C=1, "
-            f"{n_occ} occupied experts, bf16 x: kernel {t_k * 1e3:.1f}us "
-            f"plain {t_p * 1e3:.1f}us torch.bmm(dense bf16, occupied) "
-            f"{t_l * 1e3:.1f}us bound {bound * 1e3:.2f}us "
-            f"({nbytes / 1e6:.1f} MB) -> {bound / t_k:.0%} of bound")
+        p_note = "-" if t_p is None else f"{t_p * 1e3:.1f}us"
+        log(f"[experts time] {name} {label} E={e} N={n} K={k} M={m} "
+            f"C={cap} ({tokens} routed rows: {n_occ} occupied experts, "
+            f"{n_rows} filled rows), bf16 x, one launch: kernel "
+            f"{t_k * 1e3:.1f}us plain {p_note} "
+            f"torch.bmm(dense bf16, occupied) {t_l * 1e3:.1f}us bound "
+            f"{bound * 1e3:.2f}us ({nbytes / 1e6:.1f} MB) -> "
+            f"{bound / t_k:.0%} of bound")
         c = 2 if label == "wg/wu" else 1
         for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
                           (t_k, t_p, t_l, bound)):
-            ex[key] += c * v
+            if v is not None:
+                ex[key] += c * v
         nbytes_all += c * nbytes
         flops_all += c * flops
         del bsr, dense
     ex["bound_by"] = ("bytes" if nbytes_all / HBM_BYTES_PER_S
                       >= flops_all / BF16_TC_FLOP_PER_S else "operations")
-    log(f"[experts time] one decode layer (3 expert projections, C=1, "
-        f"{n_occ} occupied): kernel {ex['ms']:.4f}ms plain "
-        f"{ex['plain_ms']:.4f}ms bmm {ex['library_ms']:.4f}ms bound "
-        f"{ex['bound_ms']:.4f}ms")
-    out["gqsa_gemv_experts"] = ex
-    return out
+    ex.update(model=name, capacity=cap, routed_rows=tokens, occupied=n_occ,
+              launches=3)
+    plain_note = ("-" if ex["plain_ms"] is None
+                  else f"{ex['plain_ms']:.4f}ms")
+    log(f"[experts time] {name}: one layer (3 expert projections, C={cap}, "
+        f"{n_occ} of {e} occupied, {n_rows} filled rows): kernel "
+        f"{ex['ms']:.4f}ms plain {plain_note} bmm {ex['library_ms']:.4f}ms "
+        f"bound {ex['bound_ms']:.4f}ms by {ex['bound_by']} "
+        f"({ex['bound_ms'] / ex['ms']:.0%} of bound)")
+    return ex
 
 
 DS_LAYERS = 8           # of the published 60: 2.36 GB of experts a layer
@@ -2138,7 +2261,9 @@ KERNELS = {
              "holds the same layer at T = 64 (prefill rows) and T = 116 "
              "(a (4,2,2) tree verify of 4 slots), one launch a projection, "
              "each with ms, plain_ms, library_ms (torch.matmul on the "
-             "dense bf16 W), bound_ms and bound_by; every bound is the "
+             "dense bf16 W), bound_ms and bound_by, and "
+             "'deepseek_v2_kv_a' DeepSeek-V2's kv_a projection (N=576, "
+             "K=5120) at T = 4; every bound is the "
              "larger of the bytes over 3.35 TB/s and the multiply-adds "
              "over the bf16 tensor cores' 989 TFLOP/s"),
     "paged_attention": dict(
@@ -2165,8 +2290,13 @@ KERNELS = {
         replaces="src/repro/kernels/gqsa_gemv.py:71",
         unit="one DeepSeek-V2 decode layer's routed experts (w_g, w_u, "
              "w_d; the Pallas kernel under the vmap at "
-             "src/repro/models/moe.py:73): 160 experts, C=1, the occupied "
-             "experts of one 4-slot step, bf16 x"),
+             "src/repro/models/moe.py:73) through the streaming expert "
+             "kernel (gqsa_gemv_experts_launch), one launch a projection: "
+             "160 experts, C=1, the occupied experts of one 4-slot step, "
+             "bf16 x; 'deepseek_moe_layer' holds a deepseek-moe-16b decode "
+             "layer (64 experts) and 'prefill' the layers of prefill "
+             "dispatches (C = 3, 7 and 30), each with its bound and "
+             "torch.bmm"),
     "paged_attention_latent": dict(
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:181",
@@ -2269,6 +2399,10 @@ def main() -> int:
                for k, v in KERNELS.items()]
     gemv = next(k for k in kernels if k["name"] == "gqsa_gemv")
     gemv["rows"] = times["gqsa_gemv"]["rows"]
+    gemv["deepseek_v2_kv_a"] = times["gqsa_gemv_kv_a"]
+    gx = next(k for k in kernels if k["name"] == "gqsa_gemv_experts")
+    for key in ("occupied", "deepseek_moe_layer", "prefill"):
+        gx[key] = times["gqsa_gemv_experts"][key]
     w4 = next(k for k in kernels if k["name"] == "w4_matmul")
     w4["tc_launches"] = launches["w4 serve"]["w4_matmul_tc"]
     w4["launch_floor_ms"] = times["w4_matmul"]["launch_floor_ms"]

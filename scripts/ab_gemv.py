@@ -1,13 +1,16 @@
-"""Time ``gqsa_gemv`` or ``w4_matmul`` of two checkouts in turns on one card.
+"""Time ``gqsa_gemv``, its expert axis or ``w4_matmul`` of two checkouts in
+turns on one card.
 
     python3 scripts/ab_gemv.py parent=/path/to/parent change=. \\
-        --order parent,change,change,parent [--kernel w4_matmul]
+        --order parent,change,change,parent \\
+        [--kernel {gqsa_gemv,gqsa_gemv_experts,w4_matmul}]
 
 Each turn is a fresh process that imports the named checkout's
 ``repro_torch`` and ``chip_smoke.py`` (so each builds its own kernels) and
-times one llama2-7b layer (``chip_smoke.Timer``: L2 flushed before every
-launch, 200 launches a shape), bf16 x:
+times one layer (``chip_smoke.Timer``: L2 flushed before every launch,
+100-200 launches a shape), bf16 x:
   * ``--kernel gqsa_gemv`` (default): the 7 GQSA W4 S50 G16 projections
+    of llama2-7b
     through ``ops.gqsa_gemv`` (the checkout's dispatcher, one launch or
     several) at T = 4 (decode, 4 slots), 64 (prefill rows) and 116 (a
     (4,2,2) tree verify of 4 slots), each beside ``torch.matmul`` on the
@@ -15,7 +18,17 @@ launch, 200 launches a shape), bf16 x:
     the multiply-adds, bf16 x by 4-bit codes, over the tensor cores' 989
     TFLOP/s); prints ``RESULT <name>
     gqsa_gemv T=<t> layer <us> matmul <us> bound <us>``;
-  * ``--kernel w4_matmul``: the 7 dense W4 G16 projections at T = 4
+  * ``--kernel gqsa_gemv_experts``: one MoE layer's three routed-expert
+    projections (w_g, w_u, w_d) through ``ops.gqsa_gemv_experts`` (the
+    checkout's dispatcher, one launch or several), for DeepSeek-V2 (160
+    experts) and deepseek-moe-16b (64), at capacity C = 1 (one 4-slot
+    decode step's routed rows), 7 and 30 (a prefill dispatch of ceil(C x
+    E / 7.5) routed rows, top-6 distinct experts each), beside the bound
+    (the occupied experts' payload, their filled x rows and the whole y
+    over 3.35 TB/s, or the multiply-adds over 989 TFLOP/s); the operands
+    come from a fixed seed, the same in both checkouts; prints ``RESULT
+    <name> experts <model> C=<c> layer <us> bound <us>``;
+  * ``--kernel w4_matmul``: llama2-7b's 7 dense W4 G16 projections at T = 4
     (decode) and T = 64 (prefill rows), each beside ``torch.matmul`` on the
     dequantized dense bf16 W and the byte bound; prints ``RESULT <name>
     w4 T=<t> layer <us> matmul <us> bound <us>``.
@@ -74,6 +87,55 @@ def time_layer(name: str, root: str) -> None:
               f" bound {tot['bound'] * 1e3:.2f}us", flush=True)
 
 
+EXPERT_MODELS = {
+    "deepseek-v2": (160, {"wg/wu": (1536, 5120), "wd": (5120, 1536)}),
+    "deepseek-moe-16b": (64, {"wg/wu": (1408, 2048), "wd": (2048, 1408)}),
+}
+
+
+def time_experts_layer(name: str, root: str) -> None:
+    import math
+    import torch
+    cs = _import(root)
+    from repro_torch.kernels import ops
+    timer = cs.Timer()
+    for model, (e, shapes) in EXPERT_MODELS.items():
+        packed = {label: cs._experts_packed(n, k, 4, e)
+                  for label, (n, k) in shapes.items()}
+        for cap in (1, 7, 30):
+            g = torch.Generator(device="cuda").manual_seed(3 + cap)
+            tokens = 4 if cap == 1 else math.ceil(cap * e / 7.5)
+            ids = torch.stack([torch.randperm(e, generator=g,
+                                              device="cuda")[:6]
+                               for _ in range(tokens)]).reshape(-1)
+            rows = torch.bincount(ids, minlength=e).clamp(max=cap) \
+                .to(torch.int32)
+            keep = torch.arange(cap, device="cuda")[None, :] < rows[:, None]
+            n_occ, n_rows = int((rows > 0).sum()), int(rows.sum())
+            tot = dict(kernel=0.0, bound=0.0)
+            for label, (n, k) in shapes.items():
+                bsr = packed[label]
+                m = bsr.idx.shape[-1]
+                x = torch.randn((e, cap, k), generator=g, device="cuda",
+                                dtype=torch.bfloat16) * keep[..., None]
+                nbytes = n_occ * n * m * 20 + n_rows * k * 2 + e * cap * n * 4
+                bound = 1e3 * max(nbytes / cs.HBM_BYTES_PER_S,
+                                  2 * n_rows * n * m * 16
+                                  / cs.BF16_TC_FLOP_PER_S)
+                t_k = timer.ms(lambda: ops.gqsa_gemv_experts(x, bsr, rows),
+                               iters=100)
+                c = 2 if label == "wg/wu" else 1
+                tot["kernel"] += c * t_k
+                tot["bound"] += c * bound
+                print(f"  {name} {model} C={cap} {label}: {t_k * 1e3:.2f}us "
+                      f"(bound {bound * 1e3:.2f}us)", flush=True)
+            print(f"RESULT {name} experts {model} C={cap} layer "
+                  f"{tot['kernel'] * 1e3:.2f}us bound "
+                  f"{tot['bound'] * 1e3:.2f}us ({n_occ} of {e} occupied, "
+                  f"{n_rows} rows)", flush=True)
+        del packed
+
+
 def time_w4_layer(name: str, root: str) -> None:
     import torch
     cs = _import(root)
@@ -108,19 +170,22 @@ def time_w4_layer(name: str, root: str) -> None:
               f"{tot['bound'] * 1e3:.2f}us", flush=True)
 
 
+TIMERS = {"gqsa_gemv": time_layer, "gqsa_gemv_experts": time_experts_layer,
+          "w4_matmul": time_w4_layer}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("trees", nargs="+", metavar="NAME=PATH")
     ap.add_argument("--order", default=None,
                     help="comma list of names (default: each tree once)")
     ap.add_argument("--kernel", default="gqsa_gemv",
-                    choices=("gqsa_gemv", "w4_matmul"))
+                    choices=tuple(TIMERS))
     ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     trees = dict(t.split("=", 1) for t in args.trees)
     if args.one is not None:
-        fn = time_layer if args.kernel == "gqsa_gemv" else time_w4_layer
-        fn(args.one, trees[args.one])
+        TIMERS[args.kernel](args.one, trees[args.one])
         return 0
     order = args.order.split(",") if args.order else list(trees)
     smi = ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -5,7 +5,7 @@
 
 Each checkout runs in a fresh process that imports its own ``repro_torch``
 (so each builds its own kernels) and generates, with seed 0, 8 requests x
-32 new tokens on 4 slots (max_seq 256), on eight paths (``--paths`` picks
+32 new tokens on 4 slots (max_seq 256), on nine paths (``--paths`` picks
 some, by name):
   * full-width llama2-7b GQSA W4 S50 G16 through the serve CLI in bf16
     compute, as ``chip_smoke.py`` drives it: plain decode (``--compress
@@ -19,7 +19,10 @@ some, by name):
   * the dense-W4 G16 baseline of the same model through the engine in f32
     compute (every projection through ``w4_matmul``);
   * DeepSeek-V2 at full width and ``chip_smoke.DS_LAYERS`` layers, GQSA W4
-    S50 G16, through the engine in f32 compute (the latent mode).
+    S50 G16, through the engine in f32 compute (the latent mode and the
+    GQSA expert axis);
+  * deepseek-moe-16b at full width and depth, GQSA W4 S50 G16, through the
+    engine in f32 compute (the GQSA expert axis on the K/V pool's model).
 It writes each request's tokens to ``<out>/<name>.json``. Then the last
 named checkout, for every request whose tokens differ from the first's,
 finds the first differing token and measures the top-2 logit margin there
@@ -52,7 +55,8 @@ ENGINE = {"gqsa f32 engine": ("llama", {}, {}),
           "tree f32 engine": ("llama", {}, {"spec_fanout": (4, 2, 2)}),
           "int8 f32 engine": ("llama", {"kv_cache_dtype": "int8"}, {}),
           "w4 f32 engine": ("w4", {}, {}),
-          "deepseek f32 engine": ("deepseek", {}, {})}
+          "deepseek f32 engine": ("deepseek", {}, {}),
+          "deepseek-moe f32 engine": ("moe", {}, {})}
 
 
 def _import(root: str):
@@ -72,6 +76,9 @@ def _f32_config(model: str, **changes):
         return dataclasses.replace(get_config("deepseek_v2_236b"),
                                    n_layers=cs.DS_LAYERS, dtype="float32",
                                    **changes)
+    if model == "moe":
+        return dataclasses.replace(get_config("deepseek_moe_16b"),
+                                   dtype="float32", **changes)
     return dataclasses.replace(get_config("llama2_7b"), dtype="float32",
                                **changes)
 
@@ -82,7 +89,7 @@ def _f32_params(model: str):
     from repro_torch.core.quant import QuantConfig
     from repro_torch.models import transformer as tf
     cfg = _f32_config(model)
-    if model == "deepseek":
+    if model in ("deepseek", "moe"):
         return tf.init_params(0, cfg, "cuda", compress=GQSAConfig()), None
     if model == "w4":
         return tf.init_params(0, cfg, "cuda",
@@ -108,7 +115,7 @@ def serve_tokens(name: str, root: str, out: str, paths) -> None:
         by = sorted(res["results"], key=lambda r: r["rid"])
         tokens[path] = [[int(x) for x in r["tokens"]] for r in by]
         print(f"TOKENS {name} {path}: {len(by)} requests", flush=True)
-    for model in ("llama", "w4", "deepseek"):
+    for model in ("llama", "w4", "deepseek", "moe"):
         mine = [p for p, (m, _, _) in ENGINE.items()
                 if m == model and p in paths]
         if not mine:

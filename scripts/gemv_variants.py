@@ -1,8 +1,6 @@
-"""What holds ``gqsa_gemv`` back: scratch variants of the warp-per-row
-kernel (the expert axis's kernel in ``src/repro_torch/csrc/gqsa_gemv.cu``,
-which was the single-matrix kernel before the streaming design) and of
-the streaming kernel, timed in one process on one card, then the
-dispatcher at many rows.
+"""What holds ``gqsa_gemv`` back: scratch variants of the streaming kernel
+(``src/repro_torch/csrc/gqsa_gemv.cu``), timed in one process on one
+card, then the dispatcher at many rows.
 
     python3 scripts/gemv_variants.py
 
@@ -10,14 +8,6 @@ Each variant is the source with one edit, built by ``nvcc`` under
 ``build/gemv_variants/``. Each times one llama2-7b layer of the 7 GQSA
 W4 S50 G16 projections with bf16 x (``chip_smoke.Timer``: L2 flushed by
 a 1 GiB write before every launch).
-
-Warp-per-row variants, launched through the expert-axis entry with one
-expert (E = 1, every row a token: the kernel on one matrix), 8 rows a
-launch as the dispatcher before the streaming kernel launched them, at
-T = 4 and 64: as built; without the x gather (x from register
-constants); without the weight loads (idx, scale, zero and codes made
-from the slot number); with x staged in shared memory once per block;
-with a lane's loads for all its groups issued before any use.
 
 Streaming variants (``gqsa_gemv_launch``, launched as
 ``kernels/gqsa_gemv.py:plan`` launches them) at T = 4, 64 and 116: as
@@ -27,7 +17,9 @@ is issued and each slot's idx, scale, zero and codes are register values
 of the slot); x widened once to f32 (the f32 instantiation, on x
 converted before the timed launch; its tile is at most 4 rows); an
 8-stage ring instead of 3 (T = 4 only: at T = 116 the x tile of wd
-leaves no room).
+leaves no room). The warp-per-row kernel that the first design ran (PR
+20's variants of it, `PERF.md`) is gone from the source; the expert
+axis has its own variants in ``scripts/experts_variants.py``.
 
 Then ``ops.gqsa_gemv`` of the checkout (the repository's own path) at T
 in {4, 20, 64, 116}, beside ``torch.matmul`` on the dense bf16 W and the
@@ -47,105 +39,6 @@ sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
 
 SRC_PATH = os.path.join(ROOT, "src/repro_torch/csrc/gqsa_gemv.cu")
 OUT = os.path.join(ROOT, "build/gemv_variants")
-
-LOADS = ("    const int col = max(__ldg(idx + base + m), 0);\n"
-         "    const float s = __ldg(scale + base + m);\n"
-         "    const float z = __ldg(zero + base + m);\n"
-         "    const uint2 packed = __ldg(vals + base + m);\n")
-NO_LOADS = ("    const int col = (m * 7 + row) % (K / kGroup);\n"
-            "    const float s = 1e-3f;\n"
-            "    const float z = 8.f;\n"
-            "    const uint2 packed = make_uint2(m * 0x01234567u,\n"
-            "                                    row * 0x89abcdefu);\n")
-GATHER = ("      load_group(x + static_cast<size_t>(b) * K\n"
-          "                   + static_cast<size_t>(col) * kGroup, xv);\n")
-NO_GATHER = ("#pragma unroll\n"
-             "      for (int j = 0; j < kGroup; ++j)\n"
-             "        xv[j] = __int_as_float(0x3f800000 + (b << 8) + j);\n")
-SMEM_GATHER = ("      load_group_s(x_s + static_cast<size_t>(b) * K\n"
-               "                   + static_cast<size_t>(col) * kGroup, "
-               "xv);\n")
-KERNEL_HEAD = "template <typename T, int B>\n__global__"
-SMEM_HELPERS = """\
-__device__ __forceinline__ void load_group_s(const float* p,
-                                             float o[kGroup]) {
-  const float4* v = reinterpret_cast<const float4*>(p);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 f = v[i];
-    o[4 * i] = f.x;
-    o[4 * i + 1] = f.y;
-    o[4 * i + 2] = f.z;
-    o[4 * i + 3] = f.w;
-  }
-}
-
-__device__ __forceinline__ void load_group_s(const __nv_bfloat16* p,
-                                             float o[kGroup]) {
-  const uint4* v = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const uint4 u = v[i];
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      o[8 * i + 2 * j] = f.x;
-      o[8 * i + 2 * j + 1] = f.y;
-    }
-  }
-}
-
-"""
-BODY_HEAD = "  const int lane = threadIdx.x & 31;\n"
-STAGE_X = """\
-  // one expert (E = 1): x [B, K] staged whole, before any row exits
-  extern __shared__ __align__(16) unsigned char x_raw[];
-  const T* x_s = reinterpret_cast<const T*>(x_raw);
-  {
-    const int n16 = B * K * static_cast<int>(sizeof(T)) / 16;
-    const uint4* src = reinterpret_cast<const uint4*>(x);
-    uint4* dst = reinterpret_cast<uint4*>(x_raw);
-    for (int i = threadIdx.x; i < n16; i += blockDim.x) dst[i] = src[i];
-    __syncthreads();
-  }
-"""
-LAUNCH = "  kernel<<<grid, kWarpsPerBlock * 32, 0, stream>>>(\n"
-SMEM_LAUNCH = """\
-  const int x_bytes = B * a.K * static_cast<int>(sizeof(T));
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       x_bytes);
-  kernel<<<grid, kWarpsPerBlock * 32, x_bytes, stream>>>(
-"""
-LOOP_HEAD = ("  for (int m = lane; m < M; m += 32) {\n"
-             "    // padding slots carry idx -1: read group 0 instead "
-             "(their scale is 0,\n"
-             "    // so they add nothing), as the TPU kernel's clamp does\n"
-             + LOADS)
-PREFETCH_HEAD = """\
-  constexpr int kTrips = 11;   // M <= 352: every llama2-7b projection
-  int col_[kTrips];
-  float s_[kTrips], z_[kTrips];
-  uint2 p_[kTrips];
-#pragma unroll
-  for (int i = 0; i < kTrips; ++i) {
-    const int m = lane + 32 * i;
-    if (m < M) {
-      col_[i] = max(__ldg(idx + base + m), 0);
-      s_[i] = __ldg(scale + base + m);
-      z_[i] = __ldg(zero + base + m);
-      p_[i] = __ldg(vals + base + m);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kTrips; ++i) {
-    if (lane + 32 * i >= M) break;
-    const int col = col_[i];
-    const float s = s_[i];
-    const float z = z_[i];
-    const uint2 packed = p_[i];
-"""
-
 
 # the streaming kernel (gqsa_gemv_launch)
 X_READ = ("      chunk(reinterpret_cast<const T*>(\n"
@@ -184,30 +77,13 @@ def _edit(src, old, new):
     return src.replace(old, new)
 
 
-def _smem(s):
-    s = _edit(s, KERNEL_HEAD, SMEM_HELPERS + KERNEL_HEAD)
-    s = _edit(s, BODY_HEAD, STAGE_X + BODY_HEAD)
-    s = _edit(s, GATHER, SMEM_GATHER)
-    return _edit(s, LAUNCH, SMEM_LAUNCH)
-
-
-VARIANTS = {
-    "as built": lambda s: s,
-    "no x gather": lambda s: _edit(s, GATHER, NO_GATHER),
-    "no weight loads": lambda s: _edit(s, LOADS, NO_LOADS),
-    "x in shared memory": _smem,
-    "loads before use": lambda s: _edit(s, LOOP_HEAD, PREFETCH_HEAD),
-}
-
-
 def build():
     """{variant: library path}, every nvcc started at once."""
     from repro_torch.kernels.build import NVCC_FLAGS, nvcc_path
     os.makedirs(OUT, exist_ok=True)
     src = open(SRC_PATH).read()
     procs = {}
-    for i, (name, edit) in enumerate({**VARIANTS,
-                                      **STREAM_VARIANTS}.items()):
+    for i, (name, edit) in enumerate(STREAM_VARIANTS.items()):
         cu = os.path.join(OUT, f"v{i}.cu")
         with open(cu, "w") as f:
             f.write(edit(src))
@@ -223,31 +99,6 @@ def build():
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         libs[name] = lib
     return libs
-
-
-def warp_per_row(lib_path):
-    """``call(x, bsr)``: the variant's kernel on one matrix, 8 rows a
-    launch."""
-    import torch
-    fn = ctypes.CDLL(lib_path).gqsa_gemv_experts_launch
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-
-    def call(x, bsr):
-        t, k = x.shape
-        n, m = bsr.idx.shape
-        y = torch.empty((t, n), dtype=torch.float32, device=x.device)
-        for c0 in range(0, t, 8):
-            rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
-                    bsr.idx.data_ptr(), bsr.vals.data_ptr(),
-                    bsr.scale.data_ptr(), bsr.zero.data_ptr(), y.data_ptr(),
-                    None, 1, t, c0, min(8, t - c0), n, m, k,
-                    torch.cuda.current_stream().cuda_stream)
-            if rc:
-                raise RuntimeError(f"launch failed: CUDA error {rc}")
-        return y
-    return call
 
 
 def streaming(lib_path, depth):
@@ -320,11 +171,6 @@ def main() -> int:
         print(f"VARIANT {name} T={t}: layer {total * 1e3:.2f}us "
               f"({'; '.join(parts)})", flush=True)
 
-    for name, lib in libs.items():
-        if name not in STREAM_VARIANTS:
-            for t in (4, 64):
-                layer(name, t, warp_per_row(lib), iters=100 if t == 4
-                      else 30, check=True)
     for name in ("stream as built", "stream no x reads",
                  "stream no payload"):
         call = streaming(libs[name], 3)

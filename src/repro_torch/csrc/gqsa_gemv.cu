@@ -62,22 +62,43 @@
 // (kernels/gqsa_gemv.py) picks TT and the grid from shapes and the SM
 // count.
 //
-// Expert axis (gqsa_gemv_experts_launch): the routed experts of an MoE
-// layer, which the reference runs as a vmap of the same Pallas kernel
-// over its stacked weights (src/repro/models/moe.py:_expert_ffn), on the
-// first design: one warp per output row, its 32 lanes splitting the row's
-// M groups, x gathered through the read-only cache, <= 8 x rows a launch.
-// Grid axis y is the expert: leaves [E, N, M] (idx, scale, zero) and
-// [E, N, M, 8] (vals), x [E, C, K], y [E, C, N] f32, one launch per chunk
-// of <= 8 of the C buffer rows. An optional rows [E] int32 says how many
-// leading buffer rows of each expert hold tokens: the kernel writes zeros
-// for rows >= rows[e], and a block whose expert holds none writes its
-// zeros and returns without reading that expert's weights. At 4-slot
-// DeepSeek-V2 decode (24 routed entries, capacity 1) at most 24 of the
-// 160 experts hold a row, so a layer's three expert projections stream
-// at most 24 experts' payload (14.7 MB each) instead of all 160
-// (2.36 GB). The reference computes every expert on its zero rows; those
-// products are masked by its keep mask, so the skip changes no number.
+// Expert axis (gqsa_gemv_experts_launch, gqsa_gemv_experts_kernel): the
+// routed experts of an MoE layer, which the reference runs as a vmap of
+// the same Pallas kernel over its stacked weights
+// (src/repro/models/moe.py:_expert_ffn). Leaves [E, N, M] (idx, scale,
+// zero) and [E, N, M, 8] (vals), x [E, C, K], y [E, C, N] f32, rows [E]
+// (the leading buffer rows of each expert that hold tokens; null: all C).
+// One launch at any C, on the same streaming design:
+//  * One block of 16 warps per SM, any grid: every block counts the
+//    occupied (expert, token tile) pairs from rows (a block scan, each
+//    thread over E / 512 experts), so nothing is read on the host and the
+//    grid needs no count. The pairs' output rows, in units of 16 rows,
+//    are cut into gridDim.x equal spans in pair order; a block walks its
+//    span pair by pair: it stages that expert's x tile and group sums
+//    (rows at or past rows[e] as zeros, by 0-byte copies), then its warps
+//    stream the pair's rows through their rings (kExpertDepth stages).
+//  * Short rows: where a row's M groups would leave half a warp or more
+//    idle on its last 32-slot trip (w_d: M = 48 and 44), a warp takes two
+//    rows at once, 16 lanes each (kRowLanes = 16; the wrapper picks it
+//    from M): a DeepSeek-V2 w_d at C = 1 74 -> 64 us, at C = 3 630 -> 462
+//    us; rows of M = 64 and 160 lose by it (PERF.md).
+//  * Buffer rows at or past rows[e], all of an idle expert's, are written
+//    as zeros in the same launch; an idle expert's payload and x rows past
+//    rows[e] are never read. At 4-slot DeepSeek-V2 decode (24 routed
+//    entries, C = 1) at most 24 of the 160 experts hold a row: a layer's
+//    three expert projections stream at most 24 experts' payload (14.7 MB
+//    each) of 2.36 GB. The reference computes every expert on its zero
+//    rows; its keep mask discards them, so the skip changes no number.
+//  * Bound: bytes at decode (C = 1: the arithmetic is a quarter of T =
+//    4's a byte), the CUDA-core arithmetic at prefill capacities, as the
+//    single-matrix kernel at many rows. Its arithmetic and order of sums
+//    are the single-matrix kernel's (a row's lanes added by a butterfly
+//    over its 16 or 32 lanes), so a (row, token) result depends on
+//    neither the grid, the other experts nor the other tokens of its
+//    tile: repeats are bit-identical.
+// The first design, one warp an output row over a grid (N / 8, E) with
+// <= 8 buffer rows a launch, lost 31% of a DeepSeek-V2 decode layer to
+// the blocks of idle experts and ran at 40% of the byte bound (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,146 +107,6 @@
 namespace {
 
 constexpr int kGroup = 16;
-constexpr int kWarpsPerBlock = 8;
-
-__device__ __forceinline__ void load_group(const float* p, float o[kGroup]) {
-  const float4* v = reinterpret_cast<const float4*>(p);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 f = __ldg(v + i);
-    o[4 * i] = f.x;
-    o[4 * i + 1] = f.y;
-    o[4 * i + 2] = f.z;
-    o[4 * i + 3] = f.w;
-  }
-}
-
-__device__ __forceinline__ void load_group(const __nv_bfloat16* p,
-                                           float o[kGroup]) {
-  const uint4* v = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const uint4 u = __ldg(v + i);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      o[8 * i + 2 * j] = f.x;
-      o[8 * i + 2 * j + 1] = f.y;
-    }
-  }
-}
-
-// One chunk of the expert axis: blockIdx.y is the expert, whose x rows
-// start at x + e * x_stride, its y rows at y + e * y_stride and its
-// weights at e * N * M; rows[e] - c0 of this chunk's B rows hold tokens
-// (all B when rows is null).
-template <typename T, int B>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-gqsa_gemv_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
-                 const uint2* __restrict__ vals,
-                 const float* __restrict__ scale,
-                 const float* __restrict__ zero, float* __restrict__ y,
-                 int N, int M, int K, size_t x_stride, size_t y_stride,
-                 const int32_t* __restrict__ rows, int c0) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= N) return;  // warp-uniform: the ragged edge of N
-  int nrows = B;
-  const int e = blockIdx.y;
-  if (rows != nullptr) nrows = min(max(rows[e] - c0, 0), B);
-  x += e * x_stride;
-  y += e * y_stride;
-  if (nrows == 0) {  // an idle expert: zeros, and no weight is read
-    if (lane < B) y[static_cast<size_t>(lane) * N + row] = 0.f;
-    return;
-  }
-  const size_t eoff = static_cast<size_t>(e) * N * M;
-  idx += eoff;
-  vals += eoff;
-  scale += eoff;
-  zero += eoff;
-
-  float acc[B];
-#pragma unroll
-  for (int b = 0; b < B; ++b) acc[b] = 0.f;
-
-  const size_t base = static_cast<size_t>(row) * M;
-  for (int m = lane; m < M; m += 32) {
-    // padding slots carry idx -1: read group 0 instead (their scale is 0,
-    // so they add nothing), as the TPU kernel's clamp does
-    const int col = max(__ldg(idx + base + m), 0);
-    const float s = __ldg(scale + base + m);
-    const float z = __ldg(zero + base + m);
-    const uint2 packed = __ldg(vals + base + m);
-    float w[kGroup];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const uint32_t byte = ((i < 4 ? packed.x : packed.y) >> (8 * (i & 3)))
-                            & 0xFFu;
-      w[2 * i] = (static_cast<float>(byte & 0xFu) - z) * s;
-      w[2 * i + 1] = (static_cast<float>(byte >> 4) - z) * s;
-    }
-#pragma unroll
-    for (int b = 0; b < B; ++b) {
-      float xv[kGroup];
-      load_group(x + static_cast<size_t>(b) * K
-                   + static_cast<size_t>(col) * kGroup, xv);
-      float d = 0.f;
-#pragma unroll
-      for (int j = 0; j < kGroup; ++j) d = fmaf(w[j], xv[j], d);
-      acc[b] += d;
-    }
-  }
-#pragma unroll
-  for (int b = 0; b < B; ++b) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], off);
-  }
-  // rows past nrows hold no token: their products are computed (x has
-  // them) but written as zeros
-#pragma unroll
-  for (int b = 0; b < B; ++b)
-    if (lane == b) y[static_cast<size_t>(b) * N + row] = b < nrows ? acc[b]
-                                                                   : 0.f;
-}
-
-struct Args {
-  const void *x, *idx, *vals, *scale, *zero;
-  void* y;
-  int N, M, K, E;
-  size_t x_stride, y_stride;
-  const int32_t* rows;
-  int c0;
-};
-
-template <typename T, int B>
-void launch(const Args& a, cudaStream_t stream) {
-  const dim3 grid((a.N + kWarpsPerBlock - 1) / kWarpsPerBlock, a.E);
-  const auto kernel = gqsa_gemv_kernel<T, B>;
-  kernel<<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const T*>(a.x), static_cast<const int32_t*>(a.idx),
-      static_cast<const uint2*>(a.vals), static_cast<const float*>(a.scale),
-      static_cast<const float*>(a.zero), static_cast<float*>(a.y), a.N, a.M,
-      a.K, a.x_stride, a.y_stride, a.rows, a.c0);
-}
-
-template <typename T>
-int dispatch(const Args& a, int B, cudaStream_t s) {
-  switch (B) {
-    case 1: launch<T, 1>(a, s); break;
-    case 2: launch<T, 2>(a, s); break;
-    case 3: launch<T, 3>(a, s); break;
-    case 4: launch<T, 4>(a, s); break;
-    case 5: launch<T, 5>(a, s); break;
-    case 6: launch<T, 6>(a, s); break;
-    case 7: launch<T, 7>(a, s); break;
-    case 8: launch<T, 8>(a, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 namespace streaming {
 
@@ -256,6 +137,22 @@ struct Args {
   int depth;     // kDepth, read at run time (see the design note)
 };
 
+// The expert axis (gqsa_gemv_experts_kernel).
+constexpr int kExpertDepth = 4;    // stages of each warp's ring
+constexpr int kCtrlInts = 32;      // block-shared ints: warp totals, segment
+
+struct ExpertArgs {
+  const void* x;          // [E, C, K]
+  const int32_t* idx;     // [E, N, M], and so vals, scale, zero
+  const uint2* vals;
+  const float* scale;
+  const float* zero;
+  float* y;               // [E, C, N]
+  const int32_t* rows;    // [E] buffer rows holding tokens; null: all C
+  int E, C, N, M, K;
+  int depth;              // kExpertDepth, read at run time
+};
+
 // A group's staged line: TT tokens of 16 values, P 16-byte chunks each.
 template <typename T, int TT>
 struct Tile {
@@ -278,6 +175,17 @@ __host__ __device__ inline size_t sum_bytes(int K, int tt) {
 inline size_t smem_bytes(int K, int tt, int elem) {
   return x_bytes(K, tt, elem) + sum_bytes(K, tt)
       + static_cast<size_t>(kWarps) * kDepth * sizeof(Stage);
+}
+
+// The expert axis's: the same, its rings kExpertDepth deep, then kCtrlInts.
+inline size_t experts_smem_bytes(int K, int tt, int elem) {
+  return x_bytes(K, tt, elem) + sum_bytes(K, tt)
+      + static_cast<size_t>(kWarps) * kExpertDepth * sizeof(Stage)
+      + kCtrlInts * sizeof(int);
+}
+
+inline bool takes_tile(int tt, int x_is_bf16) {
+  return tt == 1 || tt == 2 || tt == 4 || (tt == 8 && x_is_bf16);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -313,10 +221,12 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // wait until at most `depth` - 1 of this thread's groups are in flight;
-// `depth` is kDepth (any other value waits for all, which is always safe)
+// `depth` is the ring's constant kD (any other value waits for all, which
+// is always safe)
+template <int kD>
 __device__ __forceinline__ void cp_async_wait_ring(int depth) {
-  if (depth == kDepth)
-    cp_async_wait<kDepth - 1>();
+  if (depth == kD)
+    cp_async_wait<kD - 1>();
   else
     cp_async_wait<0>();
 }
@@ -403,12 +313,14 @@ __device__ __forceinline__ void group(uint2 pk, int col, float s, float z,
   }
 }
 
-// A finished row: undo the lane's token rotation, add the warp's lanes
-// (a butterfly, the same total in every lane) and write y[t0 + t][row].
-template <int TT>
+// A finished row: undo the lane's token rotation, add the row's kLanes
+// lanes (a butterfly within each aligned group of kLanes, the same total
+// in every lane of it) and write y[t0 + t][row].
+template <int TT, int kLanes = 32>
 __device__ __forceinline__ void write_row(float (&acc)[TT], float* y,
                                           int row, int t0, int T, int N,
                                           int lane, int u) {
+  const int sub = lane & (kLanes - 1);   // the lane within the row's lanes
   float r[TT];
 #pragma unroll
   for (int t = 0; t < TT; ++t) r[t] = acc[t];
@@ -424,14 +336,14 @@ __device__ __forceinline__ void write_row(float (&acc)[TT], float* y,
 #pragma unroll
   for (int t = 0; t < TT; ++t)
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
+    for (int off = kLanes / 2; off > 0; off >>= 1)
       r[t] += __shfl_xor_sync(0xffffffffu, r[t], off);
   float out = r[0];
 #pragma unroll
   for (int t = 1; t < TT; ++t)
-    if (lane == t) out = r[t];
-  if (lane < TT && t0 + lane < T)
-    y[static_cast<size_t>(t0 + lane) * N + row] = out;
+    if (sub == t) out = r[t];
+  if (sub < TT && t0 + sub < T)
+    y[static_cast<size_t>(t0 + sub) * N + row] = out;
 }
 
 template <typename T, int TT>
@@ -493,7 +405,7 @@ gqsa_gemv_stream_kernel(const Args a) {
     cp_async_commit();
   }
 
-  cp_async_wait_ring(D);   // the x tile has landed (the ring may not)
+  cp_async_wait_ring<kDepth>(D);   // the x tile has landed (the ring may not)
   __syncthreads();
   for (int q = threadIdx.x; q < groups * TT; q += kThreads) {
     const uint8_t* line = xg + 16 * L::kParts * q;
@@ -519,7 +431,7 @@ gqsa_gemv_stream_kernel(const Args a) {
   for (int s = 0; s < steps; ++s) {
     if (s + D - 1 < steps) load_next();
     cp_async_commit();
-    cp_async_wait_ring(D);   // this step's slot has landed
+    cp_async_wait_ring<kDepth>(D);   // this step's slot has landed
     const int m = trip * 32 + lane;
     if (m < a.M) {
       const Stage& st = ring_w[stage];
@@ -539,21 +451,245 @@ gqsa_gemv_stream_kernel(const Args a) {
   }
 }
 
-template <typename T, int TT>
-int launch(const Args& a, int blocks, size_t smem, cudaStream_t stream) {
+// Buffer rows of expert e that hold tokens, clipped to [0, C].
+__device__ __forceinline__ int expert_rows(const ExpertArgs& a, int e) {
+  return a.rows == nullptr ? a.C : min(max(a.rows[e], 0), a.C);
+}
+
+// The expert axis, any C in one launch. A work item is one occupied
+// (expert, token tile) pair's output rows; the pairs are counted and
+// ordered on the card, and block b takes the b-th of gridDim.x equal
+// spans of all pairs' rows, in units of one pass of its warps. A span
+// is cut into segments, one a pair: the block stages that expert's x tile
+// (zeros at or past rows[e]) and its group sums, then each warp streams
+// its rows of the segment through its ring, as the single-matrix kernel
+// does. Buffer rows at or past rows[e] (all of an idle expert's) are
+// written as zeros, strided over the grid; nothing of an idle expert, and
+// no x row past rows[e], is read.
+template <typename T, int TT, int kRowLanes>
+__global__ void __launch_bounds__(kThreads, 1)
+gqsa_gemv_experts_kernel(const ExpertArgs a) {
+  using L = Tile<T, TT>;
+  constexpr int kRowsPerWarp = 32 / kRowLanes;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int groups = a.K / kGroup;
+  const int D = a.depth;
+  uint8_t* xg = smem;                                  // [groups][TT][16]
+  float* xsum = reinterpret_cast<float*>(
+      smem + x_bytes(a.K, TT, L::kParts));             // [groups][TT]
+  Stage* ring = reinterpret_cast<Stage*>(
+      smem + x_bytes(a.K, TT, L::kParts) + sum_bytes(a.K, TT));
+  int* ctrl = reinterpret_cast<int*>(ring + kWarps * D);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // the occupied pairs: thread i counts the token tiles of experts
+  // [i * per, (i + 1) * per); a block scan gives each thread the index of
+  // its first pair (`first`) and the block the count (`pairs`)
+  const int per = (a.E + kThreads - 1) / kThreads;
+  const int e_lo = min(static_cast<int>(threadIdx.x) * per, a.E);
+  const int e_hi = min(e_lo + per, a.E);
+  int mine = 0;
+  for (int e = e_lo; e < e_hi; ++e) mine += (expert_rows(a, e) + TT - 1) / TT;
+  int incl = mine;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += o;
+  }
+  if (lane == 31) ctrl[warp] = incl;
+  __syncthreads();
+  int first = incl - mine, pairs = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    const int c = ctrl[w];
+    if (w < warp) first += c;
+    pairs += c;
+  }
+
+  // zeros for every buffer row at or past its expert's rows
+  if (a.rows != nullptr) {
+    const long long rows_all = static_cast<long long>(a.E) * a.C;
+    for (long long i = blockIdx.x; i < rows_all; i += gridDim.x) {
+      const int e = static_cast<int>(i / a.C);
+      if (static_cast<int>(i % a.C) < expert_rows(a, e)) continue;
+      float* yr = a.y + i * a.N;
+      for (int n = threadIdx.x; n < a.N; n += kThreads) yr[n] = 0.f;
+    }
+  }
+
+  // this block's span of the pairs' row units (kUnit rows each: one
+  // pass of every warp)
+  constexpr int kUnit = kWarps * kRowsPerWarp;
+  const int units = (a.N + kUnit - 1) / kUnit;        // units a pair
+  const long long total = static_cast<long long>(pairs) * units;
+  const long long hi = total * (blockIdx.x + 1) / gridDim.x;
+  const int trips = (a.M + kRowLanes - 1) / kRowLanes;
+  const int sub = lane & (kRowLanes - 1);            // lane within the row
+  const int rq = lane & (L::kRot - 1);
+  const int v = rq & (L::kParts - 1);
+  const int u = rq / L::kParts;
+  Stage* ring_w = ring + warp * D;
+  for (long long f = total * blockIdx.x / gridDim.x; f < hi;) {
+    const int p = static_cast<int>(f / units);
+    const long long base = static_cast<long long>(p) * units;
+    const int n0 = static_cast<int>(f - base) * kUnit;
+    const int n1 = min(static_cast<int>(min(hi - base,
+                                            static_cast<long long>(units)))
+                       * kUnit, a.N);
+    f = base + units;
+    // the pair's expert and tile, found by the thread that counted it
+    __syncthreads();   // the last segment's x tile and sums are read out
+    if (first <= p && p < first + mine) {
+      int c = first;
+      for (int e = e_lo; e < e_hi; ++e) {
+        const int n_t = (expert_rows(a, e) + TT - 1) / TT;
+        if (p < c + n_t) {
+          ctrl[kWarps] = e;
+          ctrl[kWarps + 1] = p - c;
+          break;
+        }
+        c += n_t;
+      }
+    }
+    __syncthreads();
+    const int e = ctrl[kWarps];
+    const int t0 = ctrl[kWarps + 1] * TT;
+    const int R = expert_rows(a, e);
+
+    // the expert's x tile (zeros at or past R), in the line layout
+    {
+      const T* x = static_cast<const T*>(a.x);
+      const size_t x0 = (static_cast<size_t>(e) * a.C + t0) * a.K;
+      for (int q = threadIdx.x; q < groups * L::kChunks; q += kThreads) {
+        const int part = q % L::kParts;
+        const int t = (q / L::kParts) % TT;
+        const int c = q / L::kChunks;
+        const bool ok = t0 + t < R;
+        cp_async16(xg + 16 * q,
+                   x + (ok ? x0 + static_cast<size_t>(t) * a.K : 0)
+                     + c * kGroup + part * L::kElems,
+                   ok ? 16 : 0);
+      }
+      cp_async_commit();
+    }
+
+    // the ring over this warp's rows: a pass takes kRowsPerWarp rows from
+    // n0 + warp * kRowsPerWarp, the next pass kUnit rows on, up to n1;
+    // lane l works on the pass's row l / kRowLanes
+    const size_t eoff = static_cast<size_t>(e) * a.N * a.M;
+    const int g = n0 + warp * kRowsPerWarp;
+    const int steps = g < n1 ? ((n1 - 1 - g) / kUnit + 1) * trips : 0;
+    int ld_row = g + lane / kRowLanes, ld_trip = 0, ld_stage = 0;
+    auto load_next = [&]() {
+      const int m = ld_trip * kRowLanes + sub;
+      if (m < a.M && ld_row < n1) {
+        const size_t fo = eoff + static_cast<size_t>(ld_row) * a.M + m;
+        Stage& st = ring_w[ld_stage];
+        cp_async4(&st.idx[lane], a.idx + fo, 4);
+        cp_async4(&st.scale[lane], a.scale + fo, 4);
+        cp_async4(&st.zero[lane], a.zero + fo, 4);
+        cp_async8(&st.vals[lane], a.vals + fo, 8);
+      }
+      if (++ld_stage == D) ld_stage = 0;
+      if (++ld_trip == trips) {
+        ld_trip = 0;
+        ld_row += kUnit;
+      }
+    };
+    for (int s = 0; s < D - 1; ++s) {
+      if (s < steps) load_next();
+      cp_async_commit();
+    }
+
+    cp_async_wait_ring<kExpertDepth>(D);   // the x tile has landed
+    __syncthreads();
+    for (int q = threadIdx.x; q < groups * TT; q += kThreads) {
+      const uint8_t* line = xg + 16 * L::kParts * q;
+      float sum = 0.f;
+#pragma unroll
+      for (int part = 0; part < L::kParts; ++part) {
+        float xv[L::kElems];
+        chunk(reinterpret_cast<const T*>(line + 16 * part), xv);
+#pragma unroll
+        for (int i = 0; i < L::kElems; ++i) sum += xv[i];
+      }
+      xsum[q] = sum;
+    }
+    __syncthreads();
+
+    float* y = a.y + static_cast<size_t>(e) * a.C * a.N;
+    float acc[TT];
+#pragma unroll
+    for (int t = 0; t < TT; ++t) acc[t] = 0.f;
+    int row = g + lane / kRowLanes, trip = 0, stage = 0;
+    for (int s = 0; s < steps; ++s) {
+      if (s + D - 1 < steps) load_next();
+      cp_async_commit();
+      cp_async_wait_ring<kExpertDepth>(D);   // this step's slot has landed
+      const int m = trip * kRowLanes + sub;
+      if (m < a.M && row < n1) {
+        const Stage& st = ring_w[stage];
+        group<T, TT>(st.vals[lane], max(st.idx[lane], 0), st.scale[lane],
+                     st.zero[lane], xg, xsum, u, v, acc);
+      }
+      if (++stage == D) stage = 0;
+      if (++trip == trips) {   // every lane: the butterfly is warp-wide
+        write_row<TT, kRowLanes>(acc, y, row, t0, row < n1 ? R : 0, a.N,
+                                 lane, u);
+#pragma unroll
+        for (int t = 0; t < TT; ++t) acc[t] = 0.f;
+        trip = 0;
+        row += kUnit;
+      }
+    }
+  }
+}
+
+template <typename T, int TT, int kRowLanes>
+auto kernel_of(const Args&) { return gqsa_gemv_stream_kernel<T, TT>; }
+
+template <typename T, int TT, int kRowLanes>
+auto kernel_of(const ExpertArgs&) {
+  return gqsa_gemv_experts_kernel<T, TT, kRowLanes>;
+}
+
+// One kernel instantiation (its arguments' type picks the kernel; the
+// expert kernel's lanes a row, kRowLanes, too), with its shared-memory
+// limit raised once per device.
+template <typename T, int TT, int kRowLanes, typename A>
+int launch(const A& a, int blocks, size_t smem, cudaStream_t stream) {
   static unsigned sized = 0;       // devices whose limit is raised
+  const auto kernel = kernel_of<T, TT, kRowLanes>(a);
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (dev < 32 && !(sized & (1u << dev))) {
-    e = cudaFuncSetAttribute(gqsa_gemv_stream_kernel<T, TT>,
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kMaxSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
     sized |= 1u << dev;
   }
-  gqsa_gemv_stream_kernel<T, TT><<<blocks, kThreads, smem, stream>>>(a);
+  kernel<<<blocks, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation of x's type and token tile `tt` (takes_tile).
+template <int kRowLanes = 32, typename A>
+int launch_tile(const A& a, int x_is_bf16, int tt, int blocks, size_t smem,
+                cudaStream_t s) {
+  if (x_is_bf16) {
+    switch (tt) {
+      case 1: return launch<__nv_bfloat16, 1, kRowLanes>(a, blocks, smem, s);
+      case 2: return launch<__nv_bfloat16, 2, kRowLanes>(a, blocks, smem, s);
+      case 4: return launch<__nv_bfloat16, 4, kRowLanes>(a, blocks, smem, s);
+      default: return launch<__nv_bfloat16, 8, kRowLanes>(a, blocks, smem, s);
+    }
+  }
+  switch (tt) {
+    case 1: return launch<float, 1, kRowLanes>(a, blocks, smem, s);
+    case 2: return launch<float, 2, kRowLanes>(a, blocks, smem, s);
+    default: return launch<float, 4, kRowLanes>(a, blocks, smem, s);
+  }
 }
 
 }  // namespace streaming
@@ -574,7 +710,7 @@ extern "C" int gqsa_gemv_launch(const void* x, int x_is_bf16,
                                 void* stream) {
   const int elem = x_is_bf16 ? 2 : 4;
   if (T < 1 || N < 1 || M < 1 || K < kGroup || K % kGroup != 0
-      || (tt != 1 && tt != 2 && tt != 4 && (tt != 8 || !x_is_bf16))
+      || !streaming::takes_tile(tt, x_is_bf16)
       || n_tiles != (T + tt - 1) / tt || blocks < n_tiles
       || blocks % n_tiles != 0
       || smem != static_cast<long long>(streaming::smem_bytes(K, tt, elem))
@@ -586,41 +722,45 @@ extern "C" int gqsa_gemv_launch(const void* x, int x_is_bf16,
                        static_cast<const float*>(zero),
                        static_cast<float*>(y), T, N, M, K, n_tiles,
                        streaming::kDepth};
-  const size_t sm = static_cast<size_t>(smem);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_is_bf16) {
-    switch (tt) {
-      case 1: return streaming::launch<__nv_bfloat16, 1>(a, blocks, sm, s);
-      case 2: return streaming::launch<__nv_bfloat16, 2>(a, blocks, sm, s);
-      case 4: return streaming::launch<__nv_bfloat16, 4>(a, blocks, sm, s);
-      default: return streaming::launch<__nv_bfloat16, 8>(a, blocks, sm, s);
-    }
-  }
-  switch (tt) {
-    case 1: return streaming::launch<float, 1>(a, blocks, sm, s);
-    case 2: return streaming::launch<float, 2>(a, blocks, sm, s);
-    default: return streaming::launch<float, 4>(a, blocks, sm, s);
-  }
+  return streaming::launch_tile(a, x_is_bf16, tt, blocks,
+                                static_cast<size_t>(smem),
+                                static_cast<cudaStream_t>(stream));
 }
 
-// The expert axis: x [E, C, K], y [E, C, N], stacked leaves [E, N, M(, 8)];
-// this launch covers buffer rows c0 .. c0 + B - 1 (B <= 8) of every
-// expert. rows [E] int32 or null (every row holds a token).
+// The expert axis, any C: x [E, C, K] (f32 or bf16), y [E, C, N] f32,
+// stacked leaves [E, N, M(, 8)]; rows [E] int32 (buffer rows of each
+// expert that hold tokens) or null (all C). `tt`: buffer rows a token
+// tile, as gqsa_gemv_launch takes it; `row_lanes`: lanes a row, 32 or 16
+// (two rows a warp); `blocks`: any grid (the wrapper's plan: one block an
+// SM); `smem`: as kernels/gqsa_gemv.py:experts_plan counts it, refused
+// unless it is this layout's. Launches on `stream` and returns
+// cudaGetLastError() (0 = launched).
 extern "C" int gqsa_gemv_experts_launch(const void* x, int x_is_bf16,
                                         const void* idx, const void* vals,
                                         const void* scale, const void* zero,
                                         void* y, const void* rows, int E,
-                                        int C, int c0, int B, int N, int M,
-                                        int K, void* stream) {
-  if (c0 < 0 || B < 1 || c0 + B > C || E < 1 || E > 65535)
+                                        int C, int N, int M, int K, int tt,
+                                        int row_lanes, int blocks,
+                                        long long smem, void* stream) {
+  const int elem = x_is_bf16 ? 2 : 4;
+  if (E < 1 || E > 65535 || C < 1 || static_cast<long long>(E) * C > (1 << 30)
+      || N < 1 || M < 1 || K < kGroup || K % kGroup != 0
+      || !streaming::takes_tile(tt, x_is_bf16)
+      || (row_lanes != 16 && row_lanes != 32) || blocks < 1
+      || smem != static_cast<long long>(
+             streaming::experts_smem_bytes(K, tt, elem))
+      || smem > streaming::kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t esz = x_is_bf16 ? 2 : 4;
-  const Args a{static_cast<const char*>(x) + esz * c0 * K, idx, vals, scale,
-               zero, static_cast<float*>(y) + static_cast<size_t>(c0) * N,
-               N, M, K, E, static_cast<size_t>(C) * K,
-               static_cast<size_t>(C) * N,
-               static_cast<const int32_t*>(rows), c0};
+  const streaming::ExpertArgs a{x, static_cast<const int32_t*>(idx),
+                                static_cast<const uint2*>(vals),
+                                static_cast<const float*>(scale),
+                                static_cast<const float*>(zero),
+                                static_cast<float*>(y),
+                                static_cast<const int32_t*>(rows), E, C, N,
+                                M, K, streaming::kExpertDepth};
+  const size_t sm = static_cast<size_t>(smem);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_is_bf16 ? dispatch<__nv_bfloat16>(a, B, s)
-                   : dispatch<float>(a, B, s);
+  return row_lanes == 16
+      ? streaming::launch_tile<16>(a, x_is_bf16, tt, blocks, sm, s)
+      : streaming::launch_tile<32>(a, x_is_bf16, tt, blocks, sm, s);
 }

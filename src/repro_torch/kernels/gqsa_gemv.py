@@ -8,8 +8,7 @@ Replaces the TPU kernel ``src/repro/kernels/gqsa_gemv.py:gqsa_gemv_pallas``
 in prefill and decode, and the same kernel under the reference's
 ``vmap`` over the stacked routed experts of an MoE layer
 (``src/repro/models/moe.py:_expert_ffn``): :func:`gqsa_gemv_experts_cuda`,
-one launch per projection and chunk of buffer rows, with an expert grid
-axis.
+one launch per projection at any capacity.
 
 Bound on the H100: bytes. The kernel streams each kept group's 20-byte
 payload (8 code bytes, int32 idx, f32 scale and zero) once; the floor is
@@ -33,13 +32,16 @@ bit-identical. ``plan`` picks the tile and the grid from shapes and the
 SM count alone; nothing is read on the host, and nothing is padded or
 copied.
 
-The expert axis keeps the first design: one warp per output row, lanes
-splitting the row's groups, activations read through the cache, at most
-``MAX_GEMV_BATCH`` rows a launch. An optional ``rows`` [E] operand skips
-each expert's empty buffer rows, and an expert with none is never read:
-at 4-slot DeepSeek-V2 decode at most 24 of 160 experts hold a row, so at
-most 24 x 14.7 MB of a layer's 2.36 GB of expert payload is streamed
-(bound: those bytes over 3.35 TB/s).
+The expert axis runs the same design in one launch at any capacity C:
+token tiles of ``token_tile(C)`` buffer rows, rings ``EXPERT_RING_DEPTH``
+deep, two rows a warp where a row's groups leave half a warp's last trip
+idle (``row_lanes``), and a grid of one block an SM (``experts_plan``,
+from shapes and the SM count). Each block counts the occupied (expert, tile) pairs from
+``rows`` [E] on the card and walks its equal share of their output rows;
+buffer rows at or past ``rows[e]`` come out as zeros from the same launch,
+and an idle expert is never read: at 4-slot DeepSeek-V2 decode at most 24
+of 160 experts hold a row, so at most 24 x 14.7 MB of a layer's 2.36 GB
+of expert payload is streamed (bound: those bytes over 3.35 TB/s).
 """
 from __future__ import annotations
 
@@ -52,13 +54,14 @@ import torch
 from repro_torch.core.bsr import BSRMatrix
 from repro_torch.kernels.build import load, sm_count
 
-MAX_GEMV_BATCH = 8  # x rows a launch of the expert axis
 GROUP_SIZE = 16     # the kernel's group size (8 code bytes per group)
 STREAM_WARPS = 16   # warps a block of the streaming kernel
 # The block's shared-memory layout, as the CUDA source lays it out (its
 # launcher refuses a size that differs from its own count):
 STAGE_BYTES = 640   # a warp's ring stage: 32 slots x 20 bytes (`Stage`)
 RING_DEPTH = 3      # stages of a warp's ring (`kDepth`)
+EXPERT_RING_DEPTH = 4   # the same on the expert axis (`kExpertDepth`)
+CTRL_BYTES = 128    # the expert axis's block-shared ints (`kCtrlInts`)
 SMEM_LIMIT = 232448  # dynamic shared memory a block may take on sm_90
 TILES = {2: (1, 2, 4, 8), 4: (1, 2, 4)}   # token tiles, by x's item size
 
@@ -76,7 +79,7 @@ def _launcher():
 def _experts_launcher():
     fn = load("gqsa_gemv").gqsa_gemv_experts_launch
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 8 + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -90,13 +93,22 @@ def smem_bytes(tt: int, k: int, itemsize: int) -> int:
             + STREAM_WARPS * RING_DEPTH * STAGE_BYTES)
 
 
-def token_tile(t: int, k: int, itemsize: int) -> int:
+def experts_smem_bytes(tt: int, k: int, itemsize: int) -> int:
+    """The expert axis's block: :func:`smem_bytes` with rings of
+    ``EXPERT_RING_DEPTH`` stages, then ``CTRL_BYTES`` of block-shared
+    ints (warp totals of the pair count, the segment's expert and tile)."""
+    return (smem_bytes(tt, k, itemsize)
+            + STREAM_WARPS * (EXPERT_RING_DEPTH - RING_DEPTH) * STAGE_BYTES
+            + CTRL_BYTES)
+
+
+def token_tile(t: int, k: int, itemsize: int, size=smem_bytes) -> int:
     """x rows a block takes: the smallest of ``TILES[itemsize]`` that
     holds all ``t`` rows, else the largest, among those whose x fits a
-    block (a larger tile converts each kept group's codes once for more
-    rows; a tile past T computes on zero rows)."""
-    fits = [tt for tt in TILES[itemsize]
-            if smem_bytes(tt, k, itemsize) <= SMEM_LIMIT]
+    block (``size``: the block's shared memory at a tile; a larger tile
+    converts each kept group's codes once for more rows; a tile past T
+    computes on zero rows)."""
+    fits = [tt for tt in TILES[itemsize] if size(tt, k, itemsize) <= SMEM_LIMIT]
     if not fits:
         raise ValueError(f"gqsa_gemv_cuda: K={k} does not fit a block's "
                          f"shared memory")
@@ -118,6 +130,37 @@ def plan(t: int, n: int, k: int, itemsize: int, sms: int) -> Plan:
     tiles = -(-t // tt)
     per_tile = max(1, min(sms // tiles, -(-n // STREAM_WARPS)))
     return Plan(tt, tiles, tiles * per_tile)
+
+
+class ExpertsPlan(NamedTuple):
+    tile: int       # buffer rows a token tile
+    row_lanes: int  # lanes a row: 32, or 16 (two rows a warp)
+    blocks: int     # grid
+    smem: int       # dynamic shared memory a block
+
+
+def row_lanes(m: int) -> int:
+    """Lanes a row for M kept groups a row: 16 (two rows a warp) when a
+    row's last 32-slot trip would be half empty or less (M = 48 and 44,
+    the w_d of both MoE families: 25% and 31% of a row's lane-slots idle
+    against 0% and 8%), else 32."""
+    return 16 if 0 < m % 32 <= 16 else 32
+
+
+def experts_plan(e: int, c: int, n: int, m: int, k: int, itemsize: int,
+                 sms: int) -> ExpertsPlan:
+    """The expert axis's launch for E = ``e`` experts of C = ``c`` buffer
+    rows against [N, K] matrices of M = ``m`` kept groups a row, from
+    shapes and the SM count alone: the token tile as :func:`token_tile`
+    takes it for C rows, :func:`row_lanes`, and one block an SM, fewer
+    only when every expert holding all C rows gives fewer than 16 rows (a
+    block's warps) a block. The kernel shares the occupied pairs' rows out
+    over whatever grid it gets."""
+    tt = token_tile(c, k, itemsize, experts_smem_bytes)
+    rows_all = e * -(-c // tt) * n
+    blocks = max(1, min(sms, -(-rows_all // STREAM_WARPS)))
+    return ExpertsPlan(tt, row_lanes(m), blocks,
+                       experts_smem_bytes(tt, k, itemsize))
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -189,39 +232,32 @@ gqsa_gemv_cuda.launches = 0
 
 
 def gqsa_gemv_experts_cuda(x: torch.Tensor, bsr: BSRMatrix,
-                           rows: Optional[torch.Tensor] = None,
-                           y: Optional[torch.Tensor] = None,
-                           c0: int = 0, width: Optional[int] = None
+                           rows: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
-    """y [E, C, N] f32 with y[e] = x[e] @ dense(expert e of bsr).T, for
-    buffer rows ``c0 .. c0 + width - 1`` (at most 8, all C by default) of
-    every expert, in one launch (``launches`` counts them).
+    """y [E, C, N] f32 with y[e] = x[e] @ dense(expert e of bsr).T, any
+    C >= 1, in one launch (``launches`` counts them).
 
     x: [E, C, K] f32 or bf16, contiguous; bsr: stacked padded form
-    ([E, N, M] leaves, group size 16); ``rows`` [E] int32: rows at or past
-    ``rows[e]`` are written as zeros and an expert with no row is not
-    read; ``y``: the output to fill (allocated when None)."""
-    if x.dim() != 3:
-        raise ValueError(f"gqsa_gemv_experts_cuda takes x [E, C, K], got "
-                         f"{tuple(x.shape)}")
+    ([E, N, M] leaves, group size 16); ``rows`` [E] int32 or None (every
+    row holds a token): rows at or past ``rows[e]`` are written as zeros
+    and an expert with no row is not read."""
+    if x.dim() != 3 or x.shape[1] < 1:
+        raise ValueError(f"gqsa_gemv_experts_cuda takes x [E, C, K] with "
+                         f"C >= 1, got {tuple(x.shape)}")
     e, c, k = x.shape
-    width = c - c0 if width is None else width
-    if not (1 <= width <= MAX_GEMV_BATCH and 0 <= c0 and c0 + width <= c):
-        raise ValueError(f"gqsa_gemv_experts_cuda takes 1..{MAX_GEMV_BATCH}"
-                         f" rows a launch, got rows {c0}..{c0 + width - 1} "
-                         f"of {c}")
     _check_operands(x, bsr, (e, c))
     n, m = bsr.idx.shape[-2:]
     if rows is not None:
         _check(rows, "rows", torch.int32, (e,))
-    if y is None:
-        y = torch.empty((e, c, n), dtype=torch.float32, device=x.device)
-    _check(y, "y", torch.float32, (e, c, n))
+    p = experts_plan(e, c, n, m, k, x.element_size(),
+                     sm_count(x.device.index))
+    y = torch.empty((e, c, n), dtype=torch.float32, device=x.device)
     rc = _experts_launcher()(
         x.data_ptr(), int(x.dtype == torch.bfloat16), bsr.idx.data_ptr(),
         bsr.vals.data_ptr(), bsr.scale.data_ptr(), bsr.zero.data_ptr(),
-        y.data_ptr(), None if rows is None else rows.data_ptr(), e, c, c0,
-        width, n, m, k, torch.cuda.current_stream(x.device).cuda_stream)
+        y.data_ptr(), None if rows is None else rows.data_ptr(), e, c, n, m,
+        k, p.tile, p.row_lanes, p.blocks, p.smem,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gqsa_gemv experts kernel launch failed: CUDA "
                            f"error {rc}")

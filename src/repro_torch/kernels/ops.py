@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.core.bsr import BSRMatrix
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels.gqsa_gemv import (MAX_GEMV_BATCH, gqsa_gemv_cuda,
+from repro_torch.kernels.gqsa_gemv import (gqsa_gemv_cuda,
                                            gqsa_gemv_experts_cuda)
 from repro_torch.kernels.kv_decode_attention import \
     kv_decode_attention_cuda
@@ -47,20 +47,14 @@ def gqsa_gemv_experts(x: torch.Tensor, bsr: BSRMatrix,
 
     ``rows`` [E]: how many leading buffer rows of each expert hold
     tokens; the others come out as zeros, and on the card an expert with
-    none is not read. On the card the C rows go through the kernel's
-    expert axis in chunks of ``MAX_GEMV_BATCH``, one launch each, all
-    writing one output."""
+    none is not read. On the card every expert and all C rows go through
+    one launch of the kernel's expert axis, which finds the occupied
+    experts from ``rows`` itself."""
     if _use_plain(x, plain, "gqsa_gemv_experts"):
         return kref.gqsa_gemv_experts_ref(x, bsr, rows)
-    x = x.contiguous()
     if rows is not None:
         rows = rows.to(torch.int32).contiguous()
-    c = x.shape[1]
-    y = None
-    for c0 in range(0, c, MAX_GEMV_BATCH):
-        y = gqsa_gemv_experts_cuda(x, bsr, rows, y, c0,
-                                   min(MAX_GEMV_BATCH, c - c0))
-    return y
+    return gqsa_gemv_experts_cuda(x.contiguous(), bsr, rows)
 
 
 def paged_query_prep(lengths, block_tables: torch.Tensor, b: int, t: int,

@@ -66,6 +66,23 @@ def gqsa_gemv_grouped_ref(x: torch.Tensor, bsr: BSRMatrix) -> torch.Tensor:
     return y
 
 
+def gqsa_gemv_experts_grouped_ref(x: torch.Tensor, bsr: BSRMatrix,
+                                  rows: torch.Tensor = None) -> torch.Tensor:
+    """:func:`gqsa_gemv_experts_ref` in the CUDA expert kernel's order of
+    arithmetic (tests only): expert e's first ``rows[e]`` buffer rows (all
+    C when ``rows`` is None) through :func:`gqsa_gemv_grouped_ref`, every
+    other row exact zeros; an expert with no row is not read at all (its
+    leaves may hold anything)."""
+    e, c, _ = x.shape
+    y = torch.zeros((e, c, bsr.shape[0]), dtype=torch.float32,
+                    device=x.device)
+    for i in range(e):
+        r = c if rows is None else min(max(int(rows[i]), 0), c)
+        if r:
+            y[i, :r] = gqsa_gemv_grouped_ref(x[i, :r], bsr.layer(i))
+    return y
+
+
 def w4_matmul_ref(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
                   zero: torch.Tensor, group_size: int) -> torch.Tensor:
     """Dense grouped-dequant matmul (the W4A16 baseline): x [T, K] ->

@@ -618,30 +618,158 @@ def _experts(cuda, e, n, k):
     return packer.result((e,))["bsr"]
 
 
-@pytest.mark.parametrize("e,n,k", [(160, 5120, 1536), (160, 1536, 5120),
-                                   (8, 96, 64), (5, 300, 512)])
+GQSA_EXPERT_SHAPES = [(160, 5120, 1536), (160, 1536, 5120), (64, 1408, 2048),
+                      (64, 2048, 1408)]
+
+
+def _occupancy(cuda, e, c):
+    """rows [E]: random in 0..C, the first two experts idle, the third
+    full, a third of the rest idle."""
+    rows = torch.randint(0, c + 1, (e,), generator=cuda, device="cuda",
+                         dtype=torch.int32)
+    rows[:2] = 0
+    rows[2] = c
+    rows[3:3 + e // 3] = 0
+    return rows
+
+
+@pytest.mark.parametrize("e,n,k", GQSA_EXPERT_SHAPES + [(8, 96, 64),
+                                                        (5, 300, 512)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_gqsa_gemv_experts_kernel_matches_plain(cuda, e, n, k, dtype):
-    """The expert axis: C = 1, 3 and 13 (two launches) buffer rows, with
-    ``rows`` absent and given (idle experts and partly filled buffers):
-    rows at or past rows[e] are exact zeros."""
+    """The expert axis at the DeepSeek-V2 and deepseek-moe-16b expert
+    shapes and two small ones: C = 1, 3, 9, 13 and 30 buffer rows, each in
+    one launch, with ``rows`` absent and given (idle experts and partly
+    filled buffers): rows at or past rows[e] are exact zeros."""
     from repro_torch.kernels.gqsa_gemv import gqsa_gemv_experts_cuda
     bsr = _experts(cuda, e, n, k)
-    for c in (1, 3, 13):
+    for c in (1, 3, 9, 13, 30):
         x = torch.randn((e, c, k), generator=cuda, device="cuda").to(dtype)
-        rows = torch.randint(0, c + 1, (e,), generator=cuda, device="cuda",
-                             dtype=torch.int32)
-        rows[:2] = 0
-        rows[2] = c
+        rows = _occupancy(cuda, e, c)
         for r in (None, rows):
             before = gqsa_gemv_experts_cuda.launches
             y = ops.gqsa_gemv_experts(x, bsr, r)
-            assert gqsa_gemv_experts_cuda.launches - before == -(-c // 8)
+            assert gqsa_gemv_experts_cuda.launches - before == 1
             assert y.shape == (e, c, n) and y.dtype == torch.float32
             _close(y, ops.gqsa_gemv_experts(x, bsr, r, plain=True))
             if r is not None:
                 idle = torch.arange(c, device="cuda")[None, :] >= r[:, None]
                 assert (y[idle] == 0).all()
+
+
+@pytest.mark.parametrize("e,n,k", [(64, 2048, 1408), (160, 1536, 5120),
+                                   (5, 300, 512)])
+def test_gqsa_gemv_experts_never_reads_an_idle_expert(cuda, e, n, k):
+    """Idle experts' scales are NaN and x is NaN past every expert's
+    rows: the output stays finite (nothing idle was read), idle rows are
+    exact zeros, and the live rows match the plain version on the clean
+    operands."""
+    import dataclasses
+    bsr = _experts(cuda, e, n, k)
+    for c in (1, 3, 9, 30):
+        x = torch.randn((e, c, k), generator=cuda, device="cuda")
+        rows = _occupancy(cuda, e, c)
+        ref = ops.gqsa_gemv_experts(x, bsr, rows, plain=True)
+        idle = torch.arange(c, device="cuda")[None, :] >= rows[:, None]
+        poisoned = dataclasses.replace(bsr, scale=bsr.scale.clone())
+        poisoned.scale[rows == 0] = float("nan")
+        xp = x.clone()
+        xp[idle] = float("nan")
+        y = ops.gqsa_gemv_experts(xp, poisoned, rows)
+        assert torch.isfinite(y).all()
+        assert (y[idle] == 0).all()
+        _close(y, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gqsa_gemv_experts_bit_identical(cuda, dtype):
+    """A repeat gives the same bits, and an expert's rows give the same
+    bits whatever the other experts hold and however many of them are
+    occupied (which moves every block's share of the work)."""
+    e, n, k = GQSA_EXPERT_SHAPES[2]
+    bsr = _experts(cuda, e, n, k)
+    for c in (1, 8, 30):
+        x = torch.randn((e, c, k), generator=cuda, device="cuda").to(dtype)
+        rows = _occupancy(cuda, e, c)
+        rows[0] = c
+        y = ops.gqsa_gemv_experts(x, bsr, rows)
+        assert torch.equal(y, ops.gqsa_gemv_experts(x, bsr, rows))
+        other = x.clone()
+        other[1:] = torch.randn_like(other[1:])
+        others = rows.clone()
+        others[1:] = torch.randint(0, c + 1, (e - 1,), generator=cuda,
+                                   device="cuda", dtype=torch.int32)
+        assert torch.equal(y[0], ops.gqsa_gemv_experts(other, bsr,
+                                                       others)[0])
+        assert torch.equal(y[0], ops.gqsa_gemv_experts(x, bsr, None)[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gqsa_gemv_experts_both_row_layouts(cuda, dtype):
+    """The launcher at 16 lanes a row (two rows a warp) and at 32, whatever
+    M the plan would pick them for (M = 20 here, K = 640): both match the
+    plain version, with ``rows``, at C = 1, 3 and 9."""
+    from repro_torch.kernels.build import sm_count
+    from repro_torch.kernels.gqsa_gemv import _experts_launcher, experts_plan
+    e, n, k = 6, 200, 640
+    bsr = _experts(cuda, e, n, k)
+    m = bsr.idx.shape[-1]
+    for c in (1, 3, 9):
+        x = torch.randn((e, c, k), generator=cuda, device="cuda").to(dtype)
+        rows = _occupancy(cuda, e, c)
+        ref = ops.gqsa_gemv_experts(x, bsr, rows, plain=True)
+        p = experts_plan(e, c, n, m, k, x.element_size(), sm_count(0))
+        for lanes in (16, 32):
+            y = torch.full((e, c, n), float("nan"), device="cuda")
+            rc = _experts_launcher()(
+                x.data_ptr(), int(dtype == torch.bfloat16),
+                bsr.idx.data_ptr(), bsr.vals.data_ptr(),
+                bsr.scale.data_ptr(), bsr.zero.data_ptr(), y.data_ptr(),
+                rows.data_ptr(), e, c, n, m, k, p.tile, lanes, p.blocks,
+                p.smem, torch.cuda.current_stream().cuda_stream)
+            assert rc == 0, rc
+            _close(y, ref)
+
+
+def test_gqsa_gemv_experts_rejects_what_it_does_not_take(cuda):
+    """Operands the wrapper refuses before any launch, and a launcher
+    that takes no shared-memory count but its own and only 16 or 32 lanes
+    a row."""
+    from repro_torch.kernels.build import sm_count
+    from repro_torch.kernels.gqsa_gemv import (_experts_launcher,
+                                               experts_plan,
+                                               gqsa_gemv_experts_cuda)
+    e, n, k = 3, 64, 128
+    bsr = _experts(cuda, e, n, k)
+    before = gqsa_gemv_experts_cuda.launches
+    x = torch.randn((e, 2, k), device="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        gqsa_gemv_experts_cuda(x.cpu(), bsr)
+    with pytest.raises(ValueError, match="x \\[E, C, K\\]"):
+        gqsa_gemv_experts_cuda(x[0], bsr)
+    with pytest.raises(ValueError, match="x \\[E, C, K\\]"):
+        gqsa_gemv_experts_cuda(x[:, :0], bsr)
+    with pytest.raises(ValueError, match="shape"):
+        gqsa_gemv_experts_cuda(x[:2], bsr)
+    with pytest.raises(TypeError, match="rows"):
+        gqsa_gemv_experts_cuda(x, bsr, torch.ones(e, device="cuda"))
+    with pytest.raises(TypeError, match="x must be f32 or bf16"):
+        gqsa_gemv_experts_cuda(x.half(), bsr)
+    with pytest.raises(ValueError, match="contiguous"):
+        gqsa_gemv_experts_cuda(x.transpose(0, 1).contiguous()
+                               .transpose(0, 1), bsr)
+    assert gqsa_gemv_experts_cuda.launches == before
+    m = bsr.idx.shape[-1]
+    p = experts_plan(e, 2, n, m, k, 4, sm_count(0))
+    y = torch.empty((e, 2, n), device="cuda")
+    for smem, lanes in ((p.smem - 16, p.row_lanes),
+                        (p.smem + 16, p.row_lanes), (p.smem, 8)):
+        rc = _experts_launcher()(
+            x.data_ptr(), 0, bsr.idx.data_ptr(), bsr.vals.data_ptr(),
+            bsr.scale.data_ptr(), bsr.zero.data_ptr(), y.data_ptr(), None,
+            e, 2, n, m, k, p.tile, lanes, p.blocks, smem,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 1, rc
 
 
 def test_paged_attention_kernel_above_48kb_of_shared_memory(cuda):
