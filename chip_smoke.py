@@ -37,8 +37,9 @@ Phases (any failure exits non-zero before the result line is printed):
      width (bf16, f32 and int8 pages; the verify blocks of fanouts
      (4, 2, 2), (2, 2, 2, 2), the chain (1, 1, 1, 1) and (1,), the
      draft's level calls, a window narrower than T; slots of length 0;
-     each at S in {1, 2, the table's width} too), and its timing at the
-     verify shape (B=4, T=29, lengths ~64 and ~256);
+     each at S in {1, 2, the table's width} too; the (4, 2, 2) block and
+     its level calls also at deepseek-moe-16b's 16 KV heads), and its
+     timing at the verify shape (B=4, T=29, lengths ~64 and ~256);
  11. speculation against no speculation at full width in f32 compute, in
      the engine (GQSA target): chain K=4 with draft w4s50, tree (4, 2, 2)
      with w4s50 and with w4l25; greedy tokens equal, where they differ
@@ -50,10 +51,12 @@ Phases (any failure exits non-zero before the result line is printed):
  13. the latent mode of paged attention against its plain version at
      DeepSeek-V2 width (B=4 slots plus two of length 0, H=128, D=576,
      v_rank 512, ps=16; bf16 and f32 pages; serve lengths, 256, the T=2
-     staircase and a tree block; each at S in {1, 2, the table's width}
-     too, repeats bit-identical), and the expert axis of gqsa_gemv at the
+     staircase, the (2, 2) and (4, 2, 2) tree blocks and the (4, 2, 2)
+     draft's level calls; each at S in {1, 2, the table's width} too,
+     repeats bit-identical), and the expert axis of gqsa_gemv at the
      DeepSeek-V2 (160 experts) and deepseek-moe-16b (64) expert shapes, C
-     in {1, 3, 7, 9, 30}, with and without ``rows``: one launch a call,
+     in {1, 2, 3, 5, 7, 9, 13, 30}, with and without ``rows``: one launch
+     a call,
      idle rows exact zeros, repeats bit-identical, and idle experts with
      NaN scales (x NaN past every expert's rows) leaving the output equal
      to the plain version's; both timed: the expert axis for a DeepSeek-V2
@@ -66,7 +69,8 @@ Phases (any failure exits non-zero before the result line is printed):
      serves 8 requests x 32 new tokens on 4 slots;
  15. the expert axis of w4_matmul against its plain version at the
      deepseek-moe-16b (64 experts) and DeepSeek-V2 (160) expert shapes,
-     C in {1, 3, 8, 20}, bf16 and f32 x, with and without ``rows``, and a
+     C in {1, 2, 3, 5, 8, 13, 20}, bf16 and f32 x, with and without
+     ``rows``, and a
      CUDA-core shape: one launch a call, idle rows exact zeros, repeats
      bit-identical, and idle experts with NaN scales (x NaN past every
      expert's rows) leaving every output finite; then one decode layer's
@@ -92,7 +96,31 @@ Phases (any failure exits non-zero before the result line is printed):
      step's forward at every prompt position, the main path (bf16, int8
      cache of 32768 positions, 4 sequences x 32 greedy tokens after their
      teacher-forced prompts) and a profiled decode step at 32704
-     positions of synthetic history.
+     positions of synthetic history;
+ 19. speculation on the MoE families: (a) against no speculation in the
+     f32 engine, dropless (capacity factor 11 / 27), GQSA target, 8
+     requests x 32 tokens on 4 slots: deepseek-moe-16b at full width and
+     all 28 layers, chain K=4 (draft w4s50) and tree (4, 2, 2) (draft
+     w4l25), and DeepSeek-V2 at full width and 4 layers, tree (4, 2, 2)
+     (draft w4l25); greedy tokens equal, where they differ only at a
+     top-2 margin under the stated bound; (b) the served paths, bf16, the
+     configs' capacity factor: the serve CLI on deepseek-moe-16b (28
+     layers) with ``--compress gqsa --spec 4 --draft-profile w4s75``,
+     ``--compress gqsa --spec-tree 4,2,2 --draft-profile w4l25`` and
+     ``--compress w4 --spec-tree 4,2,2 --draft-profile w4l25``, and the
+     engine on DeepSeek-V2 at 8 layers, GQSA, tree (4, 2, 2), draft
+     w4l25; every run's launches of every kernel equal the count its
+     rounds, prefills and layer structure give (the tree mode on
+     deepseek-moe-16b, the latent mode with tree operands on DeepSeek-V2,
+     the GQSA expert axis in every verify, the W4 expert axis on the
+     tensor cores in every w4l25 draft call); a profiled (4, 2, 2)
+     verify step of deepseek-moe-16b; (c) timing at those shapes, each
+     kernel beside its plain version: the tree mode at KH=16, the latent
+     mode on a (4, 2, 2) block (T=29), ~64 and ~256 each (the kernel's
+     output required to agree with the plain version's), and both expert
+     axes at verify capacities (deepseek-moe-16b C = 2 and 13,
+     DeepSeek-V2 C = 5) with the buffer rows of a verify dispatch
+     recorded on the served paths of (b).
 Each main path is driven with every kernel's launch count set to 0 just
 before it and read just after. The line before the last is a JSON object
 with every kernel's numbers; the last line is {"ok": true, "device": {...}}.
@@ -690,6 +718,7 @@ def reset_launches():
     paged_attention_cuda.int8_launches = 0
     paged_attention_cuda.tree_launches = 0
     paged_attention_cuda.latent_launches = 0
+    paged_attention_cuda.latent_tree_launches = 0
     kv_decode_attention_cuda.launches = 0
     w4_matmul_cuda.launches = 0
     w4_matmul_cuda.tc_launches = 0
@@ -713,6 +742,8 @@ def read_launches():
             "paged_attention_tree": paged_attention_cuda.tree_launches,
             "gqsa_gemv_experts": gqsa_gemv_experts_cuda.launches,
             "paged_attention_latent": paged_attention_cuda.latent_launches,
+            "paged_attention_latent_tree":
+                paged_attention_cuda.latent_tree_launches,
             "w4_matmul_experts": w4_matmul_experts_cuda.launches,
             "w4_matmul_experts_tc": w4_matmul_experts_cuda.tc_launches,
             "kv_decode_attention": kv_decode_attention_cuda.launches}
@@ -885,8 +916,10 @@ def profile_steps(step, steps, label):
                    "kv_decode"):
         fam = [(ms, n) for ms, n, name in rows if family in name]
         if fam:
-            log(f"[profile]   {family}, every kernel: "
-                f"{sum(a[0] for a in fam):.3f} ms x{sum(a[1] for a in fam)}")
+            ms = sum(a[0] for a in fam)
+            log(f"[profile]   {family}, every kernel: {ms:.3f} ms "
+                f"x{sum(a[1] for a in fam)} ({ms / busy:.0%} of device "
+                f"busy)")
     if axis:
         ms = sum(e.self_device_time_total for e in axis) / steps / 1e3
         log(f"[profile]   expert axis (its profiler range): {ms:.3f} ms "
@@ -937,12 +970,12 @@ def phase_serve(compress, arch="llama2_7b"):
     return launches
 
 
-def _tree_case(b, fanout, lvl, dtype, g, window=None):
+def _tree_case(b, fanout, lvl, dtype, g, window=None, kh=32):
     """Full-width tree block: the verify block of ``fanout`` (lvl 0) or
-    the draft's level-``lvl`` call, over the pool of :func:`_attn_case`.
-    Slot bases are ragged; slot 3 is all-sentinel with length 0, slot 4
-    has a real table row but length 0. ``window`` overrides the block's
-    window (narrower than T)."""
+    the draft's level-``lvl`` call, over the pool of :func:`_attn_case`
+    with ``kh`` KV heads. Slot bases are ragged; slot 3 is all-sentinel
+    with length 0, slot 4 has a real table row but length 0. ``window``
+    overrides the block's window (narrower than T)."""
     from repro_torch.engine.spec import TreeTemplate
     tpl = TreeTemplate(fanout)
     spec = tpl.level_tree(lvl, "cuda") if lvl else tpl.verify_tree("cuda")
@@ -953,31 +986,36 @@ def _tree_case(b, fanout, lvl, dtype, g, window=None):
     lens = (base + win)[:, None].expand(b, t).contiguous()
     if b > 4:
         lens[3:5] = 0
-    q, kp, vp, lq, bt, ks, vs = _attn_case(b, t, lens, dtype, g)
+    q, kp, vp, lq, bt, ks, vs = _attn_case(b, t, lens, dtype, g, kh=kh)
     if b > 4:
         bt[4, :2] = bt[1, :2]
     anc = spec["anc"][None].expand(b, t).contiguous()
     return q, kp, vp, lq, bt, ks, vs, anc, base.to("cuda"), win
 
 
-TREE_CASES = [((4, 2, 2), 0, None), ((4, 2, 2), 1, None),
-              ((4, 2, 2), 2, None), ((2, 2, 2, 2), 0, None),
-              ((1, 1, 1, 1), 0, None), ((1,), 0, None), ((1, 1, 1, 1), 0, 3)]
+# (fanout, level (0: the verify block), window override, KV heads): 32
+# is llama2-7b's, 16 deepseek-moe-16b's
+TREE_CASES = [((4, 2, 2), 0, None, 32), ((4, 2, 2), 1, None, 32),
+              ((4, 2, 2), 2, None, 32), ((2, 2, 2, 2), 0, None, 32),
+              ((1, 1, 1, 1), 0, None, 32), ((1,), 0, None, 32),
+              ((1, 1, 1, 1), 0, 3, 32), ((4, 2, 2), 0, None, 16),
+              ((4, 2, 2), 1, None, 16), ((4, 2, 2), 2, None, 16)]
 
 
 def phase_tree_check():
-    """The tree mode against its plain version at full width (KH=32,
-    D=128, ps=16): T in {2, 4, 5, 8, 29, 31}, windows equal to T, wider
-    (the draft's level calls) and narrower; every page type. Returns the
-    worst max-abs error."""
+    """The tree mode against its plain version at full width (KH=32 and,
+    for the (4, 2, 2) verify block and its level calls, KH=16; D=128,
+    ps=16): T in {2, 4, 5, 8, 29, 31}, windows equal to T, wider (the
+    draft's level calls) and narrower; every page type. Returns the worst
+    max-abs error."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.paged_attention import paged_attention_cuda
     worst = 0.0
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
     for dtype in (torch.bfloat16, torch.float32, torch.int8):
-        for fanout, lvl, window in TREE_CASES:
+        for fanout, lvl, window, kh in TREE_CASES:
             q, kp, vp, lq, bt, ks, vs, anc, base, win = _tree_case(
-                6, fanout, lvl, dtype, g, window)
+                6, fanout, lvl, dtype, g, window, kh)
             before = paged_attention_cuda.tree_launches
             o = ops.paged_decode_attention(q, kp, vp, lq, bt, ks, vs,
                                            anc=anc, anc_base=base,
@@ -995,30 +1033,33 @@ def phase_tree_check():
             worst = max(worst, err)
             log(f"[tree check] pages={str(dtype)[6:]} fanout={fanout} "
                 f"{'verify' if lvl == 0 else f'level {lvl}'} T={q.shape[1]} "
-                f"window={win} KH=32 D=128 ps=16: max_abs_err {err:.3e} "
+                f"window={win} KH={kh} D=128 ps=16: max_abs_err {err:.3e} "
                 f"rel {rel:.3e}")
             require(rel <= TOL, f"paged_attention (tree) disagrees: rel {rel}")
             worst = max(worst, split_sweep(
                 o, _paged_at(q, kp, vp, lq, bt, ks, vs, anc=anc,
                              anc_base=base, anc_window=win),
                 ref, bt.shape[1], f"tree pages={str(dtype)[6:]} "
-                                  f"fanout={fanout} lvl={lvl} T={q.shape[1]}"))
+                                  f"fanout={fanout} lvl={lvl} T={q.shape[1]} "
+                                  f"KH={kh}"))
     return worst
 
 
-def phase_tree_timing(timer):
-    """The tree mode at the verify shape of fanout (4, 2, 2): B=4, KH=32,
-    D=128, ps=16, T=29, bf16 pages, lengths (base + 29) about 64 and 256;
-    beside it the same slots at T=16, the plain version,
-    SDPA with the boolean ancestor mask on pre-gathered K/V, and the
-    bound."""
+def phase_tree_timing(timer, kh=32):
+    """The tree mode at the verify shape of fanout (4, 2, 2): B=4, ``kh``
+    KV heads (32: llama2-7b; 16: deepseek-moe-16b), D=128, ps=16, T=29,
+    bf16 pages, lengths (base + 29) about 64 and 256; beside it the same
+    slots at T=16, the plain version, SDPA with the boolean ancestor mask
+    on pre-gathered K/V, and the bound; at each length the kernel's
+    output must agree with the plain version's. Returns the ~64 numbers,
+    with both lengths' under "lengths"."""
     import torch.nn.functional as F
     from repro_torch.engine.spec import TreeTemplate
     from repro_torch.kernels import ops
     from repro_torch.kernels.paged_attention import paged_attention_cuda
     from repro_torch.models.layers import ancestor_mask
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    b, kh, d = 4, 32, 128
+    b, d = 4, 128
     tpl = TreeTemplate((4, 2, 2))
     spec = tpl.verify_tree("cuda")
     t, win = spec["anc"].shape[0], spec["window"]
@@ -1027,13 +1068,23 @@ def phase_tree_timing(timer):
                          ("~256", [227, 220, 225, 210])):
         base = torch.tensor(bases, dtype=torch.int32)
         lens = (base + win)[:, None].expand(b, t).contiguous()
-        q, kp, vp, lq, bt, _, _ = _attn_case(b, t, lens, torch.bfloat16, g)
+        q, kp, vp, lq, bt, _, _ = _attn_case(b, t, lens, torch.bfloat16, g,
+                                             kh=kh)
         base = base.to("cuda")
         anc = spec["anc"][None].expand(b, t).contiguous()
         tot = int(lens[:, 0].sum())
         nbytes = (2 * tot * kh * d * 2 + 2 * b * t * kh * d * 4
                   + b * t * 8 + b * 4)
         bound = _bound_ms(nbytes, 4 * t * tot * kh * d)
+        o = ops.paged_decode_attention(q, kp, vp, lq, bt, anc=anc,
+                                       anc_base=base, anc_window=win)
+        ref = ops.paged_decode_attention(q, kp, vp, lq, bt, anc=anc,
+                                         anc_base=base, anc_window=win,
+                                         plain=True)
+        err = (o - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        require(rel <= TOL, f"paged_attention (tree, KH={kh}, lengths "
+                            f"{label}) disagrees: rel {rel}")
         lq2, live = ops.paged_query_prep(lq, bt, b, t, kp.shape[1])
         qh = q.permute(0, 2, 1, 3).contiguous()        # [B, KH, T, D]
         t_k = timer.ms(lambda: paged_attention_cuda(
@@ -1055,14 +1106,18 @@ def phase_tree_timing(timer):
         t_l = timer.ms(lambda: F.scaled_dot_product_attention(
             qs, kk, vv, attn_mask=mask))
         log(f"[tree time] verify (4,2,2) T={t} lengths {label} "
-            f"({lens[:, 0].tolist()}) B=4 KH=32 D=128 bf16 pages "
+            f"({lens[:, 0].tolist()}) B=4 KH={kh} D=128 bf16 pages "
             f"({split_note(b, kh, t, bt.shape[1], d)}): kernel "
             f"{t_k * 1e3:.1f}us (T=16: {t_16 * 1e3:.1f}us) "
             f"plain {t_p * 1e3:.1f}us sdpa(mask) {t_l * 1e3:.1f}us bound "
             f"{bound * 1e3:.2f}us ({nbytes / 1e6:.2f} MB) -> "
-            f"{bound / t_k:.0%} of bound")
+            f"{bound / t_k:.0%} of bound; kernel vs plain max_abs_err "
+            f"{err:.3e} rel {rel:.3e}")
+        row = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound,
+                   max_abs_err=err)
         if out is None:
-            out = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound)
+            out = dict(row, lengths={})
+        out["lengths"][label] = row
     return out
 
 
@@ -1240,23 +1295,32 @@ def _latent_case(b, t, lens, dtype, g, ps=16, mp=16):
 def phase_latent_check():
     """The latent mode at full width: 6 slots (slot 3 all-sentinel with
     length 0, slot 4 a real table row but length 0), serve lengths, 256,
-    the T=2 staircase and a (2,2) tree verify block. Returns the worst
-    max-abs error."""
+    the T=2 staircase, the (2,2) and (4,2,2) tree verify blocks (T=7 and
+    29) and the (4,2,2) draft's level calls (T=4 and 8, windows 5 and 13,
+    wider than T). Returns the worst max-abs error."""
     from repro_torch.engine.spec import TreeTemplate
     from repro_torch.kernels import ops
     from repro_torch.kernels.paged_attention import paged_attention_cuda
     worst = 0.0
     g = torch.Generator(device="cuda").manual_seed(SEED + 8)
-    spec = TreeTemplate((2, 2)).verify_tree("cuda")
+    t422 = TreeTemplate((4, 2, 2))
+    trees = {"tree (2,2)": TreeTemplate((2, 2)).verify_tree("cuda"),
+             "tree (4,2,2)": t422.verify_tree("cuda"),
+             "level 1 of (4,2,2)": t422.level_tree(1, "cuda"),
+             "level 2 of (4,2,2)": t422.level_tree(2, "cuda")}
     cases = [("serve", 1, [20, 25, 31, 0, 0, 29]),
              ("256", 1, [256, 256, 256, 0, 0, 256]),
              ("staircase", 2, [1, 37, 254, 0, 0, 129]),
-             ("tree (2,2)", spec["anc"].shape[0], [9, 40, 250, 0, 0, 120])]
+             ("tree (2,2)", 7, [9, 40, 250, 0, 0, 120]),
+             ("tree (4,2,2)", 29, [31, 64, 250, 0, 0, 120]),
+             ("level 1 of (4,2,2)", 4, [6, 64, 250, 0, 0, 120]),
+             ("level 2 of (4,2,2)", 8, [14, 64, 250, 0, 0, 120])]
     for dtype in (torch.bfloat16, torch.float32):
         for label, t, base in cases:
             base = torch.tensor(base)
-            tree = label.startswith("tree")
-            if tree:
+            spec = trees.get(label)
+            if spec is not None:
+                require(spec["anc"].shape[0] == t, "tree block width")
                 lens = base[:, None].expand(6, t).contiguous()
             else:
                 lens = base[:, None] + torch.arange(t)[None, :]
@@ -1265,10 +1329,11 @@ def phase_latent_check():
             q, lat, lq, bt = _latent_case(6, t, lens, dtype, g)
             bt[4, :2] = bt[1, :2]
             kw = {}
-            if tree:
+            if spec is not None:
+                win = spec["window"]
                 anc = spec["anc"][None].expand(6, t).contiguous()
-                kw = dict(anc=anc, anc_base=(lq[:, 0] - t).clamp_min(0),
-                          anc_window=t)
+                kw = dict(anc=anc, anc_base=(lq[:, 0] - win).clamp_min(0),
+                          anc_window=win)
             before = paged_attention_cuda.latent_launches
             o = ops.paged_latent_attention(q, lat, lq, bt, v_rank=DS_R,
                                            **kw)
@@ -1338,19 +1403,18 @@ def _dispatch_rows(g, e, tokens, top_k=6):
             .to(torch.int32), cap)
 
 
-def _decode_rows(g, e=160):
-    """rows [E] of one 4-slot decode step's dispatch: capacity 1, so rows
-    are 0 or 1."""
-    return _dispatch_rows(g, e, 4)[0]
-
-
-EXPERT_CAPS = (1, 3, 7, 9, 30)   # C of the gqsa_gemv expert-axis checks
+# C of the expert-axis checks: decode (1), prefill (3, 7, 9, 30) and the
+# verify capacities of speculation at 4 slots (2: a chain K=4 verify of
+# deepseek-moe-16b; 5 and 13: a (4,2,2) tree verify of DeepSeek-V2 and of
+# deepseek-moe-16b)
+EXPERT_CAPS = (1, 2, 3, 5, 7, 9, 13, 30)
+W4_EXPERT_CAPS = (1, 2, 3, 5, 8, 13, 20)
 
 
 def phase_experts_check():
     """The expert axis of gqsa_gemv against its plain version at the
     DeepSeek-V2 (160 experts) and deepseek-moe-16b (64 experts) expert
-    shapes, C in {1, 3, 7, 9, 30}, bf16 and f32 x, ``rows`` absent and
+    shapes, C in EXPERT_CAPS, bf16 and f32 x, ``rows`` absent and
     given (a third of the experts idle, partly filled buffers): one launch
     a call at every C, idle rows exact zeros, repeats bit-identical. Then
     the idle experts' scales set to NaN and x set to NaN past every
@@ -1525,12 +1589,15 @@ def kv_a_time(timer, g, t=4):
                 bound_by=by)
 
 
-def experts_layer(timer, g, name, e, shapes, tokens, plain=True):
+def experts_layer(timer, g, name, e, shapes, tokens, plain=True,
+                  dispatch=None):
     """One MoE layer's three expert projections (w_g, w_u, w_d) through
     the gqsa_gemv expert axis, bf16 x, with the buffer rows of one
     dispatch of ``tokens`` routed rows (4: a 4-slot decode step, C = 1;
-    64 or 256: a prefill): kernel (one launch a projection), plain (when
-    ``plain``), ``torch.bmm`` on the occupied experts' dense bf16 weights
+    64 or 256: a prefill): drawn by :func:`_dispatch_rows`, or the
+    ``(rows, C)`` of a recorded ``dispatch``. Kernel (one launch a
+    projection), plain (when ``plain``), ``torch.bmm`` on the occupied
+    experts' dense bf16 weights
     gathered beforehand, and the bound: the larger of the bytes the
     function must move (the occupied experts' payload, 20 bytes a kept
     group, their filled x rows and the whole y) over 3.35 TB/s and its
@@ -1539,7 +1606,7 @@ def experts_layer(timer, g, name, e, shapes, tokens, plain=True):
     from repro_torch.core.bsr import to_dense
     from repro_torch.kernels import ops
     from repro_torch.kernels.gqsa_gemv import gqsa_gemv_experts_cuda
-    rows, cap = _dispatch_rows(g, e, tokens)
+    rows, cap = dispatch or _dispatch_rows(g, e, tokens)
     occ = torch.nonzero(rows).flatten()
     n_occ = int(occ.numel())
     n_rows = int(rows.sum())
@@ -1587,7 +1654,7 @@ def experts_layer(timer, g, name, e, shapes, tokens, plain=True):
     ex["bound_by"] = ("bytes" if nbytes_all / HBM_BYTES_PER_S
                       >= flops_all / BF16_TC_FLOP_PER_S else "operations")
     ex.update(model=name, capacity=cap, routed_rows=tokens, occupied=n_occ,
-              launches=3)
+              filled_rows=n_rows, launches=3)
     plain_note = ("-" if ex["plain_ms"] is None
                   else f"{ex['plain_ms']:.4f}ms")
     log(f"[experts time] {name}: one layer (3 expert projections, C={cap}, "
@@ -1786,7 +1853,7 @@ def _w4_experts_packed(e, n, k, seed):
 def phase_w4_experts_check():
     """The expert axis of w4_matmul against its plain version at the
     deepseek-moe-16b (64 experts) and DeepSeek-V2 (160 experts) expert
-    shapes and a CUDA-core one (K = 48), C in {1, 3, 8, 20}, bf16 and f32
+    shapes and a CUDA-core one (K = 48), C in W4_EXPERT_CAPS, bf16 and f32
     x, ``rows`` absent and given (a third of the experts idle): one launch
     a call, idle rows exact zeros, repeats bit-identical. Then the idle
     experts' scales set to NaN and x set to NaN past every expert's rows:
@@ -1809,7 +1876,7 @@ def phase_w4_experts_check():
             k, 16, *(t.data_ptr() for t in args)) else "simt"
         require(path == ("simt" if label == "CUDA cores" else "tc"),
                 "the expert shapes take the tensor cores")
-        for c in (1, 3, 8, 20):
+        for c in W4_EXPERT_CAPS:
             rows = torch.randint(0, c + 1, (e,), generator=g, device="cuda",
                                  dtype=torch.int32)
             rows[:e // 3] = 0
@@ -1866,30 +1933,36 @@ def phase_w4_experts_check():
     return worst
 
 
-def w4_experts_layer(timer, g, name, e, shapes):
-    """One decode layer's three expert projections (wg, wu, wd) through
-    the W4 expert axis at C = 1 with one 4-slot step's occupied experts
-    (top-6 of ``e``): kernel, plain, ``torch.bmm`` on the occupied
+def w4_experts_layer(timer, g, name, e, shapes, tokens=4, plain=True,
+                     dispatch=None):
+    """One MoE layer's three expert projections (wg, wu, wd) through the
+    W4 expert axis with the buffer rows of one dispatch of ``tokens``
+    routed rows (:func:`_dispatch_rows`, or the ``(rows, C)`` of a
+    recorded ``dispatch``; 4: a 4-slot decode step, C = 1): kernel, plain
+    (when ``plain``), ``torch.bmm`` on the occupied
     experts' dense bf16 weights gathered beforehand, and the bound: the
-    occupied experts' codes, scales and zeros, their x rows and the whole
-    y over 3.35 TB/s, or their multiply-adds over the bf16 tensor cores'
-    989 TFLOP/s, whichever is larger."""
+    occupied experts' codes, scales and zeros, their filled x rows and
+    the whole y over 3.35 TB/s, or their multiply-adds over the bf16
+    tensor cores' 989 TFLOP/s, whichever is larger."""
     from repro_torch.core.quant import QuantConfig, dequantize, unpack_int4
     from repro_torch.kernels import ops
     from repro_torch.kernels.w4_matmul import w4_matmul_experts_cuda
-    rows = _decode_rows(g, e)
+    rows, cap = dispatch or _dispatch_rows(g, e, tokens)
     occ = torch.nonzero(rows).flatten()
     n_occ = int(occ.numel())
-    ex = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    n_rows = int(rows.sum())
+    keep = torch.arange(cap, device="cuda")[None, :] < rows[:, None]
+    ex = dict(ms=0.0, plain_ms=0.0 if plain else None, library_ms=0.0,
+              bound_ms=0.0)
     nbytes_all = flops_all = 0
     for label, (n, k) in shapes.items():
         p = _w4_experts_packed(e, n, k, SEED + 15)
         args = (p["qw"], p["scale"], p["zero"])
-        x = torch.zeros((e, 1, k), device="cuda", dtype=torch.bfloat16)
-        x[occ] = torch.randn((n_occ, 1, k), generator=g, device="cuda",
-                             dtype=torch.bfloat16)
-        nbytes = n_occ * (n * k // 2 + 8 * n * (k // 16) + k * 2) + e * n * 4
-        flops = 2 * n_occ * n * k
+        x = (torch.randn((e, cap, k), generator=g, device="cuda",
+                         dtype=torch.bfloat16) * keep[..., None])
+        nbytes = (n_occ * (n * k // 2 + 8 * n * (k // 16)) + n_rows * k * 2
+                  + e * cap * n * 4)
+        flops = 2 * n_rows * n * k
         bound = _bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
         dense = torch.stack([dequantize(
             unpack_int4(p["qw"][i]), p["scale"][i], p["zero"][i],
@@ -1897,27 +1970,34 @@ def w4_experts_layer(timer, g, name, e, shapes):
         xo = x[occ].contiguous()
         t_k = timer.ms(lambda: w4_matmul_experts_cuda(x, *args, rows, 16))
         t_p = timer.ms(lambda: ops.w4_matmul_experts(
-            x, *args, rows, group_size=16, plain=True), iters=3)
+            x, *args, rows, group_size=16, plain=True), iters=3) \
+            if plain else None
         t_l = timer.ms(lambda: torch.bmm(xo, dense.transpose(1, 2)))
-        log(f"[w4 experts time] {name} {label} E={e} N={n} K={k} C=1, "
-            f"{n_occ} occupied experts, bf16 x: kernel {t_k * 1e3:.1f}us "
-            f"plain {t_p * 1e3:.1f}us torch.bmm(dense bf16, occupied) "
-            f"{t_l * 1e3:.1f}us bound {bound * 1e3:.2f}us "
-            f"({nbytes / 1e6:.1f} MB) -> {bound / t_k:.0%} of bound")
+        p_note = "-" if t_p is None else f"{t_p * 1e3:.1f}us"
+        log(f"[w4 experts time] {name} {label} E={e} N={n} K={k} C={cap}, "
+            f"{n_occ} occupied experts, {n_rows} filled rows, bf16 x: "
+            f"kernel {t_k * 1e3:.1f}us plain {p_note} "
+            f"torch.bmm(dense bf16, occupied) {t_l * 1e3:.1f}us bound "
+            f"{bound * 1e3:.2f}us ({nbytes / 1e6:.1f} MB) -> "
+            f"{bound / t_k:.0%} of bound")
         c = 2 if label == "wg/wu" else 1
         for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
                           (t_k, t_p, t_l, bound)):
-            ex[key] += c * v
+            if v is not None:
+                ex[key] += c * v
         nbytes_all += c * nbytes
         flops_all += c * flops
         del p, args, dense
     ex["bound_by"] = ("bytes" if nbytes_all / HBM_BYTES_PER_S
                       >= flops_all / BF16_TC_FLOP_PER_S else "operations")
-    ex["occupied"] = n_occ
-    log(f"[w4 experts time] {name}: one decode layer (3 expert projections, "
-        f"C=1, {n_occ} of {e} occupied): kernel {ex['ms']:.4f}ms plain "
-        f"{ex['plain_ms']:.4f}ms bmm {ex['library_ms']:.4f}ms bound "
-        f"{ex['bound_ms']:.4f}ms by {ex['bound_by']} "
+    ex.update(occupied=n_occ, capacity=cap, routed_rows=tokens,
+              filled_rows=n_rows)
+    plain_note = ("-" if ex["plain_ms"] is None
+                  else f"{ex['plain_ms']:.4f}ms")
+    log(f"[w4 experts time] {name}: one layer (3 expert projections, "
+        f"C={cap}, {n_occ} of {e} occupied, {n_rows} filled rows): kernel "
+        f"{ex['ms']:.4f}ms plain {plain_note} bmm {ex['library_ms']:.4f}ms "
+        f"bound {ex['bound_ms']:.4f}ms by {ex['bound_by']} "
         f"({ex['bound_ms'] / ex['ms']:.0%} of bound)")
     return ex
 
@@ -2253,6 +2333,461 @@ def phase_static():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# speculation on the MoE families (phase 19)
+# ---------------------------------------------------------------------------
+
+# capacity factors at which no routed entry drops: C >= the routed rows
+# needs factor >= E / top_k (64 / 6 and 160 / 6)
+MOE_DROPLESS = {"deepseek_moe_16b": 11.0, "deepseek_v2_236b": 27.0}
+DS_SPEC_F32_LAYERS = 4   # DeepSeek-V2's depth in the f32 spec check
+
+
+@contextlib.contextmanager
+def recording_routes(n_rows):
+    """Keeps the expert ids ([rows, top_k], on the card) of every routing
+    of ``n_rows`` rows while the block runs. At 4 slots these are the
+    verify blocks' (4 x (K + 1) rows for a chain, 4 x 29 for a (4, 2, 2)
+    tree): no prefill (4 x a power of two) or draft call (4 x 1, 4 or 8)
+    routes as many."""
+    from repro_torch.models import moe
+    inner, kept = moe.route, []
+
+    def keep(router_p, x, cfg_moe, aux=True):
+        out = inner(router_p, x, cfg_moe, aux)
+        if x.shape[0] == n_rows:
+            kept.append(out[1])
+        return out
+    moe.route = keep
+    try:
+        yield kept
+    finally:
+        moe.route = inner
+
+
+def verify_rows(spec, slots=4):
+    """Rows a verify call routes: slots x (K + 1), or slots x the tree's
+    fed tokens."""
+    from repro_torch.engine.spec import TreeTemplate
+    if "spec_k" in spec:
+        return slots * (spec["spec_k"] + 1)
+    return slots * (TreeTemplate(spec["spec_fanout"]).n_nodes + 1)
+
+
+def verify_dispatch(kept, cfg, label):
+    """``(rows [E], C)`` of one recorded verify dispatch (each MoE layer
+    of each verify call is one) at the config's capacity factor: the
+    median by occupied experts, then filled rows. Logs the spread over
+    all of them."""
+    from repro_torch.models import moe
+    require(len(kept) > 0, f"{label}: verify dispatches recorded")
+    e, n = cfg.moe.n_experts, kept[0].shape[0]
+    cap = moe.capacity(n, cfg.moe)
+    rows = torch.stack([torch.bincount(ids.reshape(-1), minlength=e)
+                        for ids in kept]).clamp(max=cap).to(torch.int32)
+    occ = (rows > 0).sum(1).cpu()
+    filled = rows.sum(1).cpu()
+    mid = int(torch.argsort(occ * (n * cfg.moe.top_k + 1) + filled)
+              [len(kept) // 2])
+    log(f"[verify dispatch] {label}: {len(kept)} dispatches of {n} routed "
+        f"rows (C={cap}, E={e}): occupied experts {int(occ.min())}.."
+        f"{int(occ.max())} (mean {occ.float().mean():.1f}), filled rows "
+        f"{int(filled.min())}..{int(filled.max())} (mean "
+        f"{filled.float().mean():.1f}); timed: the median, "
+        f"{int(occ[mid])} occupied, {int(filled[mid])} filled")
+    return rows[mid].contiguous(), cap
+
+
+def spec_launches(cfg, compress, profile, spec, rounds, prefills):
+    """Each kernel's launches over a speculative run, from the layer
+    structure: every call launches, in each layer it runs, one attention
+    kernel and one a packed projection (four attention projections and
+    the three of the fused shared experts, one expert-axis launch for
+    each of the three routed projections); the target runs in every
+    prefill and verify (all its layers), the draft (its leading layers)
+    K times a chain round, or a root call and a level call a tree level
+    after the first. Chain calls and a tree's root attend in the plain
+    mode (the latent mode on ``mla_moe``), tree levels and the tree
+    verify in the tree mode (the latent mode with tree operands)."""
+    from repro_torch.core.model_compress import DRAFT_PROFILES, draft_layers
+    lt, ld = cfg.n_layers, draft_layers(cfg, profile)
+    target = "gqsa_gemv" if compress == "gqsa" else "w4_matmul"
+    drafter = ("w4_matmul" if DRAFT_PROFILES[profile]["sparsity"] <= 0
+               else "gqsa_gemv")
+    tree = "spec_fanout" in spec
+    level_calls = len(spec["spec_fanout"]) - 1 if tree else 0
+    plain_calls = 1 if tree else spec["spec_k"]
+    want = {k: 0 for k in read_launches() if not k.endswith("_tc")}
+    for kind, calls, layers in ((target, prefills + rounds, lt),
+                                (drafter, (plain_calls + level_calls)
+                                 * rounds, ld)):
+        want[kind] += 7 * layers * calls
+        want[f"{kind}_experts"] += 3 * layers * calls
+    tree_attn = (level_calls * ld + lt) * rounds if tree else 0
+    if cfg.family == "mla_moe":
+        want["paged_attention_latent"] = ((plain_calls + level_calls) * ld
+                                          + lt) * rounds
+        want["paged_attention_latent_tree"] = tree_attn
+    else:
+        want["paged_attention"] = plain_calls * ld * rounds \
+            + (0 if tree else lt * rounds)
+        want["paged_attention_tree"] = tree_attn
+    return want
+
+
+def check_spec_launches(label, cfg, compress, profile, spec, launches,
+                        metrics):
+    """Logs acceptance and each kernel's launches per round, and requires
+    every count to equal :func:`spec_launches`' (from the engine's
+    ``spec_rounds`` and ``prefills``) and every expert-axis launch of the
+    dense-W4 path to take the tensor cores."""
+    rounds, prefills = metrics["spec_rounds"], metrics["prefills"]
+    require(rounds > 0, f"{label}: speculative rounds ran")
+    want = spec_launches(cfg, compress, profile, spec, rounds, prefills)
+    per_round = ", ".join(f"{k} {v / rounds:.1f}" for k, v in
+                          launches.items() if v)
+    log(f"[spec moe] {label}: acceptance {metrics['acceptance_rate']:.1%}, "
+        f"{rounds} rounds, {prefills} prefills, accepted drafts per "
+        f"slot-round {metrics['accepted_len_mean']:.2f}; launches per "
+        f"round (prefills included): {per_round}")
+    got = {k: launches[k] for k in want}
+    require(got == want, f"{label}: launches {got} are not the layer "
+                         f"structure's {want}")
+    require(launches["w4_matmul_experts_tc"]
+            == launches["w4_matmul_experts"]
+            and (launches["w4_matmul"] == 0 or launches["w4_matmul_tc"] > 0),
+            f"{label}: the dense-W4 expert axis took the tensor cores")
+
+
+def _moe_spec_cfg(arch, n_layers=None, dtype=None, capacity_factor=None):
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
+    return cfg
+
+
+def phase_spec_moe_engine():
+    """(a) Speculation against none in the f32 engine, dropless (8
+    requests x 32 tokens, 4 slots, GQSA target): deepseek-moe-16b at full
+    width and all 28 layers, chain K=4 (draft w4s50) and tree (4, 2, 2)
+    (draft w4l25); DeepSeek-V2 at full width and 4 layers, tree (4, 2, 2)
+    (draft w4l25). Greedy tokens equal, where they differ only at a top-2
+    margin under SPEC_MARGIN_REL, as phase 11 judges llama2-7b."""
+    from repro_torch.core.gqs_layer import GQSAConfig
+    from repro_torch.core.model_compress import draft_layers
+    from repro_torch.models import transformer as tf
+    runs = [("deepseek_moe_16b", None, "chain K=4, draft w4s50", "w4s50",
+             dict(spec_k=4)),
+            ("deepseek_moe_16b", None, "tree (4,2,2), draft w4l25", "w4l25",
+             dict(spec_fanout=(4, 2, 2))),
+            ("deepseek_v2_236b", DS_SPEC_F32_LAYERS,
+             "tree (4,2,2), draft w4l25", "w4l25",
+             dict(spec_fanout=(4, 2, 2)))]
+    plain = {}
+    for r, (arch, layers, label, profile, spec) in enumerate(runs):
+        cfg = _moe_spec_cfg(arch, layers, "float32", MOE_DROPLESS[arch])
+        tag = f"{arch} {cfg.n_layers} layers, capacity factor " \
+              f"{cfg.moe.capacity_factor:g}"
+        if arch not in plain:
+            # one draw of the weights packs the target and every draft
+            # profile this model's runs take
+            profiles = [run[3] for run in runs[r:] if run[0] == arch]
+            t0 = time.time()
+            params, drafts = tf.init_params_and_drafts(
+                SEED, cfg, profiles, "cuda", compress=GQSAConfig())
+            torch.cuda.synchronize()
+            log(f"[spec moe f32] {tag}: target and drafts {profiles} "
+                f"packed on the card in {time.time() - t0:.1f}s")
+            prompts, plain[arch], _, _, wall = _engine_run(cfg, params)
+            log(f"[spec moe f32] {tag}: no speculation: wall {wall:.1f}s")
+        _, got, eng, launches, wall = _engine_run(
+            cfg, params, drafts[profile],
+            spec_draft_layers=draft_layers(cfg, profile), **spec)
+        m = eng.metrics.summary()
+        mism = 0
+        for i, (a, b) in enumerate(zip(got, plain[arch])):
+            diff = np.flatnonzero(a != b)
+            if len(diff) == 0:
+                continue
+            mism += 1
+            at = int(diff[0])
+            margin, scale = greedy_margin(params, cfg, prompts[i], b, at)
+            log(f"[spec moe f32] {tag}, {label}: request {i} first differs "
+                f"at token {at}: plain top-2 margin {margin:.4e} (max "
+                f"|logit| {scale:.3f}, rel {margin / scale:.2e})")
+            require(margin <= SPEC_MARGIN_REL * scale,
+                    f"{label}: tokens differ at a clear top-2 margin "
+                    f"(rel {margin / scale:.2e} > {SPEC_MARGIN_REL})")
+        log(f"[spec moe f32] {tag}, {label}: {mism} of 8 requests differ "
+            f"from no speculation (margin bound {SPEC_MARGIN_REL:.0e} x "
+            f"max |logit|); wall {wall:.1f}s")
+        check_spec_launches(f"f32 {arch} {label}", cfg, "gqsa", profile,
+                            spec, launches, m)
+        del eng
+        if r + 1 == len(runs) or runs[r + 1][0] != arch:
+            del params, drafts
+        torch.cuda.empty_cache()
+
+
+MOE_SPEC_SERVE = {
+    "deepseek-moe gqsa chain serve": ("gqsa", "w4s75", dict(spec_k=4)),
+    "deepseek-moe gqsa tree serve": ("gqsa", "w4l25",
+                                     dict(spec_fanout=(4, 2, 2))),
+    "deepseek-moe w4 tree serve": ("w4", "w4l25",
+                                   dict(spec_fanout=(4, 2, 2))),
+}
+
+
+def phase_serve_spec_moe(label):
+    """(b) A speculative main path of deepseek-moe-16b: the serve CLI at
+    full width and all 28 layers, bf16, the configs' capacity factor
+    (1.25), 4 slots, 8 requests x 32 new tokens."""
+    from repro_torch.launch import serve
+    compress, profile, spec = MOE_SPEC_SERVE[label]
+    flags = (["--spec", str(spec["spec_k"])] if "spec_k" in spec else
+             ["--spec-tree", ",".join(map(str, spec["spec_fanout"]))])
+    argv = ["--arch", "deepseek_moe_16b", "--full", "--compress", compress,
+            "--slots", "4", "--requests", "8", "--max-new", "32",
+            "--max-seq", "256", "--seed", str(SEED), "--draft-profile",
+            profile] + flags
+    buf = io.StringIO()
+    reset_launches()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        res = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches()
+    for line in buf.getvalue().splitlines():
+        log(f"[{label}] {line}")
+    log(f"[{label}] {' '.join(argv[5:])}: wall {wall:.1f}s (init + pack + "
+        f"serve)")
+    require(len(res["results"]) == 8, "all 8 requests answered")
+    require(all(len(r["tokens"]) == 32 for r in res["results"]),
+            "every request got 32 tokens")
+    check_spec_launches(label, _moe_spec_cfg("deepseek_moe_16b"), compress,
+                        profile, spec, launches, res)
+    return launches
+
+
+DS_SPEC = dict(spec_fanout=(4, 2, 2))   # DeepSeek-V2's served speculation
+
+
+def engine_spec_deepseek():
+    """(b) DeepSeek-V2's speculative main path: full width, 8 of 60
+    layers, GQSA target, tree (4, 2, 2) with draft w4l25, bf16, the
+    configs' capacity factor; the engine serves 8 requests x 32 new
+    tokens on 4 slots."""
+    from repro_torch.core.gqs_layer import GQSAConfig
+    from repro_torch.core.model_compress import draft_layers
+    from repro_torch.models import transformer as tf
+    cfg = _moe_spec_cfg("deepseek_v2_236b", DS_LAYERS)
+    spec = DS_SPEC
+    t0 = time.time()
+    params, draft = tf.init_params_and_draft(SEED, cfg, "w4l25", "cuda",
+                                             compress=GQSAConfig())
+    torch.cuda.synchronize()
+    log(f"[deepseek spec engine] {DS_LAYERS} of 60 layers, GQSA target and "
+        f"draft w4l25 packed on the card in {time.time() - t0:.1f}s")
+    _, got, eng, launches, wall = _engine_run(
+        cfg, params, draft, spec_draft_layers=draft_layers(cfg, "w4l25"),
+        **spec)
+    log(f"[deepseek spec engine] {eng.metrics.format_summary()}; wall "
+        f"{wall:.1f}s")
+    require(all(0 <= int(t) < cfg.vocab for r in got for t in r),
+            "tokens in the vocabulary")
+    check_spec_launches("deepseek gqsa tree engine", cfg, "gqsa", "w4l25",
+                        spec, launches, eng.metrics.summary())
+    del params, draft, eng
+    return launches
+
+
+def profile_verify_moe():
+    """A profiled (4, 2, 2) tree verify step of deepseek-moe-16b at full
+    width and depth, bf16, GQSA, 4 slots, after a batched prefill (the
+    draft tokens are random: the verify's work does not depend on
+    them)."""
+    from repro_torch.core.gqs_layer import GQSAConfig
+    from repro_torch.engine.sampling import SamplingParams
+    from repro_torch.engine.spec import tree_step_fns
+    from repro_torch.models import transformer as tf
+    cfg = _moe_spec_cfg("deepseek_moe_16b")
+    params = tf.split_layers(tf.init_params(SEED, cfg, "cuda",
+                                            compress=GQSAConfig()), cfg)
+    _, verify_fn, tpl = tree_step_fns(cfg, SamplingParams(), (4, 2, 2))
+    ps, mp = 16, 4
+    lens = torch.tensor([7, 12, 4, 15], dtype=torch.int32, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (4, 16), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(SEED))
+    bt = torch.arange(4 * mp, dtype=torch.int32, device="cuda").reshape(
+        4, mp)
+    cache = tf.init_paged_cache(cfg, 4 * mp, ps, device="cuda")
+    logits, _ = tf.prefill(params, cache, toks, lens, bt, cfg)
+    first = logits[:, -1].argmax(-1).int()
+    tree = torch.randint(0, cfg.vocab, (4, tpl.n_nodes), device="cuda",
+                         dtype=torch.int32)
+    ones = torch.ones(4, dtype=torch.int32, device="cuda")
+
+    def step():
+        verify_fn(params, cache, first, tree, lens, bt, ones, ones * 32,
+                  None, 3)
+    profile_steps(step, 8, "deepseek-moe gqsa bf16 tree (4,2,2) verify "
+                           "step at 4 slots (T=29), 28 layers")
+    del params, cache
+
+
+def latent_tree_time(timer, g):
+    """The latent mode on a (4, 2, 2) verify block (T=29) at DeepSeek-V2
+    width, 4 slots, bf16 pages, window bases ~64 and ~256: kernel, plain,
+    SDPA with the ancestor mask on the latent rows gathered beforehand
+    (the 29 x 128 query rows of the one KV head), and the bound: the
+    larger of the bytes (each live latent row once in bf16, q and the
+    output once in f32) over 3.35 TB/s and the multiply-adds (a score and
+    a value product, D + v_rank, for every position a query row sees)
+    over the bf16 tensor cores' 989 TFLOP/s, with the bound at the f32
+    rate (67 TFLOP/s) beside it. At each base the kernel's output must
+    agree with the plain version's."""
+    import torch.nn.functional as F
+    from repro_torch.engine.spec import TreeTemplate
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.models.layers import ancestor_mask
+    b = 4
+    spec = TreeTemplate((4, 2, 2)).verify_tree("cuda")
+    t, win = spec["anc"].shape[0], spec["window"]
+    anc = spec["anc"][None].expand(b, t).contiguous()
+    seen_anc = sum(bin(int(a)).count("1") for a in spec["anc"].tolist())
+    out = {}
+    for label, bases in (("~64", [35, 40, 31, 38]),
+                         ("~256", [227, 220, 225, 210])):
+        base = torch.tensor(bases, dtype=torch.int32)
+        lens = (base + win)[:, None].expand(b, t).contiguous()
+        q, lat, lq, bt = _latent_case(b, t, lens, torch.bfloat16, g)
+        base = base.to("cuda")
+        rows = sum(bases) + b * win
+        nbytes = rows * DS_D * 2 + b * t * DS_H * (DS_D + DS_R) * 4
+        flops = 2 * DS_H * (t * sum(bases) + b * seen_anc) * (DS_D + DS_R)
+        bound = _bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
+        bound_f32 = _bound_ms(nbytes, flops)
+        by = ("bytes" if nbytes / HBM_BYTES_PER_S
+              >= flops / BF16_TC_FLOP_PER_S else "operations")
+        o = ops.paged_latent_attention(q, lat, lq, bt, v_rank=DS_R, anc=anc,
+                                       anc_base=base, anc_window=win)
+        ref = ops.paged_latent_attention(q, lat, lq, bt, v_rank=DS_R,
+                                         anc=anc, anc_base=base,
+                                         anc_window=win, plain=True)
+        err = (o - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        require(rel <= TOL, f"paged_attention (latent, (4,2,2) verify, "
+                            f"bases {label}) disagrees: rel {rel}")
+        lq2, live = ops.paged_query_prep(lq, bt, b, t, lat.shape[1])
+        qh = q.reshape(b, 1, t * DS_H, DS_D).contiguous()
+        lat4 = lat[:, :, None, :]
+        t_k = timer.ms(lambda: paged_attention_cuda(
+            qh, lat4, None, lq2, bt, live, t, anc=anc, anc_base=base,
+            window=win, v_rank=DS_R))
+        t_p = timer.ms(lambda: ops.paged_latent_attention(
+            q, lat, lq, bt, v_rank=DS_R, anc=anc, anc_base=base,
+            anc_window=win, plain=True), iters=3)
+        smax = int(lens.max())
+        kk = lat[bt.clamp(max=lat.shape[0] - 1).long()].reshape(
+            b, -1, DS_D)[:, None, :smax].contiguous()
+        vv = kk[..., :DS_R].contiguous()
+        mask = ancestor_mask(lq, anc, base, win, b, t, smax)[:, None] \
+            .repeat_interleave(DS_H, dim=2)
+        qs = qh.to(torch.bfloat16)
+        t_l = timer.ms(lambda: F.scaled_dot_product_attention(
+            qs, kk, vv, attn_mask=mask))
+        log(f"[latent time] verify (4,2,2) T={t} bases {label} ({bases}) "
+            f"B=4 H=128 D=576 v_rank=512 bf16 pages "
+            f"({split_note(b, 1, t * DS_H, bt.shape[1], DS_R)}): kernel "
+            f"{t_k * 1e3:.1f}us plain {t_p * 1e3:.1f}us sdpa(mask) "
+            f"{t_l * 1e3:.1f}us bound {bound * 1e3:.2f}us by {by} at the "
+            f"tensor cores' rate (f32 rate {bound_f32 * 1e3:.2f}us; "
+            f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP) -> "
+            f"{bound / t_k:.0%} of bound; kernel vs plain max_abs_err "
+            f"{err:.3e} rel {rel:.3e}")
+        out[label] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                          bound_ms=bound, bound_by=by,
+                          bound_f32_ms=bound_f32, max_abs_err=err)
+    return out
+
+
+# (model, experts, expert shapes, the main paths of (b) whose recorded
+# verify routing the GQSA and the W4 expert axis are timed on): a chain
+# K=4 of 4 slots (20 routed rows) and a (4, 2, 2) tree (116); the W4
+# axis takes the W4 target's own routing where (b) serves one
+VERIFY_DISPATCHES = (
+    ("deepseek-moe-16b", MOE_EXPERTS, MOE_EXPERT_SHAPES,
+     "deepseek-moe gqsa chain serve", "deepseek-moe gqsa chain serve"),
+    ("deepseek-moe-16b", MOE_EXPERTS, MOE_EXPERT_SHAPES,
+     "deepseek-moe gqsa tree serve", "deepseek-moe w4 tree serve"),
+    ("deepseek-v2", 160, DS_EXPERT_SHAPES, "deepseek spec engine",
+     "deepseek spec engine"))
+
+
+def phase_spec_moe_timing(timer, dispatches):
+    """(c) The kernels at the shapes speculation on the MoE families
+    sends: the tree mode at deepseek-moe-16b's width (KH=16), the latent
+    mode on a (4, 2, 2) block, and both expert axes at verify capacities
+    (a layer's three projections with the buffer rows of one verify
+    dispatch recorded on a main path of (b), :func:`verify_dispatch`),
+    each beside its plain version."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    out = {"tree_kh16": phase_tree_timing(timer, kh=16),
+           "latent_verify_422": latent_tree_time(timer, g),
+           "experts_verify": [], "w4_experts_verify": []}
+    for name, e, shapes, *sources in VERIFY_DISPATCHES:
+        for key, layer, source in (
+                ("experts_verify", experts_layer, sources[0]),
+                ("w4_experts_verify", w4_experts_layer, sources[1])):
+            spec = (MOE_SPEC_SERVE[source][2] if source in MOE_SPEC_SERVE
+                    else DS_SPEC)
+            row = layer(timer, g, name, e, shapes, verify_rows(spec),
+                        dispatch=dispatches[source])
+            row["routing"] = source
+            out[key].append(row)
+    return out
+
+
+def phase_spec_moe(timer):
+    """Phase 19: (a), (b) and (c); the routing of the served paths'
+    verify calls is recorded for (c). Returns ({main path: launches},
+    timings)."""
+    t0 = time.time()
+    phase_spec_moe_engine()
+    launches, dispatches = {}, {}
+    moe_cfg = _moe_spec_cfg("deepseek_moe_16b")
+    for label, (_, _, spec) in MOE_SPEC_SERVE.items():
+        torch.cuda.empty_cache()
+        with recording_routes(verify_rows(spec)) as kept:
+            launches[label] = phase_serve_spec_moe(label)
+        dispatches[label] = verify_dispatch(kept, moe_cfg, label)
+        del kept
+    torch.cuda.empty_cache()
+    label = "deepseek spec engine"
+    with recording_routes(verify_rows(DS_SPEC)) as kept:
+        launches[label] = engine_spec_deepseek()
+    dispatches[label] = verify_dispatch(
+        kept, _moe_spec_cfg("deepseek_v2_236b"), label)
+    del kept
+    torch.cuda.empty_cache()
+    profile_verify_moe()
+    torch.cuda.empty_cache()
+    times = phase_spec_moe_timing(timer, dispatches)
+    log(f"[time] speculation on the MoE families (phase 19) "
+        f"{time.time() - t0:.1f}s")
+    return launches, times
+
+
 KERNELS = {
     "gqsa_gemv": dict(
         source="src/repro_torch/csrc/gqsa_gemv.cu",
@@ -2284,7 +2819,10 @@ KERNELS = {
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:181",
         unit="one layer's tree verify attention, fanout (4,2,2): 4 slots, "
-             "T=29, lengths ~64, KH=32, D=128, bf16 pages"),
+             "T=29, lengths ~64, KH=32, D=128, bf16 pages; 'lengths' holds "
+             "~64 and ~256, 'deepseek_moe_kh16' the same at KH=16, "
+             "'moe_spec_launches' the tree-mode launches of the "
+             "deepseek-moe-16b GQSA tree serve"),
     "gqsa_gemv_experts": dict(
         source="src/repro_torch/csrc/gqsa_gemv.cu",
         replaces="src/repro/kernels/gqsa_gemv.py:71",
@@ -2296,12 +2834,22 @@ KERNELS = {
              "bf16 x; 'deepseek_moe_layer' holds a deepseek-moe-16b decode "
              "layer (64 experts) and 'prefill' the layers of prefill "
              "dispatches (C = 3, 7 and 30), each with its bound and "
-             "torch.bmm"),
+             "torch.bmm; 'verify' the layers at verify capacities "
+             "(deepseek-moe-16b C = 2 and 13, DeepSeek-V2 C = 5) with the "
+             "rows of a verify dispatch recorded on the served path named "
+             "by 'routing', and "
+             "'spec_launches' the launches of the MoE families' GQSA "
+             "tree paths"),
     "paged_attention_latent": dict(
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:181",
         unit="one DeepSeek-V2 layer's latent decode attention: 4 slots, "
-             "lengths 20/25/31/29, H=128, D=576, v_rank 512, bf16 pages"),
+             "lengths 20/25/31/29, H=128, D=576, v_rank 512, bf16 pages; "
+             "'verify_422' a (4,2,2) verify block (T=29) at ~64 and ~256, "
+             "its bound at the tensor cores' rate (bound_f32_ms: at the "
+             "f32 rate); 'spec_launches' / 'spec_tree_launches' the latent "
+             "launches (with tree operands) of the DeepSeek-V2 tree "
+             "engine"),
     "w4_matmul_experts": dict(
         source="src/repro_torch/csrc/w4_matmul.cu",
         replaces="src/repro/kernels/w4_matmul.py:51",
@@ -2309,7 +2857,12 @@ KERNELS = {
              "wd at G16; the Pallas kernel under the vmap at "
              "src/repro/models/moe.py:91): 64 experts, C=1, the occupied "
              "experts of one 4-slot step, bf16 x; 'deepseek_v2_layer' "
-             "holds a DeepSeek-V2 layer (160 experts)"),
+             "holds a DeepSeek-V2 layer (160 experts), 'spec_launches' "
+             "(tensor cores: 'spec_tc_launches') the launches of the "
+             "w4l25 draft of the deepseek-moe-16b GQSA tree serve, "
+             "'verify' the layers at verify capacities (deepseek-moe-16b "
+             "C = 2 and 13, DeepSeek-V2 C = 5) with the rows of a verify "
+             "dispatch recorded on the served path named by 'routing'"),
     "kv_decode_attention": dict(
         source="src/repro_torch/csrc/kv_decode_attention.cu",
         replaces="src/repro/kernels/ops.py:261",
@@ -2379,6 +2932,9 @@ def main() -> int:
     launches["static int8 serve"] = phase_static()
     log(f"[time] the static-batch contiguous path (phase 18) "
         f"{time.time() - t_static:.1f}s")
+    torch.cuda.empty_cache()
+    spec_moe, spec_times = phase_spec_moe(timer)
+    launches.update(spec_moe)
     path_of = {"gqsa_gemv": "gqsa serve", "paged_attention": "gqsa serve",
                "w4_matmul": "w4 serve",
                "paged_attention_int8": "int8-kv engine",
@@ -2413,6 +2969,28 @@ def main() -> int:
     w4x["deepseek_v2_layer"] = times["w4_matmul_experts"]["deepseek_v2_layer"]
     kvd = next(k for k in kernels if k["name"] == "kv_decode_attention")
     kvd["lengths"] = times["kv_decode_attention"]["lengths"]
+    # phase 19: launches on the MoE families' speculative paths and the
+    # timings at their shapes
+    tree = next(k for k in kernels if k["name"] == "paged_attention_tree")
+    tree["lengths"] = times["paged_attention_tree"]["lengths"]
+    tree["moe_spec_launches"] = spec_moe["deepseek-moe gqsa tree serve"][
+        "paged_attention_tree"]
+    tree["deepseek_moe_kh16"] = spec_times["tree_kh16"]
+    lat = next(k for k in kernels if k["name"] == "paged_attention_latent")
+    lat["spec_launches"] = spec_moe["deepseek spec engine"][
+        "paged_attention_latent"]
+    lat["spec_tree_launches"] = spec_moe["deepseek spec engine"][
+        "paged_attention_latent_tree"]
+    lat["verify_422"] = spec_times["latent_verify_422"]
+    gx["spec_launches"] = {
+        path: spec_moe[path]["gqsa_gemv_experts"]
+        for path in ("deepseek-moe gqsa tree serve", "deepseek spec engine")}
+    gx["verify"] = spec_times["experts_verify"]
+    w4x["spec_launches"] = spec_moe["deepseek-moe gqsa tree serve"][
+        "w4_matmul_experts"]
+    w4x["spec_tc_launches"] = spec_moe["deepseek-moe gqsa tree serve"][
+        "w4_matmul_experts_tc"]
+    w4x["verify"] = spec_times["w4_experts_verify"]
     require(all(k["launches"] > 0 for k in kernels),
             "every kernel launched on its main path")
     log(f"[time] chip_smoke total {time.time() - t_start:.1f}s")

@@ -124,15 +124,6 @@ class InferenceEngine:
                 f"family {cfg.family!r} lacks prefill/paged-cache support")
         self._spec_tree = engine_cfg.spec_fanout is not None
         self.spec = engine_cfg.spec_k > 0 or self._spec_tree
-        if self.spec and cfg.family != "dense":
-            # the MoE family's rounds (K/V pages, routing over the verify
-            # block's rows, the w4l* drafts on the W4 expert axis) are not
-            # yet held against the reference; the latent pool's rounds
-            # must move latent pages
-            raise NotImplementedError(
-                f"speculative decoding on family {cfg.family!r} is not yet "
-                f"ported (ROADMAP "
-                f"{'A.7.1' if cfg.family == 'moe' else 'A.7.2'})")
         if self.spec and draft_params is None:
             raise ValueError("speculative decoding requires draft_params "
                              "(the same weights under a draft profile: "
@@ -474,6 +465,7 @@ class InferenceEngine:
             lengths[r.slot] = r.prompt_len
             bt[r.slot] = self.kv.block_tables[r.slot]
             mask[r.slot] = True
+        self.metrics.prefills += 1
         with tracer.span("prefill") as sp, tracer.annotate("prefill"):
             lengths_d = self._to_device(lengths)
             first = self._prefill_fn(self.params, self.kv.data,

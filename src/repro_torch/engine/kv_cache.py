@@ -122,7 +122,7 @@ class PagedKVCache:
                 "the shared-prefix KV cache is not yet ported (ROADMAP A.4)")
         self.page_size = page_size
         # ``lookahead``: extra writable positions past a slot's budget for
-        # speculative decoding (0 until speculation is ported)
+        # speculative decoding
         self.lookahead = lookahead
         self.max_pages_per_slot = -(-(max_seq + lookahead) // page_size)
         # default pool: every slot can grow to max_seq simultaneously

@@ -79,6 +79,8 @@ class EngineMetrics:
         self.end_t: Optional[float] = None
         r = self.registry
         self._c_dispatches = r.counter("engine.dispatches")
+        # batched prefill calls (each runs the target over every slot)
+        self._c_prefills = r.counter("engine.prefills")
         self._c_enqueued = r.counter("engine.requests_enqueued")
         self._c_finished = r.counter("engine.requests_finished")
         self._c_tokens = r.counter("engine.tokens_generated")
@@ -106,6 +108,7 @@ class EngineMetrics:
         self._h_latency = r.histogram("engine.latency_ms")
 
     decode_steps = _counter_property("_c_dispatches")
+    prefills = _counter_property("_c_prefills")
     spec_rounds = _counter_property("_c_spec_rounds")
     draft_proposed = _counter_property("_c_draft_proposed")
     draft_accepted = _counter_property("_c_draft_accepted")
@@ -211,6 +214,7 @@ class EngineMetrics:
             "seconds": dt,
             "tok_per_s": toks / max(dt, 1e-9),
             "decode_steps": self.decode_steps,
+            "prefills": self.prefills,
             "queue_wait_ms_p50": self._h_queue_wait.quantile(50),
             "queue_wait_ms_p99": self._h_queue_wait.quantile(99),
             "ttft_ms_p50": self._h_ttft.quantile(50),

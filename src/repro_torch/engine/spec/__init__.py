@@ -6,7 +6,11 @@ compressed parameter set of the same checkpoint (a draft profile,
 ``models/transformer.py:init_params_and_draft``), then verifies all K in
 one multi-token target step and keeps the longest accepted prefix plus a
 correction/bonus token. Greedy speculative output is token for token the
-greedy non-speculative output (``engine/sampling.py:spec_verify``).
+greedy non-speculative output (``engine/sampling.py:spec_verify``),
+except on the MoE families at a capacity factor that drops routed
+entries: which entries drop depends on the whole block a call routes (a
+verify routes K+1 or N+1 rows a slot), as in the reference, whose
+speculative tokens the port then gives.
 
     from repro_torch.engine import EngineConfig, InferenceEngine
     from repro_torch.models.transformer import init_params_and_draft

@@ -37,6 +37,7 @@ from repro_torch.engine.spec.drafter import draft_config
 from repro_torch.engine.spec.verify import advance
 from repro_torch.models import layers as L
 from repro_torch.models.registry import get_model
+from repro_torch.models.transformer import pool_geometry
 
 # ancestor bitmaps are int32 lanes (the kernel and the plain mask shift by
 # the in-window offset), so a tree block holds at most 31 fed tokens
@@ -223,7 +224,7 @@ def build_tree_verify_fn(cfg, api, sampling: SamplingParams,
         n_new, tokens2, positions2, remaining2 = advance(
             out, n_acc, tokens, positions, active, remaining)
         compact_accepted(cache, block_tables, positions, path, n_new,
-                         cache["k_pages"].shape[2])
+                         pool_geometry(cache)[1])
         return out, n_new, tokens2, positions2, remaining2
 
     return verify_fn

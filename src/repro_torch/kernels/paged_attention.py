@@ -145,7 +145,8 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     Plain-mode launches count in ``launches``, int8-mode launches in
     ``int8_launches``, tree-mode launches (any page type) in
     ``tree_launches``, latent-mode launches (tree or not) in
-    ``latent_launches``, one a call whatever number of kernels it
+    ``latent_launches`` and, those with tree operands, also in
+    ``latent_tree_launches``, one a call whatever number of kernels it
     launches."""
     b, khn, tr, d = q.shape
     p, ps = k_pages.shape[0], k_pages.shape[1]
@@ -221,6 +222,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
             f"paged_attention kernel launch failed: CUDA error {rc}")
     if latent:
         paged_attention_cuda.latent_launches += 1
+        paged_attention_cuda.latent_tree_launches += int(tree)
     elif tree:
         paged_attention_cuda.tree_launches += 1
     elif int8:
@@ -234,3 +236,4 @@ paged_attention_cuda.launches = 0        # plain mode (bf16/f32 pages)
 paged_attention_cuda.int8_launches = 0   # int8 mode
 paged_attention_cuda.tree_launches = 0   # tree mode (any page type)
 paged_attention_cuda.latent_launches = 0  # latent mode (tree or not)
+paged_attention_cuda.latent_tree_launches = 0  # latent mode, tree operands

@@ -124,10 +124,22 @@ def init_params_and_draft(seed: int, cfg, profile: str, device=None,
     first ``draft_layers(cfg, profile)`` layers and shares ``embed``,
     ``final_norm`` and ``lm_head`` with the target (drawing them again
     would give another ``lm_head``: it is drawn after every layer)."""
-    return tuple(_draw(seed, cfg, device, [
-        (compress, cfg.n_layers),
-        (draft_compression(profile, group_size),
-         draft_layers(cfg, profile))]))
+    params, drafts = init_params_and_drafts(seed, cfg, (profile,), device,
+                                            compress, group_size)
+    return params, drafts[profile]
+
+
+def init_params_and_drafts(seed: int, cfg, profiles, device=None,
+                           compress: Optional[Compression] = None,
+                           group_size: int = 16) -> Tuple[Dict, Dict]:
+    """``(params, {profile: draft_params})``: :func:`init_params_and_draft`
+    for several draft profiles from one draw of the weights (each packed
+    from the slices as they are drawn)."""
+    profiles = tuple(profiles)
+    trees = _draw(seed, cfg, device, [(compress, cfg.n_layers)] + [
+        (draft_compression(p, group_size), draft_layers(cfg, p))
+        for p in profiles])
+    return trees[0], dict(zip(profiles, trees[1:]))
 
 
 def _draw(seed: int, cfg, device, targets) -> List[Dict]:

@@ -126,6 +126,26 @@ def port_greedy_margins(tcfg, tp, prompt, tokens):
     return (top2[:, 0] - top2[:, 1]).numpy()
 
 
+def reference_margins(jcfg, jp, prompts, ref, max_new):
+    """``margins(rid)``: the reference's top-2 logit margins along its
+    greedy paths ``ref``, from a full forward. On the MoE families its
+    routing batch differs from the engine's, so these only judge a flip,
+    they do not replay it."""
+    import jax.numpy as jnp
+    from repro.models import transformer as jtf
+    seqs = [np.concatenate([p, ref[i]]) for i, p in enumerate(prompts)]
+    padded = np.zeros((len(seqs), max(map(len, seqs))), np.int32)
+    for i, s in enumerate(seqs):
+        padded[i, :len(s)] = s
+    logits = np.asarray(jtf.forward(jp, jnp.asarray(padded), jcfg)[0])
+
+    def margins(rid):
+        start = len(prompts[rid]) - 1
+        rows = np.sort(logits[rid, start:start + max_new], axis=-1)
+        return rows[:, -1] - rows[:, -2]
+    return margins
+
+
 def assert_greedy_match(ref, got, prompts, margins, max_new):
     """Tokens equal wherever the step's top-2 margin exceeds 1e-3 (a
     flip at a nearer tie is not a fault, and the paths part there);

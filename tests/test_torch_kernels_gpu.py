@@ -991,9 +991,12 @@ def test_paged_attention_split_walk_latent_matches_plain(cuda, n_split,
         kw = dict(anc=torch.randint(0, 2 ** 31 - 1, (4, t), generator=cuda,
                                     device="cuda", dtype=torch.int32),
                   anc_base=base, anc_window=t)
-    before = paged_attention_cuda.latent_launches
+    before = (paged_attention_cuda.latent_launches,
+              paged_attention_cuda.latent_tree_launches)
     o = _latent_kernel(q, lat, lens, bt, 512, n_split, **kw)
-    assert paged_attention_cuda.latent_launches == before + 1
+    assert (paged_attention_cuda.latent_launches,
+            paged_attention_cuda.latent_tree_launches) \
+        == (before[0] + 1, before[1] + int(tree))
     _close(o, ops.paged_latent_attention(q, lat, lens, bt, v_rank=512,
                                          plain=True, **kw))
     _close(o, paged_attention_split_ref(q, lat, None, lens, bt, n_split,
@@ -1051,6 +1054,55 @@ def test_int8_pool_and_deepseek_decode_steps_never_read_the_device_on_the_host(
     torch.cuda.synchronize()
     assert paged_attention_cuda.int8_launches > before[0]
     assert paged_attention_cuda.latent_launches > before[1]
+    reads = [e.key for e in prof.key_averages()
+             if e.key in ("aten::_local_scalar_dense", "aten::item")]
+    assert not reads, reads
+
+
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "deepseek_v2_236b"])
+def test_moe_spec_rounds_never_read_the_device_on_the_host(cuda, arch):
+    """A chain round (K = 3) and a tree round ((2, 2)) of the reduced MoE
+    families through the kernels (GQSA target, w4l50 draft on the W4
+    expert axis) read no tensor value on the host, and the tree round
+    runs the tree mode (``moe``) or the latent mode with tree operands
+    (``mla_moe``)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.model_compress import draft_layers
+    from repro_torch.engine.sampling import SamplingParams
+    from repro_torch.engine.spec import spec_step_fns, tree_step_fns
+    from repro_torch.kernels.w4_matmul import w4_matmul_experts_cuda
+    from repro_torch.models import transformer as ttf
+    cfg = get_config(arch, reduced=True)
+    params, draft = ttf.init_params_and_draft(0, cfg, "w4l50", "cuda",
+                                              compress=GQSAConfig())
+    dl = draft_layers(cfg, "w4l50")
+    bt = torch.tensor([[0, 1, 2, 3, 4, 5], [16] * 6], dtype=torch.int32,
+                      device="cuda")
+    cache = ttf.init_paged_cache(cfg, 16, 4, device="cuda")
+    ttf.prefill(params, cache, torch.tensor([[5, 6, 7, 1, 2], [0] * 5],
+                                            device="cuda"),
+                torch.tensor([5, 0], device="cuda"), bt, cfg)
+    args = [torch.tensor(v, dtype=torch.int32, device="cuda")
+            for v in ([1, 2], [5, 0])]
+    active = torch.tensor([1, 0], dtype=torch.int32, device="cuda")
+    greedy = SamplingParams()
+    rounds = [spec_step_fns(cfg, greedy, 3, dl),
+              tree_step_fns(cfg, greedy, (2, 2), dl)[:2]]
+    tree_count = (lambda: paged_attention_cuda.latent_tree_launches) \
+        if cfg.family == "mla_moe" \
+        else (lambda: paged_attention_cuda.tree_launches)
+    before = (tree_count(), w4_matmul_experts_cuda.launches)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for draft_fn, verify_fn in rounds:
+            d = draft_fn(draft, cache, args[0], args[1], bt, 2)
+            verify_fn(params, cache, args[0], d, args[1], bt, active,
+                      active * 8, None, 2)
+    torch.cuda.synchronize()
+    # the tree round: one level call of the draft, the verify's layers
+    assert tree_count() == before[0] + dl + cfg.n_layers
+    assert w4_matmul_experts_cuda.launches > before[1]
     reads = [e.key for e in prof.key_averages()
              if e.key in ("aten::_local_scalar_dense", "aten::item")]
     assert not reads, reads

@@ -61,7 +61,8 @@ from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 
 from _torch_utils import (PAGE, assert_greedy_match, engine_prompts,  # noqa: E402
-                          jax_tree_to_numpy, serve_all, slice_run)
+                          jax_tree_to_numpy, reference_margins, serve_all,
+                          slice_run)
 
 ARCH = "deepseek_v2_236b"
 ATOL = 1e-5
@@ -523,30 +524,26 @@ def test_engine_greedy_tokens_match_reference(model):
                                                  page_size=PAGE,
                                                  device="cpu")),
                     prompts, max_new)
-    # the reference's own logits along its greedy paths (a full forward:
-    # its routing batch differs from the engine's, so these margins only
-    # judge a flip, they do not replay it)
-    seqs = [np.concatenate([p, ref[i]]) for i, p in enumerate(prompts)]
-    padded = np.zeros((len(seqs), max(map(len, seqs))), np.int32)
-    for i, s in enumerate(seqs):
-        padded[i, :len(s)] = s
-    logits, _ = jtf.forward(jpk, jnp.asarray(padded), jcfg)
-    logits = np.asarray(logits)
-
-    def margins(rid):
-        start = len(prompts[rid]) - 1
-        rows = np.sort(logits[rid, start:start + max_new], axis=-1)
-        return rows[:, -1] - rows[:, -2]
-
-    assert_greedy_match(ref, got, prompts, margins, max_new)
+    assert_greedy_match(ref, got, prompts,
+                        reference_margins(jcfg, jpk, prompts, ref, max_new),
+                        max_new)
 
 
-def test_engine_refuses_speculation_on_mla_moe():
+def test_engine_serves_speculation_on_mla_moe():
+    """The engine builds and serves chain speculation (K = 2) on the
+    latent pool, on the port's own drawn weights and the w4l50 draft
+    packed from the same draws (the conformance against the reference is
+    ``tests/test_torch_spec_mla_moe.py``)."""
+    from repro_torch.core.model_compress import draft_layers
     cfg = get_config(ARCH, reduced=True)
-    params = ttf.init_params(0, cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        InferenceEngine(cfg, params, EngineConfig(device="cpu", spec_k=2),
-                        draft_params=params)
+    params, draft = ttf.init_params_and_draft(0, cfg, "w4l50", "cpu")
+    eng = InferenceEngine(cfg, params, EngineConfig(
+        num_slots=2, max_seq=32, page_size=PAGE, device="cpu", spec_k=2,
+        spec_draft_layers=draft_layers(cfg, "w4l50")), draft_params=draft)
+    got = serve_all(eng, engine_prompts(cfg.vocab), 6)
+    assert len(got) == 5 and all(len(t) == 6 for t in got.values())
+    assert eng.metrics.summary()["spec_rounds"] > 0
+    assert eng.kv.allocator.num_free == eng.kv.num_pages
 
 
 def test_serve_cli_serves_deepseek_on_cpu(capsys):

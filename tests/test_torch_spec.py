@@ -17,6 +17,7 @@ Tolerances:
     non-speculative tokens, and to the reference engine's wherever the
     top-2 margin exceeds 1e-3 (``tests/_torch_utils.py``)."""
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -169,34 +170,70 @@ def test_draft_profile_names_and_depths_match_reference():
         draft_layers(get_config("llama2_7b"), "w9")
 
 
-@pytest.mark.parametrize("profile", PROFILES)
-def test_compress_draft_matches_reference_through_the_bridge(models,
+def _draft_cases(llama_profiles):
+    """(arch, profile) cases: ``llama_profiles`` on llama2-7b (their ids
+    stay the profile names), and one GQSA, one dense-W4 and one depth
+    profile on each MoE family."""
+    return [pytest.param("llama2_7b", p, id=p) for p in llama_profiles] + [
+        pytest.param(arch, p, id=f"{arch}-{p}")
+        for arch in ("deepseek_moe_16b", "deepseek_v2_236b")
+        for p in ("w4s50", "w4", "w4l50")]
+
+
+@functools.lru_cache(maxsize=2)
+def _moe_fp(arch):
+    """(jax config, the reference's FP init, its bridged form) of a
+    reduced MoE family."""
+    jcfg = jget_config(arch, reduced=True)
+    jfp = jtf.init_params(jax.random.PRNGKey(0), jcfg)
+    return jcfg, jfp, params_from_numpy(jax_tree_to_numpy(jfp), "cpu")
+
+
+def _first_linear(cfg, layers):
+    """The first attention projection's node (``wq``, MLA's ``w_qa``)."""
+    return layers["attn"]["w_qa" if cfg.family == "mla_moe" else "wq"]
+
+
+@pytest.mark.parametrize("arch,profile", _draft_cases(PROFILES))
+def test_compress_draft_matches_reference_through_the_bridge(models, arch,
                                                              profile):
     """The reference's draft tree carried over by the bridge ({"bsr"}
     leaves for a GQSA profile, {"qw", "scale", "zero"} for a dense one,
-    stacks cut to the draft's depth) equals the port's own compress_draft
-    of the bridged FP tree."""
-    jd = jcompress_draft(models["jfp"], models["jcfg"], profile=profile)
-    bridged = params_from_numpy(jax_tree_to_numpy(jd), "cpu")
-    got = compress_draft(models["fp"], models["cfg"], profile)
-    dl = draft_layers(models["cfg"], profile)
-    wq = got["layers"]["attn"]["wq"]
-    if "s" in profile:
-        assert isinstance(wq["bsr"], BSRMatrix)
-        assert wq["bsr"].idx.shape[0] == dl
+    stacks cut to the draft's depth; on the MoE families the routed
+    expert stacks packed expert by expert and the router FP) equals the
+    port's own compress_draft of the bridged FP tree."""
+    if arch == "llama2_7b":
+        jcfg, jfp, fp = models["jcfg"], models["jfp"], models["fp"]
     else:
-        assert set(wq) == {"qw", "scale", "zero"}
-        assert wq["qw"].shape[0] == dl
+        jcfg, jfp, fp = _moe_fp(arch)
+    cfg = get_config(arch, reduced=True)
+    jd = jcompress_draft(jfp, jcfg, profile=profile)
+    bridged = params_from_numpy(jax_tree_to_numpy(jd), "cpu")
+    got = compress_draft(fp, cfg, profile)
+    dl = draft_layers(cfg, profile)
+    nodes = [_first_linear(cfg, got["layers"])]
+    if cfg.moe is not None:
+        nodes.append(got["layers"]["moe"]["experts"]["wg"])
+        assert set(got["layers"]["moe"]["router"]) == {"w"}
+        assert got["layers"]["moe"]["router"]["w"].dtype == torch.float32
+    for node in nodes:
+        if "s" in profile:
+            assert isinstance(node["bsr"], BSRMatrix)
+            assert node["bsr"].idx.shape[0] == dl
+        else:
+            assert set(node) == {"qw", "scale", "zero"}
+            assert node["qw"].shape[0] == dl
     assert got["layers"]["ln1"].shape[0] == dl
     _assert_trees_equal(got, bridged)
 
 
-@pytest.mark.parametrize("profile", ["w4s50", "w4l50", "w2s75"])
-def test_init_params_and_draft_packs_the_same_draws(profile):
+@pytest.mark.parametrize("arch,profile",
+                         _draft_cases(["w4s50", "w4l50", "w2s75"]))
+def test_init_params_and_draft_packs_the_same_draws(arch, profile):
     """The draft packed as the weights are drawn equals compress_draft of
     the FP draw; embed, final norm and lm_head are the target's own
     tensors; the draft runs a decode step at its depth."""
-    cfg = get_config("llama2_7b", reduced=True)
+    cfg = get_config(arch, reduced=True)
     params, draft = ttf.init_params_and_draft(4, cfg, profile, "cpu",
                                               compress=GQSAConfig())
     fp = ttf.init_params(4, cfg, "cpu")
@@ -212,6 +249,21 @@ def test_init_params_and_draft_packs_the_same_draws(profile):
                                 torch.tensor([[0, 1]], dtype=torch.int32))
     assert logits.shape == (1, 1, cfg.vocab)
     assert torch.isfinite(logits).all()
+
+
+def test_init_params_and_drafts_packs_every_profile_from_one_draw():
+    """Several draft profiles from one draw equal one draw each, and
+    share the target's embed and lm_head."""
+    cfg = get_config("deepseek_moe_16b", reduced=True)
+    params, drafts = ttf.init_params_and_drafts(
+        4, cfg, ("w4s50", "w4l25"), "cpu", compress=GQSAConfig())
+    assert sorted(drafts) == ["w4l25", "w4s50"]
+    for profile, draft in drafts.items():
+        want_params, want = ttf.init_params_and_draft(
+            4, cfg, profile, "cpu", compress=GQSAConfig())
+        _assert_trees_equal(params, want_params)
+        _assert_trees_equal(draft, want)
+        assert draft["lm_head"] is params["lm_head"]
 
 
 # ---------------------------------------------------------------------------
@@ -305,9 +357,31 @@ def test_chain_spec_greedy_equals_plain_and_reference(models):
         cfg, models["target"], prompts[rid], ref[rid]), max_new)
 
 
-def test_engine_refuses_spec_without_draft_params(models):
+@pytest.mark.parametrize("arch", ["llama2_7b", "deepseek_moe_16b",
+                                  "deepseek_v2_236b"])
+def test_engine_refuses_spec_without_draft_params(arch):
+    cfg = get_config(arch, reduced=True)
     with pytest.raises(ValueError, match="draft_params"):
-        _engine(models["cfg"], models["target"], spec_k=2)
+        _engine(cfg, ttf.init_params(0, cfg, "cpu"), spec_k=2)
+
+
+@pytest.mark.parametrize("slots", [2, 5])
+def test_engine_counts_batched_prefills(models, slots):
+    """The metrics' ``prefills`` counts the engine's batched prefill calls
+    (one an admission group): one for 5 prompts on 5 slots, one a
+    prefill-function call on 2 slots."""
+    cfg = models["cfg"]
+    eng = InferenceEngine(cfg, models["target"], EngineConfig(
+        num_slots=slots, max_seq=32, page_size=PAGE, device="cpu"), GREEDY)
+    calls, inner = [], eng._prefill_fn
+
+    def counted(*args):
+        calls.append(1)
+        return inner(*args)
+    eng._prefill_fn = counted
+    serve_all(eng, engine_prompts(cfg.vocab), 4)
+    assert eng.metrics.summary()["prefills"] == len(calls)
+    assert len(calls) == 1 if slots == 5 else len(calls) >= 3
 
 
 def test_chain_spec_sampled_runs(models):

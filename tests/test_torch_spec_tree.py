@@ -356,12 +356,13 @@ def test_tree_verify_rejection_excludes_rejected_siblings():
 # compact_accepted
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8", "latent"])
 def test_compact_accepted_matches_reference(kv):
-    """Random pools (an int8 pool with its scale pages), three slots: a
-    full path, a path cut short, an inactive slot (n_new 0, sentinel
-    table). The in-place move equals the reference's functional result,
-    bit for bit, in every pool."""
+    """Random pools (an int8 pool with its scale pages; MLA's one latent
+    pool, rows of width R + rope), three slots: a full path, a path cut
+    short, an inactive slot (n_new 0, sentinel table). The in-place move
+    equals the reference's functional result, bit for bit, in every
+    pool."""
     g = np.random.default_rng(4)
     layers, num_pages, ps, kh, d = 2, 14, 4, 2, 4
     tpl = TreeTemplate((2, 2, 2))
@@ -371,6 +372,9 @@ def test_compact_accepted_matches_reference(kv):
                  "v_pages": g.integers(-127, 128, shape).astype(np.int8),
                  "k_scale_pages": g.random(shape[:-1]).astype(np.float32),
                  "v_scale_pages": g.random(shape[:-1]).astype(np.float32)}
+    elif kv == "latent":
+        pools = {"lat_pages": g.normal(size=(layers, num_pages, ps, 12))
+                 .astype(np.float32)}
     else:
         pools = {k: g.normal(size=shape).astype(np.float32)
                  for k in ("k_pages", "v_pages")}
@@ -398,10 +402,11 @@ def test_compact_accepted_matches_reference(kv):
         np.testing.assert_array_equal(tpools[k].float().numpy(),
                                       np.asarray(want[k], np.float32))
     # slot 0's path slots really moved: pos 1 + path -> 2, 3, 4
-    src = torch.from_numpy(pools["k_pages"]).to(tpools["k_pages"].dtype)
+    name = next(iter(pools))
+    src = torch.from_numpy(pools[name]).to(tpools[name].dtype)
     for i, s in enumerate((2, 5, 12)):
         sp, dp = 1 + s, 2 + i
-        assert torch.equal(tpools["k_pages"][:, bt[0, dp // ps], dp % ps],
+        assert torch.equal(tpools[name][:, bt[0, dp // ps], dp % ps],
                            src[:, bt[0, sp // ps], sp % ps])
 
 
