@@ -120,7 +120,22 @@ Phases (any failure exits non-zero before the result line is printed):
      output required to agree with the plain version's), and both expert
      axes at verify capacities (deepseek-moe-16b C = 2 and 13,
      DeepSeek-V2 C = 5) with the buffer rows of a verify dispatch
-     recorded on the served paths of (b).
+     recorded on the served paths of (b);
+ 20. gqsa_gemv at group sizes 8 and 32 (phases 3-19 run at 16, the
+     paper's): (a) against its plain version as phase 3 holds it (the
+     llama2-7b shapes and a ragged packing, T in GEMV_ROWS, bf16 and f32
+     x, one launch a call, repeats bit-identical); (b) its expert axis as
+     phase 13 holds it, at the DeepSeek-V2 and deepseek-moe-16b expert
+     shapes, C in {1, 5, 13, 30}, with and without ``rows``, NaN-poisoned
+     idle experts; (c) a llama2-7b layer at T = 4, 64 and 116 and a
+     deepseek-moe-16b expert layer at C = 1 timed beside the plain
+     version, the library call and the bound; (d) llama2-7b at full
+     width and depth, GQSA W4 S50 at g: prefill + 4 decode steps through
+     the kernels against the plain versions, f32 and bf16; (e) the serve
+     CLI with ``--compress gqsa --group-size {8, 32}`` on llama2-7b and
+     deepseek-moe-16b at full width and depth, and ``--group-size 32
+     --spec 4 --draft-profile w4s75`` on llama2-7b, its launches held to
+     the count its rounds, prefills and layers give.
 Each main path is driven with every kernel's launch count set to 0 just
 before it and read just after. The line before the last is a JSON object
 with every kernel's numbers; the last line is {"ok": true, "device": {...}}.
@@ -224,12 +239,20 @@ def phase_build():
                 log(f"[ptxas {name}] {line.strip()}")
 
 
-def _packed(n, k, seed):
+def _gqsa(gs=16):
+    """GQSA W4 S50 at group size ``gs`` (16: the paper's G16)."""
     from repro_torch.core.gqs_layer import GQSAConfig
+    from repro_torch.core.pruning import PruneConfig
+    from repro_torch.core.quant import QuantConfig
+    return GQSAConfig(quant=QuantConfig(bits=4, group_size=gs),
+                      prune=PruneConfig(sparsity=0.5, group_size=gs))
+
+
+def _packed(n, k, seed, gs=16):
     from repro_torch.core.model_compress import pack_linear
     g = torch.Generator(device="cuda").manual_seed(seed)
     w = torch.randn((n, k), generator=g, device="cuda") / k ** 0.5
-    return pack_linear(w, GQSAConfig())
+    return pack_linear(w, _gqsa(gs))
 
 
 SHAPES = {"wq/wk/wv/wo": (4096, 4096), "wg/wu": (11008, 4096),
@@ -255,8 +278,8 @@ def _gemv_case(x, bsr, label):
     torch.cuda.synchronize()
     err = (y - ref).abs().max().item()
     rel = err / ref.abs().max().item()
-    log(f"[gemv check] {label} T={x.shape[0]} x={str(x.dtype)[6:]}: "
-        f"max_abs_err {err:.3e} rel {rel:.3e}")
+    log(f"[gemv check] {label} G={bsr.group_size} T={x.shape[0]} "
+        f"x={str(x.dtype)[6:]}: max_abs_err {err:.3e} rel {rel:.3e}")
     require(y.shape == (x.shape[0], bsr.shape[0])
             and bool(torch.isfinite(y).all()),
             "gqsa_gemv output shape/finite")
@@ -265,13 +288,16 @@ def _gemv_case(x, bsr, label):
     return err
 
 
-def phase_gemv_check():
+def phase_gemv_check(gs=16):
+    """gqsa_gemv at group size ``gs``: the llama2-7b shapes and a ragged
+    packing, every row count of GEMV_ROWS, bf16 and f32 x
+    (:func:`_gemv_case`). Returns the worst max-abs error."""
     from repro_torch.core.bsr import pack_dense
     from repro_torch.core.quant import QuantConfig
     worst = 0.0
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     for label, (n, k) in SHAPES.items():
-        bsr = _packed(n, k, SEED)
+        bsr = _packed(n, k, SEED, gs)
         for b in GEMV_ROWS:
             for dt in (torch.bfloat16, torch.float32):
                 x = torch.randn((b, k), generator=g, device="cuda").to(dt)
@@ -280,8 +306,8 @@ def phase_gemv_check():
     # ragged packing: unequal kept groups per row (-1 padding)
     n, k = 1024, 4096
     w = torch.randn((n, k), generator=g, device="cuda")
-    mask = torch.rand((n, k // 16), generator=g, device="cuda") < 0.4
-    bsr = pack_dense(w, mask, QuantConfig(bits=4, group_size=16))
+    mask = torch.rand((n, k // gs), generator=g, device="cuda") < 0.4
+    bsr = pack_dense(w, mask, QuantConfig(bits=4, group_size=gs))
     require(bool((bsr.idx < 0).any()), "ragged packing has padding")
     for b in GEMV_ROWS:
         for dt in (torch.bfloat16, torch.float32):
@@ -514,32 +540,35 @@ def w4_launch_floor(timer):
                                            p["zero"], 16), iters=100)
 
 
-def gemv_layer(timer, g, t):
+def gemv_layer(timer, g, t, gs=16):
     """One llama2-7b layer of gqsa_gemv (7 projections, bf16 x with ``t``
-    rows): kernel, plain, ``torch.matmul`` on the dense bf16 W and the
-    bound (the larger of the payload, x and y over 3.35 TB/s and the
-    multiply-adds of the kept groups, bf16 x by exact 4-bit codes, over
-    the tensor cores' 989 TFLOP/s; the kernel runs them on CUDA cores in
-    f32, which the bound does not assume), summed over the layer."""
+    rows, group size ``gs``): kernel, plain, ``torch.matmul`` on the dense
+    bf16 W and the bound (the larger of the payload, gs/2 + 12 bytes a
+    kept group, x and y over 3.35 TB/s and the multiply-adds of the kept
+    groups, bf16 x by exact 4-bit codes, over the tensor cores' 989
+    TFLOP/s; the kernel runs them on CUDA cores in f32, which the bound
+    does not assume), summed over the layer."""
     from repro_torch.core.bsr import to_dense
     from repro_torch.kernels import ops
-    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda, plan
+    from repro_torch.kernels.gqsa_gemv import (gqsa_gemv_cuda,
+                                               payload_bytes, plan)
     from repro_torch.kernels.build import sm_count
     gemv = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     by_bytes = by_ops = 0.0
     for label, (n, k) in SHAPES.items():
-        bsr = _packed(n, k, SEED + 4)
+        bsr = _packed(n, k, SEED + 4, gs)
         x = torch.randn((t, k), generator=g, device="cuda",
                         dtype=torch.bfloat16)
         dense = to_dense(bsr).to(torch.bfloat16)
         m = bsr.idx.shape[1]
-        nbytes = n * m * 20 + t * k * 2 + t * n * 4
-        bound = _bound_ms(nbytes, 2 * t * n * m * 16, BF16_TC_FLOP_PER_S)
+        nbytes = n * m * payload_bytes(gs) + t * k * 2 + t * n * 4
+        flops = 2 * t * n * m * gs
+        bound = _bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
         t_k = timer.ms(lambda: gqsa_gemv_cuda(x, bsr))
         t_p = timer.ms(lambda: ops.gqsa_gemv(x, bsr, plain=True))
         t_l = timer.ms(lambda: torch.matmul(x, dense.T))
-        p = plan(t, n, k, 2, sm_count(0))
-        log(f"[gemv time] {label} N={n} K={k} M={m} T={t} bf16 (tile "
+        p = plan(t, n, k, gs, 2, sm_count(0))
+        log(f"[gemv time] {label} N={n} K={k} M={m} G={gs} T={t} bf16 (tile "
             f"{p.tile}, {p.blocks} blocks): kernel "
             f"{t_k * 1e3:.1f}us plain {t_p * 1e3:.1f}us torch.matmul(dense "
             f"bf16) {t_l * 1e3:.1f}us bound {bound * 1e3:.2f}us "
@@ -549,10 +578,10 @@ def gemv_layer(timer, g, t):
                           (t_k, t_p, t_l, bound)):
             gemv[key] += c * v
         by_bytes += c * nbytes / HBM_BYTES_PER_S
-        by_ops += c * 2 * t * n * m * 16 / BF16_TC_FLOP_PER_S
+        by_ops += c * flops / BF16_TC_FLOP_PER_S
         del dense
     gemv["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
-    log(f"[gemv time] one layer (7 projections, T={t}): kernel "
+    log(f"[gemv time] one layer (7 projections, G={gs}, T={t}): kernel "
         f"{gemv['ms']:.4f}ms plain {gemv['plain_ms']:.4f}ms matmul "
         f"{gemv['library_ms']:.4f}ms bound {gemv['bound_ms']:.4f}ms "
         f"({gemv['bound_ms'] / gemv['ms']:.0%} of bound)")
@@ -927,15 +956,18 @@ def profile_steps(step, steps, label):
             f"device busy)")
 
 
-def phase_serve(compress, arch="llama2_7b"):
+def phase_serve(compress, arch="llama2_7b", group_size=16):
     """A main path: the serve CLI at full width (and depth), ``arch``
-    under ``compress``."""
+    under ``compress`` at ``group_size`` (``--group-size``; 16 is the
+    CLI's default)."""
     from repro_torch.launch import serve
     moe = arch != "llama2_7b"
     tag = f"deepseek-moe {compress}" if moe else compress
+    if group_size != 16:
+        tag += f" g{group_size}"
     argv = ["--arch", arch, "--full", "--compress", compress, "--slots",
             "4", "--requests", "8", "--max-new", "32", "--max-seq", "256",
-            "--seed", str(SEED)]
+            "--seed", str(SEED), "--group-size", str(group_size)]
     buf = io.StringIO()
     reset_launches()
     t0 = time.time()
@@ -1224,13 +1256,18 @@ SPEC_SERVE = {
 }
 
 
-def phase_serve_spec(label):
+def phase_serve_spec(label, flags=None, counted=None):
     """A speculative main path: the serve CLI at full width, bf16, GQSA
-    target, 4 slots, 8 requests x 32 new tokens."""
+    target, 4 slots, 8 requests x 32 new tokens, with the spec flags
+    ``flags`` (default ``SPEC_SERVE[label]``). ``counted`` = (compress,
+    draft profile, spec): every kernel's launches are held to
+    :func:`spec_launches`' count."""
+    from repro_torch.configs.registry import get_config
     from repro_torch.launch import serve
+    flags = SPEC_SERVE[label] if flags is None else flags
     argv = ["--full", "--compress", "gqsa", "--slots", "4", "--requests",
             "8", "--max-new", "32", "--max-seq", "256", "--seed",
-            str(SEED)] + SPEC_SERVE[label]
+            str(SEED)] + flags
     buf = io.StringIO()
     reset_launches()
     t0 = time.time()
@@ -1242,7 +1279,7 @@ def phase_serve_spec(label):
     for line in buf.getvalue().splitlines():
         log(f"[{label}] {line}")
     rounds = max(res["spec_rounds"], 1)
-    log(f"[{label}] {' '.join(SPEC_SERVE[label])}: wall {wall:.1f}s (init + "
+    log(f"[{label}] {' '.join(flags)}: wall {wall:.1f}s (init + "
         f"pack + serve); acceptance {res['acceptance_rate']:.1%}; "
         f"launches {launches} ({launches['gqsa_gemv'] / rounds:.0f} "
         f"gqsa_gemv, {launches['w4_matmul'] / rounds:.0f} w4_matmul, "
@@ -1254,17 +1291,21 @@ def phase_serve_spec(label):
             "every request got 32 tokens")
     require(res["spec_rounds"] > 0, "speculative rounds ran")
     require(launches["gqsa_gemv"] > 0, "gqsa_gemv launched")
-    if label == "chain serve":
+    if "--spec" in flags:
         require(launches["paged_attention"] > 0
                 and launches["paged_attention_tree"] == 0,
                 "the chain runs the plain mode, no tree mode")
     else:
         require(launches["paged_attention_tree"] > 0,
                 "the tree mode launched on the tree path")
-    if "w4l25" in SPEC_SERVE[label]:
+    if "w4l25" in flags:
         require(launches["w4_matmul"] > 0
                 and launches["w4_matmul_tc"] > 0,
                 "the dense-W4 draft ran w4_matmul on the tensor cores")
+    if counted is not None:
+        compress, profile, spec = counted
+        check_spec_launches(label, get_config("llama2_7b"), compress,
+                            profile, spec, launches, res)
     return launches
 
 
@@ -1379,13 +1420,12 @@ def _latent_at(q, lat, lq, bt, anc=None, anc_base=None, anc_window=0):
     return call
 
 
-def _experts_packed(n, k, seed, e=160):
-    """E experts of GQSA W4 S50 G16 stacked [E, ...], packed on the card
-    one expert at a time (random N(0, 1/K) weights)."""
-    from repro_torch.core.gqs_layer import GQSAConfig
+def _experts_packed(n, k, seed, e=160, gs=16):
+    """E experts of GQSA W4 S50 at group size ``gs`` stacked [E, ...],
+    packed on the card one expert at a time (random N(0, 1/K) weights)."""
     from repro_torch.core.model_compress import StackedPacker, slice_packer
     g = torch.Generator(device="cuda").manual_seed(seed)
-    packer = StackedPacker(e, slice_packer(GQSAConfig()))
+    packer = StackedPacker(e, slice_packer(_gqsa(gs)))
     for i in range(e):
         packer.put(i, torch.randn((n, k), generator=g, device="cuda")
                    / k ** 0.5)
@@ -1411,12 +1451,13 @@ EXPERT_CAPS = (1, 2, 3, 5, 7, 9, 13, 30)
 W4_EXPERT_CAPS = (1, 2, 3, 5, 8, 13, 20)
 
 
-def phase_experts_check():
+def phase_experts_check(gs=16, caps=EXPERT_CAPS):
     """The expert axis of gqsa_gemv against its plain version at the
     DeepSeek-V2 (160 experts) and deepseek-moe-16b (64 experts) expert
-    shapes, C in EXPERT_CAPS, bf16 and f32 x, ``rows`` absent and
-    given (a third of the experts idle, partly filled buffers): one launch
-    a call at every C, idle rows exact zeros, repeats bit-identical. Then
+    shapes at group size ``gs``, C in ``caps``, bf16 and f32 x, ``rows``
+    absent and given (a third of the experts idle, partly filled
+    buffers): one launch a call at every C, idle rows exact zeros,
+    repeats bit-identical. Then
     the idle experts' scales set to NaN and x set to NaN past every
     expert's rows: the output stays finite and equal to the plain
     version's on the clean operands, so nothing idle was read. Returns
@@ -1431,8 +1472,8 @@ def phase_experts_check():
     cases += [(f"deepseek-moe {label}", MOE_EXPERTS, n, k)
               for label, (n, k) in MOE_EXPERT_SHAPES.items()]
     for label, e, n, k in cases:
-        bsr = _experts_packed(n, k, SEED + 10, e)
-        for c in EXPERT_CAPS:
+        bsr = _experts_packed(n, k, SEED + 10, e, gs)
+        for c in caps:
             rows = torch.randint(0, c + 1, (e,), generator=g, device="cuda",
                                  dtype=torch.int32)
             rows[:e // 3] = 0
@@ -1459,8 +1500,8 @@ def phase_experts_check():
                     err = (y - ref).abs().max().item()
                     rel = err / ref.abs().max().item()
                     worst = max(worst, err)
-                    log(f"[experts check] {label} E={e} N={n} K={k} C={c} "
-                        f"x={str(dt)[6:]} rows="
+                    log(f"[experts check] {label} E={e} N={n} K={k} G={gs} "
+                        f"C={c} x={str(dt)[6:]} rows="
                         f"{'none' if r is None else int(r.sum())}: "
                         f"max_abs_err {err:.3e} rel {rel:.3e}")
                     require(rel <= TOL, f"gqsa_gemv experts disagree: "
@@ -1474,7 +1515,7 @@ def phase_experts_check():
             y = ops.gqsa_gemv_experts(x, poisoned, rows)
             torch.cuda.synchronize()
             err = (y - ref).abs().max().item()
-            log(f"[experts check] {label} C={c}: "
+            log(f"[experts check] {label} G={gs} C={c}: "
                 f"{int((rows == 0).sum())} idle experts with NaN scales, x "
                 f"NaN past every expert's rows: output finite "
                 f"{bool(torch.isfinite(y).all())}, max_abs_err {err:.3e}")
@@ -1577,7 +1618,7 @@ def kv_a_time(timer, g, t=4):
     t_k = timer.ms(lambda: gqsa_gemv_cuda(x, bsr))
     t_p = timer.ms(lambda: ops.gqsa_gemv(x, bsr, plain=True))
     t_l = timer.ms(lambda: torch.matmul(x, dense.T))
-    p = plan(t, n, k, 2, sm_count(0))
+    p = plan(t, n, k, 16, 2, sm_count(0))
     by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_TC_FLOP_PER_S
           else "operations")
     log(f"[gemv time] deepseek-v2 kv_a N={n} K={k} M={m} T={t} bf16 (tile "
@@ -1590,7 +1631,7 @@ def kv_a_time(timer, g, t=4):
 
 
 def experts_layer(timer, g, name, e, shapes, tokens, plain=True,
-                  dispatch=None):
+                  dispatch=None, gs=16):
     """One MoE layer's three expert projections (w_g, w_u, w_d) through
     the gqsa_gemv expert axis, bf16 x, with the buffer rows of one
     dispatch of ``tokens`` routed rows (4: a 4-slot decode step, C = 1;
@@ -1599,13 +1640,14 @@ def experts_layer(timer, g, name, e, shapes, tokens, plain=True,
     projection), plain (when ``plain``), ``torch.bmm`` on the occupied
     experts' dense bf16 weights
     gathered beforehand, and the bound: the larger of the bytes the
-    function must move (the occupied experts' payload, 20 bytes a kept
-    group, their filled x rows and the whole y) over 3.35 TB/s and its
-    multiply-adds (bf16 x by 4-bit codes) over the tensor cores' 989
-    TFLOP/s."""
+    function must move (the occupied experts' payload, gs/2 + 12 bytes a
+    kept group at group size ``gs``, their filled x rows and the whole y)
+    over 3.35 TB/s and its multiply-adds (bf16 x by 4-bit codes) over the
+    tensor cores' 989 TFLOP/s."""
     from repro_torch.core.bsr import to_dense
     from repro_torch.kernels import ops
-    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_experts_cuda
+    from repro_torch.kernels.gqsa_gemv import (gqsa_gemv_experts_cuda,
+                                               payload_bytes)
     rows, cap = dispatch or _dispatch_rows(g, e, tokens)
     occ = torch.nonzero(rows).flatten()
     n_occ = int(occ.numel())
@@ -1615,12 +1657,13 @@ def experts_layer(timer, g, name, e, shapes, tokens, plain=True,
               bound_ms=0.0)
     nbytes_all = flops_all = 0
     for label, (n, k) in shapes.items():
-        bsr = _experts_packed(n, k, SEED + 12, e)
+        bsr = _experts_packed(n, k, SEED + 12, e, gs)
         x = (torch.randn((e, cap, k), generator=g, device="cuda",
                          dtype=torch.bfloat16) * keep[..., None])
         m = bsr.idx.shape[-1]
-        nbytes = n_occ * n * m * 20 + n_rows * k * 2 + e * cap * n * 4
-        flops = 2 * n_rows * n * m * 16
+        nbytes = (n_occ * n * m * payload_bytes(gs) + n_rows * k * 2
+                  + e * cap * n * 4)
+        flops = 2 * n_rows * n * m * gs
         bound = _bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
         # library yardstick: torch.bmm over the occupied experts' dense
         # bf16 weights, gathered beforehand
@@ -1637,7 +1680,7 @@ def experts_layer(timer, g, name, e, shapes, tokens, plain=True,
         t_l = timer.ms(lambda: torch.bmm(xo, dense.transpose(1, 2)))
         p_note = "-" if t_p is None else f"{t_p * 1e3:.1f}us"
         log(f"[experts time] {name} {label} E={e} N={n} K={k} M={m} "
-            f"C={cap} ({tokens} routed rows: {n_occ} occupied experts, "
+            f"G={gs} C={cap} ({tokens} routed rows: {n_occ} occupied experts, "
             f"{n_rows} filled rows), bf16 x, one launch: kernel "
             f"{t_k * 1e3:.1f}us plain {p_note} "
             f"torch.bmm(dense bf16, occupied) {t_l * 1e3:.1f}us bound "
@@ -1654,11 +1697,11 @@ def experts_layer(timer, g, name, e, shapes, tokens, plain=True,
     ex["bound_by"] = ("bytes" if nbytes_all / HBM_BYTES_PER_S
                       >= flops_all / BF16_TC_FLOP_PER_S else "operations")
     ex.update(model=name, capacity=cap, routed_rows=tokens, occupied=n_occ,
-              filled_rows=n_rows, launches=3)
+              filled_rows=n_rows, launches=3, group_size=gs)
     plain_note = ("-" if ex["plain_ms"] is None
                   else f"{ex['plain_ms']:.4f}ms")
-    log(f"[experts time] {name}: one layer (3 expert projections, C={cap}, "
-        f"{n_occ} of {e} occupied, {n_rows} filled rows): kernel "
+    log(f"[experts time] {name}: one layer (3 expert projections, G={gs}, "
+        f"C={cap}, {n_occ} of {e} occupied, {n_rows} filled rows): kernel "
         f"{ex['ms']:.4f}ms plain {plain_note} bmm {ex['library_ms']:.4f}ms "
         f"bound {ex['bound_ms']:.4f}ms by {ex['bound_by']} "
         f"({ex['bound_ms'] / ex['ms']:.0%} of bound)")
@@ -2402,11 +2445,11 @@ def spec_launches(cfg, compress, profile, spec, rounds, prefills):
     """Each kernel's launches over a speculative run, from the layer
     structure: every call launches, in each layer it runs, one attention
     kernel and one a packed projection (four attention projections and
-    the three of the fused shared experts, one expert-axis launch for
-    each of the three routed projections); the target runs in every
-    prefill and verify (all its layers), the draft (its leading layers)
-    K times a chain round, or a root call and a level call a tree level
-    after the first. Chain calls and a tree's root attend in the plain
+    three of the MLP: a dense model's, or the fused shared experts', then
+    one expert-axis launch for each of the three routed projections); the
+    target runs in every prefill and verify (all its layers), the draft
+    (its leading layers) K times a chain round, or a root call and a
+    level call a tree level after the first. Chain calls and a tree's root attend in the plain
     mode (the latent mode on ``mla_moe``), tree levels and the tree
     verify in the tree mode (the latent mode with tree operands)."""
     from repro_torch.core.model_compress import DRAFT_PROFILES, draft_layers
@@ -2422,7 +2465,8 @@ def spec_launches(cfg, compress, profile, spec, rounds, prefills):
                                 (drafter, (plain_calls + level_calls)
                                  * rounds, ld)):
         want[kind] += 7 * layers * calls
-        want[f"{kind}_experts"] += 3 * layers * calls
+        if cfg.moe is not None:
+            want[f"{kind}_experts"] += 3 * layers * calls
     tree_attn = (level_calls * ld + lt) * rounds if tree else 0
     if cfg.family == "mla_moe":
         want["paged_attention_latent"] = ((plain_calls + level_calls) * ld
@@ -2788,6 +2832,95 @@ def phase_spec_moe(timer):
     return launches, times
 
 
+# ---------------------------------------------------------------------------
+# phase 20: gqsa_gemv at group sizes 8 and 32
+# ---------------------------------------------------------------------------
+
+GROUP_SIZES_NEW = (8, 32)             # the kernels' group sizes beside 16
+GROUP_EXPERT_CAPS = (1, 5, 13, 30)    # C of (b)
+GROUP_SPEC_SERVE = (                  # (e)'s speculative serve
+    "chain serve g32",
+    ["--spec", "4", "--draft-profile", "w4s75", "--group-size", "32"],
+    ("gqsa", "w4s75", dict(spec_k=4)))
+
+
+def phase_group_model(gs):
+    """(d) llama2-7b at full width and depth, GQSA W4 S50 at group size
+    ``gs`` packed on the card layer by layer: one batched prefill + 4
+    decode steps through the kernels and through the plain versions, f32
+    and bf16 (:func:`check_model`)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tf
+    full = get_config("llama2_7b")
+    t0 = time.time()
+    params = tf.init_params(SEED, full, "cuda", compress=_gqsa(gs))
+    torch.cuda.synchronize()
+    log(f"[model] llama2-7b full width and depth, GQSA W4 S50 G{gs} packed "
+        f"on the card in {time.time() - t0:.1f}s: "
+        f"{_packed_bytes(params['layers']) / 1e9:.3f} GB of packed linears")
+    check_model(params, full, f"gqsa g{gs}")
+    del params
+
+
+def phase_group_sizes(timer):
+    """Phase 20, at each group size of GROUP_SIZES_NEW: (a) gqsa_gemv
+    against its plain version as phase 3 holds it; (b) its expert axis as
+    phase 13 holds it, C in GROUP_EXPERT_CAPS; (c) a llama2-7b layer at T
+    = 4, 64 and 116 and a deepseek-moe-16b expert layer at C = 1 timed
+    beside the plain version, the library call and the bound; (d)
+    :func:`phase_group_model`; (e) the serve CLI with ``--group-size``:
+    llama2-7b and deepseek-moe-16b at full width and depth, and at g = 32
+    the chain K=4 speculative serve (draft w4s75 at the same g) with its
+    launches held to :func:`spec_launches`. Returns ({g: errors and
+    times}, {main path: launches})."""
+    t0 = time.time()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    out, launches = {}, {}
+    for gs in GROUP_SIZES_NEW:
+        row = dict(gemv_err=phase_gemv_check(gs),
+                   experts_err=phase_experts_check(gs, GROUP_EXPERT_CAPS))
+        row["gemv"] = gemv_layer(timer, g, 4, gs)
+        row["gemv"]["rows"] = {str(t): gemv_layer(timer, g, t, gs)
+                               for t in (64, 116)}
+        row["experts"] = experts_layer(timer, g, "deepseek-moe-16b",
+                                       MOE_EXPERTS, MOE_EXPERT_SHAPES, 4,
+                                       gs=gs)
+        torch.cuda.empty_cache()
+        phase_group_model(gs)
+        for arch in ("llama2_7b", "deepseek_moe_16b"):
+            torch.cuda.empty_cache()
+            tag = "gqsa" if arch == "llama2_7b" else "deepseek-moe gqsa"
+            launches[f"{tag} serve g{gs}"] = phase_serve("gqsa", arch, gs)
+        out[gs] = row
+    torch.cuda.empty_cache()
+    label, flags, counted = GROUP_SPEC_SERVE
+    launches[label] = phase_serve_spec(label, flags, counted)
+    log(f"[time] group sizes {GROUP_SIZES_NEW} (phase 20) "
+        f"{time.time() - t0:.1f}s")
+    return out, launches
+
+
+def group_size_rows(groups, launches, kind):
+    """The kernels line's ``group_sizes`` map of ``kind`` ("gemv": the
+    single matrix on the llama2-7b serve; "experts": the expert axis on
+    the deepseek-moe-16b serve): g -> error, times, bound and launches on
+    its served path."""
+    name = "gqsa_gemv" if kind == "gemv" else "gqsa_gemv_experts"
+    tag = "gqsa" if kind == "gemv" else "deepseek-moe gqsa"
+    rows = {}
+    for gs, row in groups.items():
+        t = row[kind]
+        path = f"{tag} serve g{gs}"
+        rows[str(gs)] = dict(
+            max_abs_err=row[f"{kind}_err"], ms=t["ms"],
+            plain_ms=t["plain_ms"], library_ms=t["library_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            launches=launches[path][name], path=path)
+        if "rows" in t:
+            rows[str(gs)]["rows"] = t["rows"]
+    return rows
+
+
 KERNELS = {
     "gqsa_gemv": dict(
         source="src/repro_torch/csrc/gqsa_gemv.cu",
@@ -2800,7 +2933,10 @@ KERNELS = {
              "'deepseek_v2_kv_a' DeepSeek-V2's kv_a projection (N=576, "
              "K=5120) at T = 4; every bound is the "
              "larger of the bytes over 3.35 TB/s and the multiply-adds "
-             "over the bf16 tensor cores' 989 TFLOP/s"),
+             "over the bf16 tensor cores' 989 TFLOP/s; all at group size "
+             "16, and 'group_sizes' the same layer at g = 8 and 32 (T = "
+             "4, 'rows' T = 64 and 116) with its error and its launches "
+             "on the llama2-7b serve at that g"),
     "paged_attention": dict(
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:181",
@@ -2839,7 +2975,10 @@ KERNELS = {
              "rows of a verify dispatch recorded on the served path named "
              "by 'routing', and "
              "'spec_launches' the launches of the MoE families' GQSA "
-             "tree paths"),
+             "tree paths; all at group size 16, and 'group_sizes' a "
+             "deepseek-moe-16b decode layer (C=1) at g = 8 and 32 with "
+             "its error and its launches on the deepseek-moe-16b serve at "
+             "that g"),
     "paged_attention_latent": dict(
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:181",
@@ -2935,6 +3074,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     spec_moe, spec_times = phase_spec_moe(timer)
     launches.update(spec_moe)
+    torch.cuda.empty_cache()
+    groups, group_launches = phase_group_sizes(timer)
+    launches.update(group_launches)
     path_of = {"gqsa_gemv": "gqsa serve", "paged_attention": "gqsa serve",
                "w4_matmul": "w4 serve",
                "paged_attention_int8": "int8-kv engine",
@@ -2991,8 +3133,16 @@ def main() -> int:
     w4x["spec_tc_launches"] = spec_moe["deepseek-moe gqsa tree serve"][
         "w4_matmul_experts_tc"]
     w4x["verify"] = spec_times["w4_experts_verify"]
+    # phase 20: the group sizes 8 and 32
+    gemv["group_sizes"] = group_size_rows(groups, launches, "gemv")
+    gx["group_sizes"] = group_size_rows(groups, launches, "experts")
+    gemv["spec_g32_launches"] = launches[GROUP_SPEC_SERVE[0]]["gqsa_gemv"]
     require(all(k["launches"] > 0 for k in kernels),
             "every kernel launched on its main path")
+    require(all(r["launches"] > 0 for k in (gemv, gx)
+                for r in k["group_sizes"].values()),
+            "gqsa_gemv and its expert axis launched at every group size on "
+            "its served path")
     log(f"[time] chip_smoke total {time.time() - t_start:.1f}s")
     log(f"[power] {smi}")
     print(json.dumps({"kernels": kernels}))

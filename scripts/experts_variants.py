@@ -70,15 +70,21 @@ DEPTH = re.compile(r"constexpr int kExpertDepth = \d+;")
 RING_COPIES = ("        cp_async4(&st.idx[lane], a.idx + fo, 4);\n"
                "        cp_async4(&st.scale[lane], a.scale + fo, 4);\n"
                "        cp_async4(&st.zero[lane], a.zero + fo, 4);\n"
-               "        cp_async8(&st.vals[lane], a.vals + fo, 8);\n")
+               "        cp_async_codes(&st.vals[lane], vals + fo);\n")
 NO_RING_COPIES = "        (void)st;\n        (void)fo;\n"
-RING_READ = ("        group<T, TT>(st.vals[lane], max(st.idx[lane], 0), "
-             "st.scale[lane],\n"
-             "                     st.zero[lane], xg, xsum, u, v, acc);\n")
-NO_RING_READ = ("        (void)st;   // m < M <= K / 16: a valid column\n"
-                "        group<T, TT>(make_uint2(m * 0x01234567u, row), m, "
-                "1e-3f, 8.f,\n"
-                "                     xg, xsum, u, v, acc);\n")
+RING_READ = ("        group<T, TT, G>(st.vals[lane], max(st.idx[lane], 0),\n"
+             "                        st.scale[lane], st.zero[lane], xg, "
+             "xsum, u, v, acc);\n")
+# a slot's codes made from its slot and row (any group size)
+NO_RING_READ = ("        (void)st;   // m < M <= K / G: a valid column\n"
+                "        const uint32_t made[4] = {m * 0x01234567u, "
+                "static_cast<uint32_t>(row),\n"
+                "                                  m * 0x89ABCDEFu, "
+                "static_cast<uint32_t>(row ^ m)};\n"
+                "        V pk;\n"
+                "        memcpy(&pk, made, sizeof(V));\n"
+                "        group<T, TT, G>(pk, m, 1e-3f, 8.f, xg, xsum, u, v, "
+                "acc);\n")
 X_READ = ("      chunk(reinterpret_cast<const T*>(\n"
           "                line + 16 * (tok * L::kParts + (sp ^ v))), xv);\n")
 NO_X_READ = ("#pragma unroll\n"
@@ -165,16 +171,17 @@ def variant(lib_path, depth, per_sm, lanes=None):
     def call(x, bsr, rows, occ):
         e, c, k = x.shape
         n, m = bsr.idx.shape[-2:]
-        p = kg.experts_plan(e, c, n, m, k, x.element_size(), sm_count(0))
+        g = bsr.group_size
+        p = kg.experts_plan(e, c, n, m, k, g, x.element_size(), sm_count(0))
         smem = p.smem + (kg.STREAM_WARPS * (depth - kg.EXPERT_RING_DEPTH)
-                         * kg.STAGE_BYTES)
+                         * kg.STAGE_BYTES[g])
         blocks = max(1, min(per_sm * sm_count(0),
                             -(-e * -(-c // p.tile) * n // kg.STREAM_WARPS)))
         y = torch.empty((e, c, n), dtype=torch.float32, device=x.device)
         rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
                 bsr.idx.data_ptr(), bsr.vals.data_ptr(), bsr.scale.data_ptr(),
                 bsr.zero.data_ptr(), y.data_ptr(), rows.data_ptr(), e, c, n,
-                m, k, p.tile, lanes or p.row_lanes, blocks, smem,
+                m, k, g, p.tile, lanes or p.row_lanes, blocks, smem,
                 torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"launch failed: CUDA error {rc}")

@@ -50,15 +50,21 @@ NO_X_READ = ("#pragma unroll\n"
 RING_COPIES = ("      cp_async4(&st.idx[lane], a.idx + f, 4);\n"
                "      cp_async4(&st.scale[lane], a.scale + f, 4);\n"
                "      cp_async4(&st.zero[lane], a.zero + f, 4);\n"
-               "      cp_async8(&st.vals[lane], a.vals + f, 8);\n")
+               "      cp_async_codes(&st.vals[lane], vals + f);\n")
 NO_RING_COPIES = "      (void)st;\n      (void)f;\n"
-RING_READ = ("      group<T, TT>(st.vals[lane], max(st.idx[lane], 0), "
+RING_READ = ("      group<T, TT, G>(st.vals[lane], max(st.idx[lane], 0), "
              "st.scale[lane],\n"
-             "                   st.zero[lane], xg, xsum, u, v, acc);\n")
-NO_RING_READ = ("      (void)st;   // m < M <= K / 16: a valid column\n"
-                "      group<T, TT>(make_uint2(m * 0x01234567u, row), m, "
-                "1e-3f, 8.f,\n"
-                "                   xg, xsum, u, v, acc);\n")
+             "                      st.zero[lane], xg, xsum, u, v, acc);\n")
+# a slot's codes made from its slot and row (any group size)
+NO_RING_READ = ("      (void)st;   // m < M <= K / G: a valid column\n"
+                "      const uint32_t made[4] = {m * 0x01234567u, "
+                "static_cast<uint32_t>(row),\n"
+                "                                m * 0x89ABCDEFu, "
+                "static_cast<uint32_t>(row ^ m)};\n"
+                "      V pk;\n"
+                "      memcpy(&pk, made, sizeof(V));\n"
+                "      group<T, TT, G>(pk, m, 1e-3f, 8.f, xg, xsum, u, v, "
+                "acc);\n")
 DEPTH = "constexpr int kDepth = 3;"
 STREAM_VARIANTS = {
     "stream as built": lambda s: s,
@@ -112,20 +118,21 @@ def streaming(lib_path, depth):
                                                smem_bytes)
     fn = ctypes.CDLL(lib_path).gqsa_gemv_launch
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_void_p])
+                   + [ctypes.c_int] * 8 + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
     def call(x, bsr):
         t, k = x.shape
         n, m = bsr.idx.shape
-        p = plan(t, n, k, x.element_size(), sm_count(0))
-        smem = (smem_bytes(p.tile, k, x.element_size())
-                + STREAM_WARPS * (depth - RING_DEPTH) * STAGE_BYTES)
+        g = bsr.group_size
+        p = plan(t, n, k, g, x.element_size(), sm_count(0))
+        smem = (smem_bytes(p.tile, k, g, x.element_size())
+                + STREAM_WARPS * (depth - RING_DEPTH) * STAGE_BYTES[g])
         y = torch.empty((t, n), dtype=torch.float32, device=x.device)
         rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
                 bsr.idx.data_ptr(), bsr.vals.data_ptr(),
                 bsr.scale.data_ptr(), bsr.zero.data_ptr(), y.data_ptr(),
-                t, n, m, k, p.tile, p.tiles, p.blocks, smem,
+                t, n, m, k, g, p.tile, p.tiles, p.blocks, smem,
                 torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"launch failed: CUDA error {rc}")

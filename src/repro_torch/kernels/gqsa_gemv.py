@@ -10,15 +10,20 @@ in prefill and decode, and the same kernel under the reference's
 (``src/repro/models/moe.py:_expert_ffn``): :func:`gqsa_gemv_experts_cuda`,
 one launch per projection at any capacity.
 
-Bound on the H100: bytes. The kernel streams each kept group's 20-byte
-payload (8 code bytes, int32 idx, f32 scale and zero) once; the floor is
-N * M * 20 bytes, plus x and y, over 3.35 TB/s (wq of llama2-7b: 10.5 MB
--> 3.1 us; wg/wu/wd: 28.2 MB -> 8.4 us; a layer: 38.0 us at T = 4, 46.1
-us at T = 116). The products (16 multiply-adds a kept group and row, bf16
-x by exact 4-bit codes) take the tensor cores' 989 TFLOP/s, under the
-bytes up to T of about 280. The kernel runs them on CUDA cores in f32
-and is bound by that arithmetic at every T (~41 instructions a kept
-group and row, 16 of them the bf16 widening of x), far above the byte
+Group sizes: 8, 16 and 32 (``GROUP_SIZES``), each its own instantiation
+of the kernels, picked from ``bsr.group_size``; any other raises (the
+reference takes any even g: ROADMAP.md B.8).
+
+Bound on the H100: bytes. The kernel streams each kept group's payload
+(g/2 code bytes, int32 idx, f32 scale and zero: ``payload_bytes``, 16,
+20 and 28 bytes at g = 8, 16, 32) once; the floor is N * M times that,
+plus x and y, over 3.35 TB/s (at g = 16: wq of llama2-7b 10.5 MB -> 3.1
+us; wg/wu/wd 28.2 MB -> 8.4 us; a layer 38.0 us at T = 4, 46.1 us at T =
+116). The products (g multiply-adds a kept group and row, bf16 x by
+exact 4-bit codes) take the tensor cores' 989 TFLOP/s, under the bytes
+up to T of about 280. The kernel runs them on CUDA cores in f32 and is
+bound by that arithmetic at every T (~41 instructions a kept group and
+row at g = 16, 16 of them the bf16 widening of x), far above the byte
 floor (PERF.md).
 
 Design of :func:`gqsa_gemv_cuda` (details in the CUDA source): one
@@ -54,11 +59,13 @@ import torch
 from repro_torch.core.bsr import BSRMatrix
 from repro_torch.kernels.build import load, sm_count
 
-GROUP_SIZE = 16     # the kernel's group size (8 code bytes per group)
+GROUP_SIZES = (8, 16, 32)   # the kernel's group sizes (g/2 code bytes)
 STREAM_WARPS = 16   # warps a block of the streaming kernel
 # The block's shared-memory layout, as the CUDA source lays it out (its
 # launcher refuses a size that differs from its own count):
-STAGE_BYTES = 640   # a warp's ring stage: 32 slots x 20 bytes (`Stage`)
+# a warp's ring stage by group size: 32 slots x (g/2 + 12) bytes
+# (`Stage<G>`)
+STAGE_BYTES = {8: 512, 16: 640, 32: 896}
 RING_DEPTH = 3      # stages of a warp's ring (`kDepth`)
 EXPERT_RING_DEPTH = 4   # the same on the expert axis (`kExpertDepth`)
 CTRL_BYTES = 128    # the expert axis's block-shared ints (`kCtrlInts`)
@@ -70,7 +77,7 @@ TILES = {2: (1, 2, 4, 8), 4: (1, 2, 4)}   # token tiles, by x's item size
 def _launcher():
     fn = load("gqsa_gemv").gqsa_gemv_launch
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_void_p])
+                   + [ctypes.c_int] * 8 + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -79,36 +86,47 @@ def _launcher():
 def _experts_launcher():
     fn = load("gqsa_gemv").gqsa_gemv_experts_launch
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int] * 8 + [ctypes.c_longlong, ctypes.c_void_p])
+                   + [ctypes.c_int] * 9 + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def smem_bytes(tt: int, k: int, itemsize: int) -> int:
-    """Dynamic shared memory of a block: the x tile ([K/16][tt][16] of
-    x's type), its group sums ([K/16][tt] f32, rounded up to 16 bytes)
-    and ``STREAM_WARPS`` rings of ``RING_DEPTH`` stages."""
-    groups = k // GROUP_SIZE
-    return (groups * tt * 16 * itemsize + -(-groups * tt * 4 // 16) * 16
-            + STREAM_WARPS * RING_DEPTH * STAGE_BYTES)
+def payload_bytes(g: int) -> int:
+    """Bytes a kept group streams at group size ``g``: g/2 code bytes,
+    int32 idx, f32 scale and zero."""
+    return g // 2 + 12
 
 
-def experts_smem_bytes(tt: int, k: int, itemsize: int) -> int:
+def smem_bytes(tt: int, k: int, g: int, itemsize: int) -> int:
+    """Dynamic shared memory of a block at group size ``g``: the x tile
+    ([K/g][tt][g] of x's type), its group sums ([K/g][tt] f32, rounded up
+    to 16 bytes) and ``STREAM_WARPS`` rings of ``RING_DEPTH`` stages of
+    ``STAGE_BYTES[g]``."""
+    groups = k // g
+    return (k * tt * itemsize + -(-groups * tt * 4 // 16) * 16
+            + STREAM_WARPS * RING_DEPTH * STAGE_BYTES[g])
+
+
+def experts_smem_bytes(tt: int, k: int, g: int, itemsize: int) -> int:
     """The expert axis's block: :func:`smem_bytes` with rings of
     ``EXPERT_RING_DEPTH`` stages, then ``CTRL_BYTES`` of block-shared
     ints (warp totals of the pair count, the segment's expert and tile)."""
-    return (smem_bytes(tt, k, itemsize)
-            + STREAM_WARPS * (EXPERT_RING_DEPTH - RING_DEPTH) * STAGE_BYTES
-            + CTRL_BYTES)
+    return (smem_bytes(tt, k, g, itemsize)
+            + STREAM_WARPS * (EXPERT_RING_DEPTH - RING_DEPTH)
+            * STAGE_BYTES[g] + CTRL_BYTES)
 
 
-def token_tile(t: int, k: int, itemsize: int, size=smem_bytes) -> int:
+def token_tile(t: int, k: int, g: int, itemsize: int,
+               size=smem_bytes) -> int:
     """x rows a block takes: the smallest of ``TILES[itemsize]`` that
     holds all ``t`` rows, else the largest, among those whose x fits a
     block (``size``: the block's shared memory at a tile; a larger tile
     converts each kept group's codes once for more rows; a tile past T
-    computes on zero rows)."""
-    fits = [tt for tt in TILES[itemsize] if size(tt, k, itemsize) <= SMEM_LIMIT]
+    computes on zero rows). llama2-7b's wd (K = 11008) at 8 bf16 rows
+    fits at g = 16 and 32 but not at g = 8 (its group sums take 44032
+    bytes), so there it takes 4."""
+    fits = [tt for tt in TILES[itemsize]
+            if size(tt, k, g, itemsize) <= SMEM_LIMIT]
     if not fits:
         raise ValueError(f"gqsa_gemv_cuda: K={k} does not fit a block's "
                          f"shared memory")
@@ -121,12 +139,13 @@ class Plan(NamedTuple):
     blocks: int    # grid: tiles x blocks a tile
 
 
-def plan(t: int, n: int, k: int, itemsize: int, sms: int) -> Plan:
-    """The launch of T = ``t`` rows against an [N, K] matrix from shapes
-    and the SM count alone: one block an SM (a block of 16 warps holds
-    the SM's shared memory), as many on every tile, at least one, and no
-    block without a row (N / 16 blocks a tile at most)."""
-    tt = token_tile(t, k, itemsize)
+def plan(t: int, n: int, k: int, g: int, itemsize: int, sms: int) -> Plan:
+    """The launch of T = ``t`` rows against an [N, K] matrix of group size
+    ``g`` from shapes and the SM count alone: one block an SM (a block of
+    16 warps holds the SM's shared memory), as many on every tile, at
+    least one, and no block without a row (N / 16 blocks a tile at
+    most)."""
+    tt = token_tile(t, k, g, itemsize)
     tiles = -(-t // tt)
     per_tile = max(1, min(sms // tiles, -(-n // STREAM_WARPS)))
     return Plan(tt, tiles, tiles * per_tile)
@@ -147,20 +166,21 @@ def row_lanes(m: int) -> int:
     return 16 if 0 < m % 32 <= 16 else 32
 
 
-def experts_plan(e: int, c: int, n: int, m: int, k: int, itemsize: int,
-                 sms: int) -> ExpertsPlan:
+def experts_plan(e: int, c: int, n: int, m: int, k: int, g: int,
+                 itemsize: int, sms: int) -> ExpertsPlan:
     """The expert axis's launch for E = ``e`` experts of C = ``c`` buffer
-    rows against [N, K] matrices of M = ``m`` kept groups a row, from
-    shapes and the SM count alone: the token tile as :func:`token_tile`
+    rows against [N, K] matrices of M = ``m`` kept groups a row at group
+    size ``g``, from shapes and the SM count alone: the token tile as
+    :func:`token_tile`
     takes it for C rows, :func:`row_lanes`, and one block an SM, fewer
     only when every expert holding all C rows gives fewer than 16 rows (a
     block's warps) a block. The kernel shares the occupied pairs' rows out
     over whatever grid it gets."""
-    tt = token_tile(c, k, itemsize, experts_smem_bytes)
+    tt = token_tile(c, k, g, itemsize, experts_smem_bytes)
     rows_all = e * -(-c // tt) * n
     blocks = max(1, min(sms, -(-rows_all // STREAM_WARPS)))
     return ExpertsPlan(tt, row_lanes(m), blocks,
-                       experts_smem_bytes(tt, k, itemsize))
+                       experts_smem_bytes(tt, k, g, itemsize))
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -183,10 +203,12 @@ def _check_operands(x: torch.Tensor, bsr: BSRMatrix, lead) -> None:
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"gqsa_gemv_cuda: x must be f32 or bf16, "
                         f"got {x.dtype}")
-    if bsr.group_size != GROUP_SIZE or bsr.bits > 4:
+    if bsr.group_size not in GROUP_SIZES or bsr.bits > 4:
         raise NotImplementedError(
-            f"gqsa_gemv_cuda takes group size {GROUP_SIZE} with <= 4-bit "
-            f"codes, got G{bsr.group_size} W{bsr.bits}")
+            f"gqsa_gemv_cuda takes group sizes {GROUP_SIZES} with <= 4-bit "
+            f"codes, got G{bsr.group_size} W{bsr.bits} (other group sizes: "
+            f"ROADMAP.md B.8)")
+    g = bsr.group_size
     k = x.shape[-1]
     n, m = bsr.idx.shape[-2:]
     if (n, k) != tuple(bsr.shape):
@@ -194,12 +216,12 @@ def _check_operands(x: torch.Tensor, bsr: BSRMatrix, lead) -> None:
     w = tuple(lead[:-1])
     _check(x, "x", x.dtype, tuple(lead) + (k,))
     _check(bsr.idx, "idx", torch.int32, w + (n, m))
-    _check(bsr.vals, "vals", torch.uint8, w + (n, m, GROUP_SIZE // 2))
+    _check(bsr.vals, "vals", torch.uint8, w + (n, m, g // 2))
     _check(bsr.scale, "scale", torch.float32, w + (n, m))
     _check(bsr.zero, "zero", torch.float32, w + (n, m))
-    if x.data_ptr() % 16 or bsr.vals.data_ptr() % 8:
-        raise ValueError("gqsa_gemv_cuda: x must be 16-byte and vals "
-                         "8-byte aligned (vector loads)")
+    if x.data_ptr() % 16 or bsr.vals.data_ptr() % (g // 2):
+        raise ValueError(f"gqsa_gemv_cuda: x must be 16-byte and vals "
+                         f"{g // 2}-byte aligned (vector loads)")
 
 
 def gqsa_gemv_cuda(x: torch.Tensor, bsr: BSRMatrix) -> torch.Tensor:
@@ -207,20 +229,21 @@ def gqsa_gemv_cuda(x: torch.Tensor, bsr: BSRMatrix) -> torch.Tensor:
     one launch (``launches`` counts them).
 
     x: f32 or bf16, contiguous; bsr: one layer's padded form (2-D leaves)
-    with group size 16, on x's device."""
+    with a group size of ``GROUP_SIZES``, on x's device."""
     if x.dim() != 2 or x.shape[0] < 1:
         raise ValueError(f"gqsa_gemv_cuda takes x [T, K] with T >= 1, got "
                          f"{tuple(x.shape)}")
     t, k = x.shape
     _check_operands(x, bsr, (t,))
     n, m = bsr.idx.shape
-    p = plan(t, n, k, x.element_size(), sm_count(x.device.index))
+    g = bsr.group_size
+    p = plan(t, n, k, g, x.element_size(), sm_count(x.device.index))
     y = torch.empty((t, n), dtype=torch.float32, device=x.device)
     rc = _launcher()(x.data_ptr(), int(x.dtype == torch.bfloat16),
                      bsr.idx.data_ptr(), bsr.vals.data_ptr(),
                      bsr.scale.data_ptr(), bsr.zero.data_ptr(), y.data_ptr(),
-                     t, n, m, k, p.tile, p.tiles, p.blocks,
-                     smem_bytes(p.tile, k, x.element_size()),
+                     t, n, m, k, g, p.tile, p.tiles, p.blocks,
+                     smem_bytes(p.tile, k, g, x.element_size()),
                      torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gqsa_gemv kernel launch failed: CUDA error {rc}")
@@ -238,7 +261,8 @@ def gqsa_gemv_experts_cuda(x: torch.Tensor, bsr: BSRMatrix,
     C >= 1, in one launch (``launches`` counts them).
 
     x: [E, C, K] f32 or bf16, contiguous; bsr: stacked padded form
-    ([E, N, M] leaves, group size 16); ``rows`` [E] int32 or None (every
+    ([E, N, M] leaves, a group size of ``GROUP_SIZES``); ``rows`` [E]
+    int32 or None (every
     row holds a token): rows at or past ``rows[e]`` are written as zeros
     and an expert with no row is not read."""
     if x.dim() != 3 or x.shape[1] < 1:
@@ -249,14 +273,15 @@ def gqsa_gemv_experts_cuda(x: torch.Tensor, bsr: BSRMatrix,
     n, m = bsr.idx.shape[-2:]
     if rows is not None:
         _check(rows, "rows", torch.int32, (e,))
-    p = experts_plan(e, c, n, m, k, x.element_size(),
+    g = bsr.group_size
+    p = experts_plan(e, c, n, m, k, g, x.element_size(),
                      sm_count(x.device.index))
     y = torch.empty((e, c, n), dtype=torch.float32, device=x.device)
     rc = _experts_launcher()(
         x.data_ptr(), int(x.dtype == torch.bfloat16), bsr.idx.data_ptr(),
         bsr.vals.data_ptr(), bsr.scale.data_ptr(), bsr.zero.data_ptr(),
         y.data_ptr(), None if rows is None else rows.data_ptr(), e, c, n, m,
-        k, p.tile, p.row_lanes, p.blocks, p.smem,
+        k, g, p.tile, p.row_lanes, p.blocks, p.smem,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gqsa_gemv experts kernel launch failed: CUDA "

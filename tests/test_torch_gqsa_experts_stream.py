@@ -2,9 +2,10 @@
 order of arithmetic in plain PyTorch
 (``kernels/ref.py:gqsa_gemv_experts_grouped_ref``) against the port's
 plain version (``gqsa_gemv_experts_ref``) and, expert by expert, the JAX
-reference's Pallas kernel in interpret mode, on the same numpy inputs;
-and the expert launch's plan (token tile, grid, shared memory), which
-comes from shapes and the SM count alone.
+reference's Pallas kernel in interpret mode, on the same numpy inputs,
+at each group size the kernel takes (8, 16, 32); and the expert launch's
+plan (token tile, grid, shared memory), which comes from shapes, the
+group size and the SM count alone.
 
 Tolerance, max-abs error over max |y|: 1e-5 for bf16 and f32 x, as for
 the single-matrix kernel (``test_torch_gqsa_stream.py``): every side
@@ -32,11 +33,11 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.gqsa_gemv import (CTRL_BYTES,  # noqa: E402
-                                           EXPERT_RING_DEPTH, SMEM_LIMIT,
-                                           STAGE_BYTES, STREAM_WARPS, TILES,
-                                           experts_plan, experts_smem_bytes,
-                                           row_lanes, smem_bytes,
-                                           token_tile)
+                                           EXPERT_RING_DEPTH, GROUP_SIZES,
+                                           SMEM_LIMIT, STAGE_BYTES,
+                                           STREAM_WARPS, TILES, experts_plan,
+                                           experts_smem_bytes, row_lanes,
+                                           smem_bytes, token_tile)
 
 from _torch_utils import jax_tree_to_numpy  # noqa: E402
 
@@ -52,18 +53,18 @@ MOE = {"deepseek-v2 wg/wu": (160, 1536, 160, 5120),
        "deepseek-moe-16b wd": (64, 2048, 44, 1408)}
 
 
-def _stacked_pair(seed, balanced):
-    """E experts packed by the reference, stacked [E, ...], in both
-    packages (carried over through the bridge)."""
+def _stacked_pair(seed, balanced, g=16):
+    """E experts packed by the reference at group size ``g``, stacked
+    [E, ...], in both packages (carried over through the bridge)."""
     rng = np.random.default_rng(seed)
     packed = []
     for _ in range(E):
         w = jnp.asarray(rng.normal(size=(N, K)).astype(np.float32))
-        gm = jgroup_mask(jgroup_saliency(jnp.square(w), 16),
-                         JPruneConfig(sparsity=0.5, group_size=16,
+        gm = jgroup_mask(jgroup_saliency(jnp.square(w), g),
+                         JPruneConfig(sparsity=0.5, group_size=g,
                                       row_balanced=balanced))
         packed.append(jbsr.pack_dense(w, gm, JQuantConfig(bits=4,
-                                                          group_size=16)))
+                                                          group_size=g)))
     # a ragged packing's M differs by expert: pad each to the largest with
     # padding slots (idx -1, scale 0), as a stacked packing holds them
     m = max(b.idx.shape[1] for b in packed)
@@ -87,15 +88,18 @@ def _rows(c):
     return torch.tensor([0, c, (c + 1) // 2, 1], dtype=torch.int32)
 
 
+@pytest.mark.parametrize("g", GROUP_SIZES)
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("balanced", [True, False])
 @pytest.mark.parametrize("c", [1, 3, 9])
-def test_experts_grouped_ref_matches_plain_and_reference(c, balanced, dtype):
-    """N = 48, K = 256, E = 4 at C buffer rows, with ``rows`` given (idle
-    and partly filled experts) and absent; the ragged packing carries -1
-    padding slots with scale 0. The reference runs its Pallas kernel on
-    each expert's filled rows in interpret mode."""
-    jb, tb = _stacked_pair(c + 10 * balanced, balanced)
+def test_experts_grouped_ref_matches_plain_and_reference(c, balanced, dtype,
+                                                         g):
+    """N = 48, K = 256, E = 4 at C buffer rows and group size g, with
+    ``rows`` given (idle and partly filled experts) and absent; the ragged
+    packing carries -1 padding slots with scale 0. The reference runs its
+    Pallas kernel on each expert's filled rows in interpret mode."""
+    jb, tb = _stacked_pair(c + 10 * balanced, balanced, g)
+    assert tb.group_size == g and tb.vals.shape[-1] == g // 2
     if not balanced:
         assert (tb.idx < 0).any()
     x = np.random.default_rng(c).normal(size=(E, c, K)).astype(np.float32)
@@ -146,12 +150,34 @@ def test_experts_plan_at_moe_shapes(label, c):
     shared memory within 227 KB."""
     e, n, m, k = MOE[label]
     for itemsize in (2, 4):
-        p = experts_plan(e, c, n, m, k, itemsize, SMS)
+        p = experts_plan(e, c, n, m, k, 16, itemsize, SMS)
         assert p.row_lanes == (16 if label.endswith("wd") else 32)
-        assert p.tile == token_tile(c, k, itemsize) in TILES[itemsize]
+        assert p.tile == token_tile(c, k, 16, itemsize) in TILES[itemsize]
         assert p.tile == min(TILES[itemsize][-1], 1 << (c - 1).bit_length())
         assert p.blocks == SMS
-        assert p.smem == experts_smem_bytes(p.tile, k, itemsize)
+        assert p.smem == experts_smem_bytes(p.tile, k, 16, itemsize)
+        assert p.smem <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("c", [1, 3, 9, 30])
+@pytest.mark.parametrize("label", list(MOE))
+@pytest.mark.parametrize("g", [8, 32])
+def test_experts_plan_at_other_group_sizes(g, label, c):
+    """The same at g = 8 and 32, where a row keeps M x 16 / g groups: the
+    w_d rows (M = 96 and 88 at g = 8, 24 and 22 at g = 32) take 32 lanes,
+    and so does every other row but DeepSeek-V2's w_g / w_u at g = 32 (M
+    = 80: its third trip would leave half a warp idle), which takes 16;
+    the tile follows C as at g = 16 (every expert width fits 8 bf16
+    rows)."""
+    e, n, m16, k = MOE[label]
+    m = m16 * 16 // g
+    for itemsize in (2, 4):
+        p = experts_plan(e, c, n, m, k, g, itemsize, SMS)
+        assert p.row_lanes == (16 if (g, label) == (32, "deepseek-v2 wg/wu")
+                               else 32)
+        assert p.tile == min(TILES[itemsize][-1], 1 << (c - 1).bit_length())
+        assert p.blocks == SMS
+        assert p.smem == experts_smem_bytes(p.tile, k, g, itemsize)
         assert p.smem <= SMEM_LIMIT
 
 
@@ -162,7 +188,7 @@ def test_experts_grid_from_shapes(e, c, n, want):
     """One block an SM, fewer only when all E x C buffer rows give fewer
     than 16 output rows (a block's warps) a block: E x ceil(C / tile) x N
     rows over 16."""
-    assert experts_plan(e, c, n, 8, 256, 2, SMS).blocks == want
+    assert experts_plan(e, c, n, 8, 256, 16, 2, SMS).blocks == want
 
 
 @pytest.mark.parametrize("m,want", [(1, 16), (16, 16), (17, 32), (32, 32),
@@ -178,25 +204,50 @@ def test_experts_shared_memory_sizes():
     """The single-matrix layout with rings ``EXPERT_RING_DEPTH`` deep and
     ``CTRL_BYTES`` of block-shared ints after them: a DeepSeek-V2 w_g at
     C = 1 (bf16) takes 52608 bytes, at 8 rows 133248."""
-    ring = STREAM_WARPS * EXPERT_RING_DEPTH * STAGE_BYTES
-    assert experts_smem_bytes(1, 5120, 2) == 10240 + 1280 + ring + 128
-    assert experts_smem_bytes(8, 5120, 2) == 81920 + 10240 + ring + 128
-    assert experts_smem_bytes(4, 48, 4) == (smem_bytes(4, 48, 4)
-                                            + STREAM_WARPS * STAGE_BYTES
-                                            * (EXPERT_RING_DEPTH - 3) + 128)
-    assert experts_smem_bytes(8, 5120, 2) == 133248 <= SMEM_LIMIT
+    ring = STREAM_WARPS * EXPERT_RING_DEPTH * STAGE_BYTES[16]
+    assert experts_smem_bytes(1, 5120, 16, 2) == 10240 + 1280 + ring + 128
+    assert experts_smem_bytes(8, 5120, 16, 2) == 81920 + 10240 + ring + 128
+    assert experts_smem_bytes(4, 48, 16, 4) == (
+        smem_bytes(4, 48, 16, 4)
+        + STREAM_WARPS * STAGE_BYTES[16] * (EXPERT_RING_DEPTH - 3) + 128)
+    assert experts_smem_bytes(8, 5120, 16, 2) == 133248 <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("g,stage,w8", [(8, 512, 135296), (32, 896, 144512)])
+def test_experts_shared_memory_sizes_at_other_group_sizes(g, stage, w8):
+    """At g = 8 and 32: the x tile as at g = 16, group sums [K/g][tile]
+    f32, rings of 512- or 896-byte stages ``EXPERT_RING_DEPTH`` deep and
+    ``CTRL_BYTES``: a DeepSeek-V2 w_g (K = 5120) at 8 bf16 rows takes
+    81920 + 20480 + 32768 + 128 = 135296 bytes at g = 8 and 81920 + 5120
+    + 57344 + 128 = 144512 at g = 32."""
+    ring = STREAM_WARPS * EXPERT_RING_DEPTH * stage
+    assert STAGE_BYTES[g] == stage
+    assert experts_smem_bytes(8, 5120, g, 2) == (81920 + 5120 // g * 32
+                                                 + ring + 128)
+    assert experts_smem_bytes(8, 5120, g, 2) == w8 <= SMEM_LIMIT
+    assert experts_smem_bytes(1, 1408, g, 2) == (
+        smem_bytes(1, 1408, g, 2)
+        + STREAM_WARPS * stage * (EXPERT_RING_DEPTH - 3) + 128)
 
 
 def test_experts_layout_constants_match_the_cuda_source():
     """The expert plan's shared-memory count and the kernel's layout share
-    their constants: the CUDA source's ring depth and block-shared ints
-    are the wrapper's. On the card the launcher also refuses any size but
-    its own count."""
+    their constants: the CUDA source's ring depth, block-shared ints and
+    per-group-size stages (``Stage<G>``, the single-matrix kernel's) are
+    the wrapper's. On the card the launcher also refuses any size but its
+    own count, and any group size but 8, 16 and 32."""
     path = os.path.join(os.path.dirname(__file__), "..", "src",
                         "repro_torch", "csrc", "gqsa_gemv.cu")
     with open(path) as f:
         src = f.read()
     for decl in (f"constexpr int kExpertDepth = {EXPERT_RING_DEPTH};",
                  f"constexpr int kCtrlInts = {CTRL_BYTES // 4};",
-                 "+ kCtrlInts * sizeof(int);"):
+                 "+ kCtrlInts * sizeof(int);",
+                 "static_cast<size_t>(kWarps) * kExpertDepth * "
+                 "stage_bytes(g)",
+                 "template <typename T, int TT, int G, int kRowLanes>\n"
+                 "__global__ void __launch_bounds__(kThreads, 1)\n"
+                 "gqsa_gemv_experts_kernel(",
+                 *(f"static_assert(sizeof(Stage<{g}>) == {STAGE_BYTES[g]},"
+                   for g in GROUP_SIZES)):
         assert decl in src, decl

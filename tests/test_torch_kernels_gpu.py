@@ -8,6 +8,8 @@ kernels build from ``src/repro_torch/csrc`` on first use. Tolerance:
 max-abs error <= 1e-4 of the plain output's max-abs, since both sides run
 f32 products (int8 pages and W4 codes dequantized to the same f32 values)
 and differ only in summation order over K <= 11008."""
+import dataclasses
+
 import pytest
 import torch
 
@@ -88,7 +90,7 @@ def test_gqsa_gemv_kernel_bit_identical(cuda, dtype):
     for rows in (slice(5, 6), slice(6, 8), slice(8, 12), slice(16, 24),
                  slice(0, 20)):
         part = x[rows].contiguous()
-        tiles.add(plan(part.shape[0], 4096, 11008, part.element_size(),
+        tiles.add(plan(part.shape[0], 4096, 11008, 16, part.element_size(),
                        132).tile)
         assert torch.equal(ops.gqsa_gemv(part, bsr), y[rows])
     assert len(tiles) >= 3
@@ -110,25 +112,121 @@ def test_gqsa_gemv_kernel_rejects_what_it_does_not_take(cuda):
 def test_gqsa_gemv_launcher_takes_only_its_shared_memory_count(cuda, t,
                                                               dtype):
     """The wrapper's count of a block's shared memory is the launcher's
-    own at every tile (the launch goes through); one 16-byte line more or
-    less is refused (cudaErrorInvalidValue) before anything launches."""
+    own at every tile and group size (the launch goes through); one
+    16-byte line more or less is refused (cudaErrorInvalidValue) before
+    anything launches, and so is the count of another group size."""
     from repro_torch.kernels.build import sm_count
-    from repro_torch.kernels.gqsa_gemv import _launcher, plan, smem_bytes
+    from repro_torch.kernels.gqsa_gemv import (GROUP_SIZES, _launcher, plan,
+                                               smem_bytes)
     n, k = 4096, 11008
-    bsr = pack_linear(torch.randn((n, k), generator=cuda, device="cuda"),
-                      GQSAConfig())
+    w = torch.randn((n, k), generator=cuda, device="cuda")
     x = torch.randn((t, k), generator=cuda, device="cuda").to(dtype)
-    _close(gqsa_gemv_cuda(x, bsr), ops.gqsa_gemv(x, bsr, plain=True))
-    p = plan(t, n, k, x.element_size(), sm_count(0))
-    y = torch.empty((t, n), device="cuda")
-    m = bsr.idx.shape[1]
-    for delta in (-16, 16):
-        rc = _launcher()(x.data_ptr(), int(dtype == torch.bfloat16),
-                         bsr.idx.data_ptr(), bsr.vals.data_ptr(),
-                         bsr.scale.data_ptr(), bsr.zero.data_ptr(),
-                         y.data_ptr(), t, n, m, k, p.tile, p.tiles,
-                         p.blocks,
-                         smem_bytes(p.tile, k, x.element_size()) + delta,
+    for g in GROUP_SIZES:
+        bsr = pack_linear(w, _gqsa(g))
+        _close(gqsa_gemv_cuda(x, bsr), ops.gqsa_gemv(x, bsr, plain=True))
+        p = plan(t, n, k, g, x.element_size(), sm_count(0))
+        y = torch.empty((t, n), device="cuda")
+        m = bsr.idx.shape[1]
+        other = 8 if g != 8 else 32
+        for smem in (smem_bytes(p.tile, k, g, x.element_size()) - 16,
+                     smem_bytes(p.tile, k, g, x.element_size()) + 16,
+                     smem_bytes(p.tile, k, other, x.element_size())):
+            rc = _launcher()(x.data_ptr(), int(dtype == torch.bfloat16),
+                             bsr.idx.data_ptr(), bsr.vals.data_ptr(),
+                             bsr.scale.data_ptr(), bsr.zero.data_ptr(),
+                             y.data_ptr(), t, n, m, k, g, p.tile, p.tiles,
+                             p.blocks, smem,
+                             torch.cuda.current_stream().cuda_stream)
+            assert rc == 1, rc
+
+
+def _gqsa(g):
+    """GQSA W4 S50 at group size ``g``."""
+    from repro_torch.core.pruning import PruneConfig
+    return GQSAConfig(quant=QuantConfig(bits=4, group_size=g),
+                      prune=PruneConfig(sparsity=0.5, group_size=g))
+
+
+@pytest.mark.parametrize("n,k", [(4096, 4096), (11008, 4096), (4096, 11008),
+                                 (100, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g", [8, 32])
+def test_gqsa_gemv_kernel_matches_plain_at_group_sizes(cuda, g, n, k, dtype):
+    """g = 8 and 32 at the llama2-7b shapes and a small one: one launch a
+    call at every row count (every token tile, and wd at g = 8, where 8
+    bf16 rows do not fit a block and the tile stays 4)."""
+    w = torch.randn((n, k), generator=cuda, device="cuda")
+    bsr = pack_linear(w, _gqsa(g))
+    assert bsr.group_size == g and bsr.vals.shape[-1] == g // 2
+    for b in GEMV_ROWS:
+        x = torch.randn((b, k), generator=cuda, device="cuda").to(dtype)
+        before = gqsa_gemv_cuda.launches
+        y = ops.gqsa_gemv(x, bsr)
+        assert gqsa_gemv_cuda.launches - before == 1
+        _close(y, ops.gqsa_gemv(x, bsr, plain=True))
+
+
+@pytest.mark.parametrize("g", [8, 32])
+def test_gqsa_gemv_kernel_ragged_rows_at_group_sizes(cuda, g):
+    """-1 padding slots, an empty row and ragged last lane trips at g = 8
+    and 32, bf16 and f32 x at every row count."""
+    w = torch.randn((300, 512), generator=cuda, device="cuda")
+    mask = torch.rand((300, 512 // g), generator=cuda, device="cuda") < 0.3
+    mask[7] = False
+    bsr = pack_dense(w, mask, QuantConfig(bits=4, group_size=g))
+    assert bool((bsr.idx < 0).any())
+    for b in GEMV_ROWS:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((b, 512), generator=cuda, device="cuda").to(dtype)
+            _close(ops.gqsa_gemv(x, bsr), ops.gqsa_gemv(x, bsr, plain=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g", [8, 32])
+def test_gqsa_gemv_kernel_bit_identical_at_group_sizes(cuda, g, dtype):
+    """At g = 8 and 32, repeats are bit-identical and a row of x gives the
+    same bits at T = 1, in a tile of 2, 4 or 8, or in a 116-row call."""
+    from repro_torch.kernels.gqsa_gemv import plan
+    bsr = pack_linear(torch.randn((4096, 4096), generator=cuda,
+                                  device="cuda"), _gqsa(g))
+    x = torch.randn((116, 4096), generator=cuda, device="cuda").to(dtype)
+    y = ops.gqsa_gemv(x, bsr)
+    assert torch.equal(y, ops.gqsa_gemv(x, bsr))
+    tiles = set()
+    for rows in (slice(5, 6), slice(6, 8), slice(8, 12), slice(16, 24),
+                 slice(0, 20)):
+        part = x[rows].contiguous()
+        tiles.add(plan(part.shape[0], 4096, 4096, g, part.element_size(),
+                       132).tile)
+        assert torch.equal(ops.gqsa_gemv(part, bsr), y[rows])
+    assert len(tiles) >= 3
+
+
+def test_gqsa_gemv_kernel_refuses_other_group_sizes(cuda):
+    """g = 64 (which the reference takes) raises, naming ROADMAP.md, on one
+    matrix and on the expert axis, before anything launches; nothing goes
+    to the plain version. The launcher itself refuses g = 64 and 4."""
+    from repro_torch.kernels.gqsa_gemv import (_launcher,
+                                               gqsa_gemv_experts_cuda)
+    bsr = pack_linear(torch.randn((64, 256), generator=cuda, device="cuda"),
+                      _gqsa(64))
+    x = torch.randn((4, 256), generator=cuda, device="cuda")
+    before = (gqsa_gemv_cuda.launches, gqsa_gemv_experts_cuda.launches)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ops.gqsa_gemv(x, bsr)
+    stacked = dataclasses.replace(
+        bsr, **{f: getattr(bsr, f)[None] for f in ("idx", "vals", "scale",
+                                                   "zero")})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ops.gqsa_gemv_experts(x[None], stacked, None)
+    assert (gqsa_gemv_cuda.launches,
+            gqsa_gemv_experts_cuda.launches) == before
+    y = torch.empty((4, 64), device="cuda")
+    for g in (64, 4):
+        rc = _launcher()(x.data_ptr(), 0, bsr.idx.data_ptr(),
+                         bsr.vals.data_ptr(), bsr.scale.data_ptr(),
+                         bsr.zero.data_ptr(), y.data_ptr(), 4, 64,
+                         bsr.idx.shape[1], 256, g, 4, 1, 1, 0,
                          torch.cuda.current_stream().cuda_stream)
         assert rc == 1, rc
 
@@ -609,9 +707,9 @@ def test_paged_attention_kernel_latent_refuses_int8(cuda):
                                    v_rank=32)
 
 
-def _experts(cuda, e, n, k):
+def _experts(cuda, e, n, k, g=16):
     from repro_torch.core.model_compress import StackedPacker, slice_packer
-    packer = StackedPacker(e, slice_packer(GQSAConfig()))
+    packer = StackedPacker(e, slice_packer(_gqsa(g)))
     for i in range(e):
         packer.put(i, torch.randn((n, k), generator=cuda, device="cuda")
                    / k ** 0.5)
@@ -707,34 +805,77 @@ def test_gqsa_gemv_experts_bit_identical(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_gqsa_gemv_experts_both_row_layouts(cuda, dtype):
     """The launcher at 16 lanes a row (two rows a warp) and at 32, whatever
-    M the plan would pick them for (M = 20 here, K = 640): both match the
-    plain version, with ``rows``, at C = 1, 3 and 9."""
+    M the plan would pick them for (K = 640: M = 20 at g = 16, 40 at g =
+    8, 10 at g = 32): both match the plain version, with ``rows``, at C =
+    1, 3 and 9, at every group size."""
     from repro_torch.kernels.build import sm_count
-    from repro_torch.kernels.gqsa_gemv import _experts_launcher, experts_plan
+    from repro_torch.kernels.gqsa_gemv import (GROUP_SIZES,
+                                               _experts_launcher,
+                                               experts_plan)
     e, n, k = 6, 200, 640
-    bsr = _experts(cuda, e, n, k)
-    m = bsr.idx.shape[-1]
-    for c in (1, 3, 9):
+    for g in GROUP_SIZES:
+        bsr = _experts(cuda, e, n, k, g)
+        m = bsr.idx.shape[-1]
+        for c in (1, 3, 9):
+            x = torch.randn((e, c, k), generator=cuda,
+                            device="cuda").to(dtype)
+            rows = _occupancy(cuda, e, c)
+            ref = ops.gqsa_gemv_experts(x, bsr, rows, plain=True)
+            p = experts_plan(e, c, n, m, k, g, x.element_size(),
+                             sm_count(0))
+            for lanes in (16, 32):
+                y = torch.full((e, c, n), float("nan"), device="cuda")
+                rc = _experts_launcher()(
+                    x.data_ptr(), int(dtype == torch.bfloat16),
+                    bsr.idx.data_ptr(), bsr.vals.data_ptr(),
+                    bsr.scale.data_ptr(), bsr.zero.data_ptr(), y.data_ptr(),
+                    rows.data_ptr(), e, c, n, m, k, g, p.tile, lanes,
+                    p.blocks, p.smem, torch.cuda.current_stream().cuda_stream)
+                assert rc == 0, rc
+                _close(y, ref)
+
+
+@pytest.mark.parametrize("e,n,k", GQSA_EXPERT_SHAPES + [(5, 300, 512)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g", [8, 32])
+def test_gqsa_gemv_experts_at_group_sizes(cuda, g, e, n, k, dtype):
+    """The expert axis at g = 8 and 32, at the DeepSeek-V2 and
+    deepseek-moe-16b expert shapes and a small one: C = 1, 3, 13 and 30,
+    one launch a call, ``rows`` absent and given (idle rows exact zeros),
+    a repeat bit-identical; then NaN in the idle experts' scales and in x
+    past every expert's rows leaves the output equal to the plain
+    version's on the clean operands (nothing idle is read)."""
+    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_experts_cuda
+    bsr = _experts(cuda, e, n, k, g)
+    assert bsr.group_size == g
+    for c in (1, 3, 13, 30):
         x = torch.randn((e, c, k), generator=cuda, device="cuda").to(dtype)
         rows = _occupancy(cuda, e, c)
+        idle = torch.arange(c, device="cuda")[None, :] >= rows[:, None]
+        for r in (None, rows):
+            before = gqsa_gemv_experts_cuda.launches
+            y = ops.gqsa_gemv_experts(x, bsr, r)
+            assert gqsa_gemv_experts_cuda.launches - before == 1
+            assert y.shape == (e, c, n) and y.dtype == torch.float32
+            assert torch.equal(y, ops.gqsa_gemv_experts(x, bsr, r))
+            _close(y, ops.gqsa_gemv_experts(x, bsr, r, plain=True))
+            if r is not None:
+                assert (y[idle] == 0).all()
         ref = ops.gqsa_gemv_experts(x, bsr, rows, plain=True)
-        p = experts_plan(e, c, n, m, k, x.element_size(), sm_count(0))
-        for lanes in (16, 32):
-            y = torch.full((e, c, n), float("nan"), device="cuda")
-            rc = _experts_launcher()(
-                x.data_ptr(), int(dtype == torch.bfloat16),
-                bsr.idx.data_ptr(), bsr.vals.data_ptr(),
-                bsr.scale.data_ptr(), bsr.zero.data_ptr(), y.data_ptr(),
-                rows.data_ptr(), e, c, n, m, k, p.tile, lanes, p.blocks,
-                p.smem, torch.cuda.current_stream().cuda_stream)
-            assert rc == 0, rc
-            _close(y, ref)
+        poisoned = dataclasses.replace(bsr, scale=bsr.scale.clone())
+        poisoned.scale[rows == 0] = float("nan")
+        xp = x.clone()
+        xp[idle] = float("nan")
+        y = ops.gqsa_gemv_experts(xp, poisoned, rows)
+        assert torch.isfinite(y).all()
+        _close(y, ref)
 
 
 def test_gqsa_gemv_experts_rejects_what_it_does_not_take(cuda):
     """Operands the wrapper refuses before any launch, and a launcher
-    that takes no shared-memory count but its own and only 16 or 32 lanes
-    a row."""
+    that takes no shared-memory count but its own (g = 8's count is not
+    g = 16's), only 16 or 32 lanes a row and no group size but 8, 16 or
+    32."""
     from repro_torch.kernels.build import sm_count
     from repro_torch.kernels.gqsa_gemv import (_experts_launcher,
                                                experts_plan,
@@ -760,14 +901,16 @@ def test_gqsa_gemv_experts_rejects_what_it_does_not_take(cuda):
                                .transpose(0, 1), bsr)
     assert gqsa_gemv_experts_cuda.launches == before
     m = bsr.idx.shape[-1]
-    p = experts_plan(e, 2, n, m, k, 4, sm_count(0))
+    p = experts_plan(e, 2, n, m, k, 16, 4, sm_count(0))
     y = torch.empty((e, 2, n), device="cuda")
-    for smem, lanes in ((p.smem - 16, p.row_lanes),
-                        (p.smem + 16, p.row_lanes), (p.smem, 8)):
+    for smem, lanes, g in ((p.smem - 16, p.row_lanes, 16),
+                           (p.smem + 16, p.row_lanes, 16), (p.smem, 8, 16),
+                           (p.smem, p.row_lanes, 64), (p.smem, p.row_lanes,
+                                                       8)):
         rc = _experts_launcher()(
             x.data_ptr(), 0, bsr.idx.data_ptr(), bsr.vals.data_ptr(),
             bsr.scale.data_ptr(), bsr.zero.data_ptr(), y.data_ptr(), None,
-            e, 2, n, m, k, p.tile, lanes, p.blocks, smem,
+            e, 2, n, m, k, g, p.tile, lanes, p.blocks, smem,
             torch.cuda.current_stream().cuda_stream)
         assert rc == 1, rc
 
