@@ -135,7 +135,32 @@ Phases (any failure exits non-zero before the result line is printed):
      CLI with ``--compress gqsa --group-size {8, 32}`` on llama2-7b and
      deepseek-moe-16b at full width and depth, and ``--group-size 32
      --spec 4 --draft-profile w4s75`` on llama2-7b, its launches held to
-     the count its rounds, prefills and layers give.
+     the count its rounds, prefills and layers give;
+ 21. the reference's four other dense configs, yi-34b (56 heads over 8
+     KV heads: R = 7), starcoder2-3b (GELU MLP, R = 12), qwen3-14b
+     (qk_norm, R = 5) and mistral-nemo-12b (heads x head_dim != d_model,
+     R = 4): (a) paged attention's plain and int8 modes at each config's
+     (KV heads, R), D=128, T in {1, 4}, and the tree mode on a (4, 2, 2)
+     verify block at yi-34b's and starcoder2-3b's, each with its split
+     sweep; kv_decode_attention at R in {4, 5, 7, 12, 16}; gqsa_gemv on
+     one yi-34b and one starcoder2-3b layer (T in {1, 4, 64, 116}) and
+     w4_matmul on one starcoder2-3b layer, each against its plain version;
+     (b) each config at full width and 4 layers: prefill + 4 decode steps
+     through the kernels against the plain versions, f32 (greedy tokens
+     equal) and bf16; (c) the main paths at full width and depth: the
+     serve CLI under GQSA W4 S50 G16 for each, ``--compress w4`` on
+     starcoder2-3b, the int8 pool through the engine on qwen3-14b, the
+     tree serve ``--spec-tree 4,2,2 --draft-profile w4l25`` on
+     starcoder2-3b (launches held to the layer structure's count) and,
+     in f32 at 4 layers, its tokens against no speculation; profiled
+     decode steps of yi-34b and starcoder2-3b; (d) starcoder2-3b's static
+     int8 contiguous path as phase 18 runs llama2-7b's (kernel vs plain on
+     4096 positions, 4 sequences x 32768 positions, a profiled step);
+     (e) timings: gqsa_gemv on a yi-34b and a starcoder2-3b layer at T = 4
+     and 64, the plain mode at (8, 7) and (2, 12), kv_decode_attention at
+     (2, 12) and (8, 16) over 4 x 4096 and 4 x 32768. Every kernel must launch on
+     each config's path that runs it; the kernels line's ``dense_configs``
+     holds those launches by config.
 Each main path is driven with every kernel's launch count set to 0 just
 before it and read just after. The line before the last is a JSON object
 with every kernel's numbers; the last line is {"ok": true, "device": {...}}.
@@ -317,12 +342,13 @@ def phase_gemv_check(gs=16):
     return worst
 
 
-def _attn_case(b, t, lens, dtype, g, kh=32, d=128, ps=16, mp=16):
-    """Full-width attention instance over a shuffled pool: slot i owns
-    ceil(max len / ps) pages in table order, the rest are sentinels. int8
-    pages are random codes with positive per-token scales."""
+def _attn_case(b, t, lens, dtype, g, kh=32, d=128, ps=16, mp=16, r=1):
+    """Full-width attention instance over a shuffled pool, ``r`` query
+    heads a KV head: slot i owns ceil(max len / ps) pages in table order,
+    the rest are sentinels. int8 pages are random codes with positive
+    per-token scales."""
     num_pages = b * mp
-    q = torch.randn((b, t, kh, d), generator=g, device="cuda")
+    q = torch.randn((b, t, kh * r, d), generator=g, device="cuda")
     ks = vs = None
     if dtype == torch.int8:
         kp, vp = (torch.randint(-127, 128, (num_pages, ps, kh, d),
@@ -400,39 +426,44 @@ def _paged_at(q, kp, vp, lq, bt, ks=None, vs=None, anc=None, anc_base=None,
     return call
 
 
+def _attn_check(dtype, t, g, kh=32, r=1):
+    """The plain (bf16/f32 pages) or int8 mode against its plain version
+    at ``kh`` KV heads of ``r`` query heads, D=128, T = ``t``, with its
+    split sweep; returns the worst max-abs error."""
+    from repro_torch.kernels import ops
+    mode = "int8" if dtype == torch.int8 else "plain"
+    # ragged staircase lengths; slot 3 is all-sentinel with length 0 and
+    # slot 4 has a real table row but length 0
+    base = torch.tensor([1, 37, 256 - t, 0, 0, 129])
+    lens = base[:, None] + torch.arange(t)[None, :]
+    lens[3:5] = 0
+    lens = lens.to(torch.int32)
+    q, kp, vp, lq, bt, ks, vs = _attn_case(6, t, lens, dtype, g, kh=kh, r=r)
+    bt[4, :2] = bt[1, :2]
+    o = ops.paged_decode_attention(q, kp, vp, lq, bt, ks, vs)
+    ref = ops.paged_decode_attention(q, kp, vp, lq, bt, ks, vs, plain=True)
+    torch.cuda.synchronize()
+    require(bool((o[3:5] == 0).all()), "length-0 rows are zeros")
+    require(bool(torch.isfinite(o).all()), "attention finite")
+    err = (o - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    log(f"[attn check] pages={str(dtype)[6:]} T={t} KH={kh} R={r} D=128 "
+        f"ps=16 ({split_note(6, kh, t * r, bt.shape[1], 128)}): "
+        f"max_abs_err {err:.3e} rel {rel:.3e} (bar rel {TOL:.0e})")
+    require(rel <= TOL, f"paged_attention ({mode}) disagrees: rel {rel}")
+    return max(err, split_sweep(
+        o, _paged_at(q, kp, vp, lq, bt, ks, vs), ref, bt.shape[1],
+        f"attn pages={str(dtype)[6:]} T={t} KH={kh} R={r}"))
+
+
 def phase_attention_check():
     """Both modes; returns the worst max-abs error of (plain, int8)."""
-    from repro_torch.kernels import ops
     worst = {"plain": 0.0, "int8": 0.0}
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     for dtype in (torch.bfloat16, torch.float32, torch.int8):
         mode = "int8" if dtype == torch.int8 else "plain"
         for t in (1, 4):
-            # ragged staircase lengths; slot 3 is all-sentinel with
-            # length 0 and slot 4 has a real table row but length 0
-            base = torch.tensor([1, 37, 256 - t, 0, 0, 129])
-            lens = base[:, None] + torch.arange(t)[None, :]
-            lens[3:5] = 0
-            lens = lens.to(torch.int32)
-            q, kp, vp, lq, bt, ks, vs = _attn_case(6, t, lens, dtype, g)
-            bt[4, :2] = bt[1, :2]
-            o = ops.paged_decode_attention(q, kp, vp, lq, bt, ks, vs)
-            ref = ops.paged_decode_attention(q, kp, vp, lq, bt, ks, vs,
-                                             plain=True)
-            torch.cuda.synchronize()
-            require(bool((o[3:5] == 0).all()), "length-0 rows are zeros")
-            require(bool(torch.isfinite(o).all()), "attention finite")
-            err = (o - ref).abs().max().item()
-            rel = err / ref.abs().max().item()
-            worst[mode] = max(worst[mode], err)
-            log(f"[attn check] pages={str(dtype)[6:]} T={t} KH=32 D=128 "
-                f"ps=16 ({split_note(6, 32, t, bt.shape[1], 128)}): "
-                f"max_abs_err {err:.3e} rel {rel:.3e}")
-            require(rel <= TOL, f"paged_attention ({mode}) disagrees: "
-                                f"rel {rel}")
-            worst[mode] = max(worst[mode], split_sweep(
-                o, _paged_at(q, kp, vp, lq, bt, ks, vs), ref, bt.shape[1],
-                f"attn pages={str(dtype)[6:]} T={t}"))
+            worst[mode] = max(worst[mode], _attn_check(dtype, t, g))
     return worst
 
 
@@ -449,8 +480,6 @@ def phase_w4_check():
     bf16 and f32 x; then K = 48 (not a multiple of 64: the byte path of the
     CUDA cores), ragged N, and G = 128. Each case logs its path and split
     count, and a second launch must give the same bits."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.w4_matmul import plan
     worst = 0.0
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     cases = [(label, n, k, 16, (1, 4, 8, 64, 200))
@@ -462,43 +491,70 @@ def phase_w4_check():
         for t in ts:
             for dt in (torch.bfloat16, torch.float32):
                 x = torch.randn((t, k), generator=g, device="cuda").to(dt)
-                y = ops.w4_matmul(x, p["qw"], p["scale"], p["zero"],
-                                  group_size=gs)
-                again = ops.w4_matmul(x, p["qw"], p["scale"], p["zero"],
-                                      group_size=gs)
-                ref = ops.w4_matmul(x, p["qw"], p["scale"], p["zero"],
-                                    group_size=gs, plain=True)
-                torch.cuda.synchronize()
-                err = (y - ref).abs().max().item()
-                rel = err / ref.abs().max().item()
-                worst = max(worst, err)
-                path, splits = plan(x, p["qw"], p["scale"], p["zero"], gs)
-                log(f"[w4 check] {label} N={n} K={k} G={gs} T={t} "
-                    f"x={str(dt)[6:]} path={path} S={splits}: max_abs_err "
-                    f"{err:.3e} rel {rel:.3e}")
-                require(y.shape == (t, n) and torch.isfinite(y).all(),
-                        "w4_matmul output shape/finite")
-                require(rel <= TOL, f"w4_matmul disagrees: rel {rel}")
-                require(torch.equal(y, again), "w4_matmul repeat differs")
-                require(path == "tc" or label == "unaligned",
-                        "the G16/G128 shapes take the tensor cores")
+                worst = max(worst, _w4_case(x, p, gs, label,
+                                            tc=label != "unaligned"))
     return worst
 
 
-def _bound_ms(nbytes, flops, flop_rate=F32_FLOP_PER_S):
+def _w4_case(x, p, gs, label, tc=True):
+    """One ops.w4_matmul call against its plain version: finite, within
+    TOL, a repeat bit-identical, on the tensor cores where ``tc``.
+    Returns the max-abs error."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.w4_matmul import plan
+    t, n, k = x.shape[0], p["qw"].shape[0], x.shape[1]
+    args = (p["qw"], p["scale"], p["zero"])
+    y = ops.w4_matmul(x, *args, group_size=gs)
+    again = ops.w4_matmul(x, *args, group_size=gs)
+    ref = ops.w4_matmul(x, *args, group_size=gs, plain=True)
+    torch.cuda.synchronize()
+    err = (y - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    path, splits = plan(x, *args, gs)
+    log(f"[w4 check] {label} N={n} K={k} G={gs} T={t} x={str(x.dtype)[6:]} "
+        f"path={path} S={splits}: max_abs_err {err:.3e} rel {rel:.3e} (bar "
+        f"rel {TOL:.0e})")
+    require(y.shape == (t, n) and torch.isfinite(y).all(),
+            "w4_matmul output shape/finite")
+    require(rel <= TOL, f"w4_matmul disagrees: rel {rel}")
+    require(torch.equal(y, again), "w4_matmul repeat differs")
+    require(path == "tc" or not tc,
+            "the G16/G128 shapes take the tensor cores")
+    return err
+
+
+def _bound_ms(nbytes, flops, flop_rate=BF16_TC_FLOP_PER_S):
+    """The least time of a kernel on the card: the larger of its bytes
+    over the memory rate and its operations over ``flop_rate`` (the bf16
+    tensor cores' peak: every kernel here takes bf16 or int8 operands)."""
     return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / flop_rate)
 
 
-def w4_layer(timer, g, t):
+def _bound_by(nbytes, flops, flop_rate=BF16_TC_FLOP_PER_S):
+    return ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / flop_rate
+            else "operations")
+
+
+def _attn_bound(nbytes, flops):
+    """(bound, bound_by, the bound at the f32 rate) of an attention
+    kernel, which multiplies on the CUDA cores in f32: its bound counts
+    the tensor cores' rate, and the f32 one is shown beside it."""
+    return (_bound_ms(nbytes, flops), _bound_by(nbytes, flops),
+            _bound_ms(nbytes, flops, F32_FLOP_PER_S))
+
+
+def w4_layer(timer, g, t, shapes=None, per_layer=None):
     """One llama2-7b layer of w4_matmul (7 projections at G16, bf16 x with
-    ``t`` rows): kernel, plain, ``torch.matmul`` on the dequantized dense
-    bf16 W and the bound (its products are bf16 on the tensor cores),
-    summed over the layer."""
+    ``t`` rows; another model's layer by ``shapes`` and ``per_layer``):
+    kernel, plain, ``torch.matmul`` on the dequantized dense bf16 W and
+    the bound (its products are bf16 on the tensor cores), summed over
+    the layer."""
     from repro_torch.core.quant import QuantConfig, dequantize, unpack_int4
     from repro_torch.kernels import ops
     from repro_torch.kernels.w4_matmul import plan, w4_matmul_cuda
+    shapes, per_layer = shapes or SHAPES, per_layer or PER_LAYER
     w4 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    for label, (n, k) in SHAPES.items():
+    for label, (n, k) in shapes.items():
         p = _w4_packed(n, k, SEED + 4)
         args = (p["qw"], p["scale"], p["zero"])
         x = torch.randn((t, k), generator=g, device="cuda",
@@ -507,7 +563,7 @@ def w4_layer(timer, g, t):
         dense = dequantize(unpack_int4(p["qw"]), p["scale"], p["zero"],
                            QuantConfig(group_size=16), torch.bfloat16)
         nbytes = n * k // 2 + 8 * n * (k // 16) + t * k * 2 + t * n * 4
-        bound = _bound_ms(nbytes, 2 * t * n * k, BF16_TC_FLOP_PER_S)
+        bound = _bound_ms(nbytes, 2 * t * n * k)
         t_k = timer.ms(lambda: w4_matmul_cuda(x, *args, 16))
         t_p = timer.ms(lambda: ops.w4_matmul(x, *args, group_size=16,
                                              plain=True))
@@ -518,12 +574,13 @@ def w4_layer(timer, g, t):
             f"torch.matmul(dense bf16) {t_l * 1e3:.1f}us bound "
             f"{bound * 1e3:.2f}us ({nbytes / 1e6:.1f} MB) -> "
             f"{bound / t_k:.0%} of bound")
-        c = PER_LAYER[label]
+        c = per_layer[label]
         for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
                           (t_k, t_p, t_l, bound)):
             w4[key] += c * v
         del dense
-    log(f"[w4 time] one layer (7 projections, T={t}): kernel "
+    log(f"[w4 time] one layer ({sum(per_layer.values())} projections, "
+        f"T={t}): kernel "
         f"{w4['ms']:.4f}ms plain {w4['plain_ms']:.4f}ms matmul "
         f"{w4['library_ms']:.4f}ms bound {w4['bound_ms']:.4f}ms "
         f"({w4['bound_ms'] / w4['ms']:.0%} of bound)")
@@ -540,9 +597,10 @@ def w4_launch_floor(timer):
                                            p["zero"], 16), iters=100)
 
 
-def gemv_layer(timer, g, t, gs=16):
+def gemv_layer(timer, g, t, gs=16, shapes=None, per_layer=None):
     """One llama2-7b layer of gqsa_gemv (7 projections, bf16 x with ``t``
-    rows, group size ``gs``): kernel, plain, ``torch.matmul`` on the dense
+    rows, group size ``gs``; another model's layer by ``shapes`` and
+    ``per_layer``): kernel, plain, ``torch.matmul`` on the dense
     bf16 W and the bound (the larger of the payload, gs/2 + 12 bytes a
     kept group, x and y over 3.35 TB/s and the multiply-adds of the kept
     groups, bf16 x by exact 4-bit codes, over the tensor cores' 989
@@ -553,9 +611,10 @@ def gemv_layer(timer, g, t, gs=16):
     from repro_torch.kernels.gqsa_gemv import (gqsa_gemv_cuda,
                                                payload_bytes, plan)
     from repro_torch.kernels.build import sm_count
+    shapes, per_layer = shapes or SHAPES, per_layer or PER_LAYER
     gemv = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     by_bytes = by_ops = 0.0
-    for label, (n, k) in SHAPES.items():
+    for label, (n, k) in shapes.items():
         bsr = _packed(n, k, SEED + 4, gs)
         x = torch.randn((t, k), generator=g, device="cuda",
                         dtype=torch.bfloat16)
@@ -563,7 +622,7 @@ def gemv_layer(timer, g, t, gs=16):
         m = bsr.idx.shape[1]
         nbytes = n * m * payload_bytes(gs) + t * k * 2 + t * n * 4
         flops = 2 * t * n * m * gs
-        bound = _bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
+        bound = _bound_ms(nbytes, flops)
         t_k = timer.ms(lambda: gqsa_gemv_cuda(x, bsr))
         t_p = timer.ms(lambda: ops.gqsa_gemv(x, bsr, plain=True))
         t_l = timer.ms(lambda: torch.matmul(x, dense.T))
@@ -573,7 +632,7 @@ def gemv_layer(timer, g, t, gs=16):
             f"{t_k * 1e3:.1f}us plain {t_p * 1e3:.1f}us torch.matmul(dense "
             f"bf16) {t_l * 1e3:.1f}us bound {bound * 1e3:.2f}us "
             f"({nbytes / 1e6:.1f} MB) -> {bound / t_k:.0%} of bound")
-        c = PER_LAYER[label]
+        c = per_layer[label]
         for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
                           (t_k, t_p, t_l, bound)):
             gemv[key] += c * v
@@ -581,7 +640,8 @@ def gemv_layer(timer, g, t, gs=16):
         by_ops += c * flops / BF16_TC_FLOP_PER_S
         del dense
     gemv["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
-    log(f"[gemv time] one layer (7 projections, G={gs}, T={t}): kernel "
+    log(f"[gemv time] one layer ({sum(per_layer.values())} projections, "
+        f"G={gs}, T={t}): kernel "
         f"{gemv['ms']:.4f}ms plain {gemv['plain_ms']:.4f}ms matmul "
         f"{gemv['library_ms']:.4f}ms bound {gemv['bound_ms']:.4f}ms "
         f"({gemv['bound_ms'] / gemv['ms']:.0%} of bound)")
@@ -590,9 +650,6 @@ def gemv_layer(timer, g, t, gs=16):
 
 def phase_timing(timer):
     """Every kernel at the full-width decode shapes (4 slots)."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     b = 4
     out = {"gqsa_gemv": gemv_layer(timer, g, b)}
@@ -611,61 +668,77 @@ def phase_timing(timer):
                         ("paged_attention_int8", torch.int8)):
         for label, lens in (("serve", [20, 25, 31, 29]),
                             ("max_seq", [256, 256, 256, 256])):
-            lq = torch.tensor(lens, dtype=torch.int32)[:, None]
-            q, kp, vp, lq, bt, ks, vs = _attn_case(b, 1, lq, dtype, g)
-            q = q.to(torch.bfloat16)
-            tot = int(sum(lens))
-            if dtype == torch.int8:
-                kv_bytes = 2 * tot * 32 * (128 + 4)     # codes + scales
-            else:
-                kv_bytes = 2 * tot * 32 * 128 * 2
-            nbytes = kv_bytes + 2 * b * 32 * 128 * 4
-            bound = _bound_ms(nbytes, 4 * tot * 32 * 128)
-            smax = max(lens)
-
-            def gathered(pages, scales):
-                bti = bt.clamp(max=kp.shape[0] - 1).long()
-                v = pages[bti].float()
-                if scales is not None:
-                    v = v * scales[bti][..., None]
-                return v.reshape(b, -1, 32, 128)[:, :smax] \
-                    .permute(0, 2, 1, 3).to(torch.bfloat16).contiguous()
-
-            # library yardstick: SDPA on K/V gathered (and dequantized)
-            # contiguous beforehand
-            kk, vv = gathered(kp, ks), gathered(vp, vs)
-            mask = (torch.arange(smax, device="cuda")[None, :]
-                    < lq.to("cuda"))[:, None, None, :]
-            qs = q.permute(0, 2, 1, 3).contiguous()
-            # the kernel alone, on the operands the dispatcher prepares
-            lq2, live = ops.paged_query_prep(lq, bt, b, 1, kp.shape[1])
-            qh = q.permute(0, 2, 1, 3).float().contiguous()
-            t_k = timer.ms(lambda: paged_attention_cuda(
-                qh, kp, vp, lq2, bt, live, 1, ks, vs))
-            t_p = timer.ms(lambda: ops.paged_decode_attention(
-                q, kp, vp, lq, bt, ks, vs, plain=True))
-            t_l = timer.ms(lambda: F.scaled_dot_product_attention(
-                qs, kk, vv, attn_mask=mask))
-            log(f"[attn time] {label} lengths={lens} B=4 KH=32 D=128 "
-                f"{str(dtype)[6:]} pages "
-                f"({split_note(b, 32, 1, bt.shape[1], 128)}): kernel "
-                f"{t_k * 1e3:.1f}us plain "
-                f"{t_p * 1e3:.1f}us sdpa {t_l * 1e3:.1f}us bound "
-                f"{bound * 1e3:.2f}us ({nbytes / 1e6:.2f} MB) -> "
-                f"{bound / t_k:.0%} of bound")
+            row = attn_time(timer, g, dtype, label, lens)
             if mode not in out:
-                out[mode] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
-                                 bound_ms=bound)
+                out[mode] = row
     return out
 
 
-def check_model(params, full, label, tol_f32=LOGITS_TOL_F32, on_run=None):
+def attn_time(timer, g, dtype, label, lens, kh=32, r=1):
+    """One layer's decode attention (T = 1) at 4 slots of ``lens``, ``kh``
+    KV heads of ``r`` query heads, D=128, ``dtype`` pages: the kernel
+    alone on the dispatcher's operands, the plain version, SDPA on K/V
+    gathered (dequantized, repeated over the query heads) beforehand and
+    the bound (live K/V read once)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    b, d = len(lens), 128
+    lq = torch.tensor(lens, dtype=torch.int32)[:, None]
+    q, kp, vp, lq, bt, ks, vs = _attn_case(b, 1, lq, dtype, g, kh=kh, r=r)
+    q = q.to(torch.bfloat16)
+    tot = int(sum(lens))
+    if dtype == torch.int8:
+        kv_bytes = 2 * tot * kh * (d + 4)     # codes + scales
+    else:
+        kv_bytes = 2 * tot * kh * d * 2
+    nbytes = kv_bytes + 2 * b * kh * r * d * 4
+    bound, by, bound_f32 = _attn_bound(nbytes, 4 * tot * kh * r * d)
+    smax = max(lens)
+
+    def gathered(pages, scales):
+        bti = bt.clamp(max=kp.shape[0] - 1).long()
+        v = pages[bti].float()
+        if scales is not None:
+            v = v * scales[bti][..., None]
+        return v.reshape(b, -1, kh, d)[:, :smax].permute(0, 2, 1, 3) \
+            .repeat_interleave(r, dim=1).to(torch.bfloat16).contiguous()
+
+    # library yardstick: SDPA on K/V gathered (and dequantized) contiguous
+    # beforehand
+    kk, vv = gathered(kp, ks), gathered(vp, vs)
+    mask = (torch.arange(smax, device="cuda")[None, :]
+            < lq.to("cuda"))[:, None, None, :]
+    qs = q.permute(0, 2, 1, 3).contiguous()
+    # the kernel alone, on the operands the dispatcher prepares
+    lq2, live = ops.paged_query_prep(lq, bt, b, 1, kp.shape[1])
+    qh = q.reshape(b, kh, r, d).float().contiguous()
+    t_k = timer.ms(lambda: paged_attention_cuda(qh, kp, vp, lq2, bt, live,
+                                                1, ks, vs))
+    t_p = timer.ms(lambda: ops.paged_decode_attention(q, kp, vp, lq, bt, ks,
+                                                      vs, plain=True))
+    t_l = timer.ms(lambda: F.scaled_dot_product_attention(qs, kk, vv,
+                                                          attn_mask=mask))
+    log(f"[attn time] {label} lengths={lens} B={b} KH={kh} R={r} D=128 "
+        f"{str(dtype)[6:]} pages ({split_note(b, kh, r, bt.shape[1], d)}): "
+        f"kernel {t_k * 1e3:.1f}us plain {t_p * 1e3:.1f}us sdpa "
+        f"{t_l * 1e3:.1f}us bound {bound * 1e3:.2f}us by {by} (f32 rate "
+        f"{bound_f32 * 1e3:.2f}us; {nbytes / 1e6:.2f} MB) -> "
+        f"{bound / t_k:.0%} of bound")
+    return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound,
+                bound_by=by, bound_f32_ms=bound_f32)
+
+
+def check_model(params, full, label, tol_f32=LOGITS_TOL_F32, on_run=None,
+                tokens_equal=False):
     """Full-width prefill + 4 decode steps, kernels vs plain versions, in
     f32 compute (strict: the two differ only in f32 summation order; with
     the int8 pool, ``tol_f32`` allows for one-step code flips) and in bf16,
     the serving dtype (loose: a one-ulp bf16 rounding flip that the
     summation order decides is amplified by 32 random layers).
-    ``on_run(dtype, plain)`` is called before each of the four runs."""
+    ``on_run(dtype, plain)`` is called before each of the four runs.
+    ``tokens_equal``: the f32 runs' greedy tokens must be equal at every
+    step (not only where the top-2 margin is clear)."""
     import dataclasses
     from repro_torch.models import transformer as tf
     rng = np.random.default_rng(SEED)
@@ -708,6 +781,9 @@ def check_model(params, full, label, tol_f32=LOGITS_TOL_F32, on_run=None):
         for i, (a, p) in enumerate(zip(kern, plain)):
             compare_logits(a, p, tol, f"model {label} {dtype}",
                            "prefill" if i == 0 else f"decode {i}")
+            if tokens_equal and dtype == "float32":
+                require(torch.equal(a.argmax(-1), p.argmax(-1)),
+                        f"model {label} f32: greedy tokens differ")
         log(f"[model {label} {dtype}] kernel path prefill + 4 decode steps "
             f"{t_k:.2f}s wall (first calls, eager)")
     return toks_d, lens_d, bt, b * mp, ps
@@ -960,9 +1036,11 @@ def phase_serve(compress, arch="llama2_7b", group_size=16):
     """A main path: the serve CLI at full width (and depth), ``arch``
     under ``compress`` at ``group_size`` (``--group-size``; 16 is the
     CLI's default)."""
+    from repro_torch.configs.registry import get_config
     from repro_torch.launch import serve
-    moe = arch != "llama2_7b"
-    tag = f"deepseek-moe {compress}" if moe else compress
+    moe = get_config(arch).moe is not None
+    tag = {"llama2_7b": compress, "deepseek_moe_16b":
+           f"deepseek-moe {compress}"}.get(arch, f"{arch} {compress}")
     if group_size != 16:
         tag += f" g{group_size}"
     argv = ["--arch", arch, "--full", "--compress", compress, "--slots",
@@ -1002,10 +1080,10 @@ def phase_serve(compress, arch="llama2_7b", group_size=16):
     return launches
 
 
-def _tree_case(b, fanout, lvl, dtype, g, window=None, kh=32):
+def _tree_case(b, fanout, lvl, dtype, g, window=None, kh=32, r=1):
     """Full-width tree block: the verify block of ``fanout`` (lvl 0) or
     the draft's level-``lvl`` call, over the pool of :func:`_attn_case`
-    with ``kh`` KV heads. Slot bases are ragged; slot 3 is all-sentinel
+    with ``kh`` KV heads of ``r`` query heads. Slot bases are ragged; slot 3 is all-sentinel
     with length 0, slot 4 has a real table row but length 0. ``window``
     overrides the block's window (narrower than T)."""
     from repro_torch.engine.spec import TreeTemplate
@@ -1018,7 +1096,7 @@ def _tree_case(b, fanout, lvl, dtype, g, window=None, kh=32):
     lens = (base + win)[:, None].expand(b, t).contiguous()
     if b > 4:
         lens[3:5] = 0
-    q, kp, vp, lq, bt, ks, vs = _attn_case(b, t, lens, dtype, g, kh=kh)
+    q, kp, vp, lq, bt, ks, vs = _attn_case(b, t, lens, dtype, g, kh=kh, r=r)
     if b > 4:
         bt[4, :2] = bt[1, :2]
     anc = spec["anc"][None].expand(b, t).contiguous()
@@ -1040,41 +1118,46 @@ def phase_tree_check():
     ps=16): T in {2, 4, 5, 8, 29, 31}, windows equal to T, wider (the
     draft's level calls) and narrower; every page type. Returns the worst
     max-abs error."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
     worst = 0.0
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
     for dtype in (torch.bfloat16, torch.float32, torch.int8):
         for fanout, lvl, window, kh in TREE_CASES:
-            q, kp, vp, lq, bt, ks, vs, anc, base, win = _tree_case(
-                6, fanout, lvl, dtype, g, window, kh)
-            before = paged_attention_cuda.tree_launches
-            o = ops.paged_decode_attention(q, kp, vp, lq, bt, ks, vs,
-                                           anc=anc, anc_base=base,
-                                           anc_window=win)
-            ref = ops.paged_decode_attention(q, kp, vp, lq, bt, ks, vs,
-                                             anc=anc, anc_base=base,
-                                             anc_window=win, plain=True)
-            torch.cuda.synchronize()
-            require(paged_attention_cuda.tree_launches == before + 1,
-                    "one tree-mode launch")
-            require(bool((o[3:5] == 0).all()), "length-0 rows are zeros")
-            require(bool(torch.isfinite(o).all()), "tree attention finite")
-            err = (o - ref).abs().max().item()
-            rel = err / ref.abs().max().item()
-            worst = max(worst, err)
-            log(f"[tree check] pages={str(dtype)[6:]} fanout={fanout} "
-                f"{'verify' if lvl == 0 else f'level {lvl}'} T={q.shape[1]} "
-                f"window={win} KH={kh} D=128 ps=16: max_abs_err {err:.3e} "
-                f"rel {rel:.3e}")
-            require(rel <= TOL, f"paged_attention (tree) disagrees: rel {rel}")
-            worst = max(worst, split_sweep(
-                o, _paged_at(q, kp, vp, lq, bt, ks, vs, anc=anc,
-                             anc_base=base, anc_window=win),
-                ref, bt.shape[1], f"tree pages={str(dtype)[6:]} "
-                                  f"fanout={fanout} lvl={lvl} T={q.shape[1]} "
-                                  f"KH={kh}"))
+            worst = max(worst, _tree_check(dtype, fanout, lvl, window, kh,
+                                           g))
     return worst
+
+
+def _tree_check(dtype, fanout, lvl, window, kh, g, r=1):
+    """One tree block (:func:`_tree_case`) against its plain version, one
+    launch, with its split sweep; returns the worst max-abs error."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    q, kp, vp, lq, bt, ks, vs, anc, base, win = _tree_case(
+        6, fanout, lvl, dtype, g, window, kh, r)
+    before = paged_attention_cuda.tree_launches
+    o = ops.paged_decode_attention(q, kp, vp, lq, bt, ks, vs, anc=anc,
+                                   anc_base=base, anc_window=win)
+    ref = ops.paged_decode_attention(q, kp, vp, lq, bt, ks, vs, anc=anc,
+                                     anc_base=base, anc_window=win,
+                                     plain=True)
+    torch.cuda.synchronize()
+    require(paged_attention_cuda.tree_launches == before + 1,
+            "one tree-mode launch")
+    require(bool((o[3:5] == 0).all()), "length-0 rows are zeros")
+    require(bool(torch.isfinite(o).all()), "tree attention finite")
+    err = (o - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    t = q.shape[1]
+    log(f"[tree check] pages={str(dtype)[6:]} fanout={fanout} "
+        f"{'verify' if lvl == 0 else f'level {lvl}'} T={t} window={win} "
+        f"KH={kh} R={r} D=128 ps=16 ({t * r} rows a KV head): max_abs_err "
+        f"{err:.3e} rel {rel:.3e} (bar rel {TOL:.0e})")
+    require(rel <= TOL, f"paged_attention (tree) disagrees: rel {rel}")
+    return max(err, split_sweep(
+        o, _paged_at(q, kp, vp, lq, bt, ks, vs, anc=anc, anc_base=base,
+                     anc_window=win),
+        ref, bt.shape[1], f"tree pages={str(dtype)[6:]} fanout={fanout} "
+                          f"lvl={lvl} T={t} KH={kh} R={r}"))
 
 
 def phase_tree_timing(timer, kh=32):
@@ -1107,7 +1190,7 @@ def phase_tree_timing(timer, kh=32):
         tot = int(lens[:, 0].sum())
         nbytes = (2 * tot * kh * d * 2 + 2 * b * t * kh * d * 4
                   + b * t * 8 + b * 4)
-        bound = _bound_ms(nbytes, 4 * t * tot * kh * d)
+        bound, by, bound_f32 = _attn_bound(nbytes, 4 * t * tot * kh * d)
         o = ops.paged_decode_attention(q, kp, vp, lq, bt, anc=anc,
                                        anc_base=base, anc_window=win)
         ref = ops.paged_decode_attention(q, kp, vp, lq, bt, anc=anc,
@@ -1142,11 +1225,11 @@ def phase_tree_timing(timer, kh=32):
             f"({split_note(b, kh, t, bt.shape[1], d)}): kernel "
             f"{t_k * 1e3:.1f}us (T=16: {t_16 * 1e3:.1f}us) "
             f"plain {t_p * 1e3:.1f}us sdpa(mask) {t_l * 1e3:.1f}us bound "
-            f"{bound * 1e3:.2f}us ({nbytes / 1e6:.2f} MB) -> "
-            f"{bound / t_k:.0%} of bound; kernel vs plain max_abs_err "
-            f"{err:.3e} rel {rel:.3e}")
+            f"{bound * 1e3:.2f}us by {by} (f32 rate {bound_f32 * 1e3:.2f}"
+            f"us; {nbytes / 1e6:.2f} MB) -> {bound / t_k:.0%} of bound; "
+            f"kernel vs plain max_abs_err {err:.3e} rel {rel:.3e}")
         row = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound,
-                   max_abs_err=err)
+                   bound_by=by, bound_f32_ms=bound_f32, max_abs_err=err)
         if out is None:
             out = dict(row, lengths={})
         out["lengths"][label] = row
@@ -1194,20 +1277,26 @@ def _engine_run(cfg, params, draft=None, **spec):
     return prompts, [by[r] for r in rids], eng, read_launches(), wall
 
 
-def phase_spec_engine():
+SPEC_ENGINE_RUNS = [("chain K=4, draft w4s50", "w4s50", dict(spec_k=4)),
+                    ("tree (4,2,2), draft w4s50", "w4s50",
+                     dict(spec_fanout=(4, 2, 2))),
+                    ("tree (4,2,2), draft w4l25", "w4l25",
+                     dict(spec_fanout=(4, 2, 2)))]
+
+
+def phase_spec_engine(arch="llama2_7b", n_layers=None,
+                      runs=SPEC_ENGINE_RUNS):
     """Speculation against no speculation, full-width GQSA W4 S50 G16 in
-    f32 compute, in the engine (8 requests x 32 tokens, 4 slots)."""
+    f32 compute, in the engine (8 requests x 32 tokens, 4 slots): each of
+    ``runs`` on ``arch`` (at ``n_layers`` layers, default all)."""
     import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.core.gqs_layer import GQSAConfig
     from repro_torch.core.model_compress import draft_layers
     from repro_torch.models import transformer as tf
-    cfg = dataclasses.replace(get_config("llama2_7b"), dtype="float32")
-    runs = [("chain K=4, draft w4s50", "w4s50", dict(spec_k=4)),
-            ("tree (4,2,2), draft w4s50", "w4s50",
-             dict(spec_fanout=(4, 2, 2))),
-            ("tree (4,2,2), draft w4l25", "w4l25",
-             dict(spec_fanout=(4, 2, 2)))]
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     plain = None
     for label, profile, spec in runs:
         params, draft = tf.init_params_and_draft(
@@ -1256,18 +1345,18 @@ SPEC_SERVE = {
 }
 
 
-def phase_serve_spec(label, flags=None, counted=None):
+def phase_serve_spec(label, flags=None, counted=None, arch="llama2_7b"):
     """A speculative main path: the serve CLI at full width, bf16, GQSA
     target, 4 slots, 8 requests x 32 new tokens, with the spec flags
-    ``flags`` (default ``SPEC_SERVE[label]``). ``counted`` = (compress,
-    draft profile, spec): every kernel's launches are held to
+    ``flags`` (default ``SPEC_SERVE[label]``), on ``arch``. ``counted`` =
+    (compress, draft profile, spec): every kernel's launches are held to
     :func:`spec_launches`' count."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import serve
     flags = SPEC_SERVE[label] if flags is None else flags
-    argv = ["--full", "--compress", "gqsa", "--slots", "4", "--requests",
-            "8", "--max-new", "32", "--max-seq", "256", "--seed",
-            str(SEED)] + flags
+    argv = ["--arch", arch, "--full", "--compress", "gqsa", "--slots", "4",
+            "--requests", "8", "--max-new", "32", "--max-seq", "256",
+            "--seed", str(SEED)] + flags
     buf = io.StringIO()
     reset_launches()
     t0 = time.time()
@@ -1304,7 +1393,7 @@ def phase_serve_spec(label, flags=None, counted=None):
                 "the dense-W4 draft ran w4_matmul on the tensor cores")
     if counted is not None:
         compress, profile, spec = counted
-        check_spec_launches(label, get_config("llama2_7b"), compress,
+        check_spec_launches(label, get_config(arch), compress,
                             profile, spec, launches, res)
     return launches
 
@@ -1551,9 +1640,7 @@ def phase_mla_moe_timing(timer):
         tot = int(sum(lens))
         nbytes = tot * DS_D * 2 + b * DS_H * DS_D * 4 + b * DS_H * DS_R * 4
         flops = 2 * DS_H * tot * (DS_D + DS_R)
-        bound = _bound_ms(nbytes, flops)
-        by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOP_PER_S
-              else "operations")
+        bound, by, bound_f32 = _attn_bound(nbytes, flops)
         lq2, live = ops.paged_query_prep(lq, bt, b, 1, lat.shape[1])
         qh = q.reshape(b, 1, DS_H, DS_D).contiguous()
         lat4 = lat[:, :, None, :]
@@ -1577,12 +1664,13 @@ def phase_mla_moe_timing(timer):
             f"({split_note(b, 1, DS_H, bt.shape[1], DS_R)}): kernel "
             f"{t_k * 1e3:.1f}us plain "
             f"{t_p * 1e3:.1f}us sdpa {t_l * 1e3:.1f}us bound "
-            f"{bound * 1e3:.2f}us by {by} ({nbytes / 1e6:.2f} MB, "
-            f"{flops / 1e6:.1f} MFLOP) -> {bound / t_k:.0%} of bound")
+            f"{bound * 1e3:.2f}us by {by} (f32 rate {bound_f32 * 1e3:.2f}us; "
+            f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP) -> "
+            f"{bound / t_k:.0%} of bound")
         if "paged_attention_latent" not in out:
             out["paged_attention_latent"] = dict(
                 ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound,
-                bound_by=by)
+                bound_by=by, bound_f32_ms=bound_f32)
 
     out["gqsa_gemv_kv_a"] = kv_a_time(timer, g)
     ex = experts_layer(timer, g, "deepseek-v2", 160, DS_EXPERT_SHAPES, 4)
@@ -1614,13 +1702,12 @@ def kv_a_time(timer, g, t=4):
     m = bsr.idx.shape[1]
     nbytes = n * m * 20 + t * k * 2 + t * n * 4
     flops = 2 * t * n * m * 16
-    bound = _bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
+    bound = _bound_ms(nbytes, flops)
     t_k = timer.ms(lambda: gqsa_gemv_cuda(x, bsr))
     t_p = timer.ms(lambda: ops.gqsa_gemv(x, bsr, plain=True))
     t_l = timer.ms(lambda: torch.matmul(x, dense.T))
     p = plan(t, n, k, 16, 2, sm_count(0))
-    by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_TC_FLOP_PER_S
-          else "operations")
+    by = _bound_by(nbytes, flops)
     log(f"[gemv time] deepseek-v2 kv_a N={n} K={k} M={m} T={t} bf16 (tile "
         f"{p.tile}, {p.blocks} blocks): kernel {t_k * 1e3:.1f}us plain "
         f"{t_p * 1e3:.1f}us torch.matmul(dense bf16) {t_l * 1e3:.1f}us "
@@ -1664,7 +1751,7 @@ def experts_layer(timer, g, name, e, shapes, tokens, plain=True,
         nbytes = (n_occ * n * m * payload_bytes(gs) + n_rows * k * 2
                   + e * cap * n * 4)
         flops = 2 * n_rows * n * m * gs
-        bound = _bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
+        bound = _bound_ms(nbytes, flops)
         # library yardstick: torch.bmm over the occupied experts' dense
         # bf16 weights, gathered beforehand
         dense = torch.stack([to_dense(bsr.layer(int(i))).to(torch.bfloat16)
@@ -2006,7 +2093,7 @@ def w4_experts_layer(timer, g, name, e, shapes, tokens=4, plain=True,
         nbytes = (n_occ * (n * k // 2 + 8 * n * (k // 16)) + n_rows * k * 2
                   + e * cap * n * 4)
         flops = 2 * n_rows * n * k
-        bound = _bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
+        bound = _bound_ms(nbytes, flops)
         dense = torch.stack([dequantize(
             unpack_int4(p["qw"][i]), p["scale"][i], p["zero"][i],
             QuantConfig(group_size=16), torch.bfloat16) for i in occ])
@@ -2152,78 +2239,92 @@ def phase_kv_decode_check():
     D=128: every S of ``KV_DECODE_S`` at a shared length, per-slot lengths
     with a row of 0 (exact zeros), and the full length; one launch a
     call, repeats bit-identical. Returns the worst max-abs error."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.kv_decode_attention import (
-        kv_decode_attention_cuda, plan)
     g = torch.Generator(device="cuda").manual_seed(SEED + 18)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = 0.0
     for s in KV_DECODE_S:
-        case = _kv_cache_case(g, s)
-        p = plan(STATIC_B, 32, s, 1, 128, sms)
-        for label, ln in (("shared", s - 7),
-                          ("per-slot", [s, 0, s // 3, 5]),
-                          ("full", s)):
-            ln = torch.tensor(ln, dtype=torch.int32, device="cuda")
-            before = kv_decode_attention_cuda.launches
-            o = ops.kv_decode_attention(*case, ln)
-            require(kv_decode_attention_cuda.launches == before + 1,
-                    "one launch a call")
-            ref = ops.kv_decode_attention(*case, ln, plain=True)
-            torch.cuda.synchronize()
-            err = (o - ref).abs().max().item()
-            rel = err / ref.abs().max().item()
-            worst = max(worst, err)
-            require(bool(torch.isfinite(o).all()) and rel <= TOL,
-                    f"kv_decode_attention S={s} {label}: rel {rel}")
-            require(torch.equal(o, ops.kv_decode_attention(*case, ln)),
-                    "repeat not bit-identical")
-            if ln.ndim:
-                require(bool((o[1] == 0).all()), "length-0 row is zeros")
-            log(f"[kv_decode check] S={s} ({p.heads} heads a block, "
-                f"{p.stages} stages, {p.n_split} splits) {label} lengths: "
-                f"max_abs_err {err:.3e} (rel {rel:.2e}); repeat "
-                f"bit-identical")
-        del case
+        worst = max(worst, _kv_decode_check(g, s))
     torch.cuda.empty_cache()
     return worst
 
 
-def phase_kv_decode_timing(timer):
-    """(b) kv_decode_attention at B=4 KH=32 R=1 D=128, full lengths 4096
-    and 32768: the kernel alone on the dispatcher's operands, the plain
-    version, SDPA on K/V dequantized to bf16 beforehand (dequantization
-    not timed) and the bound (codes and scales read once)."""
+def _kv_decode_check(g, s, kh=32, r=1):
+    """kv_decode_attention against its plain version, B=4, ``kh`` KV heads
+    of ``r`` query rows, D=128, over S = ``s`` positions: a shared length,
+    per-slot lengths with a row of 0 (exact zeros) and the full length;
+    one launch a call, repeats bit-identical. Returns the worst max-abs
+    error."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.kv_decode_attention import (
+        kv_decode_attention_cuda, plan)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    case = _kv_cache_case(g, s, kh=kh, r=r)
+    p = plan(STATIC_B, kh, s, r, 128, sms)
+    worst = 0.0
+    for label, ln in (("shared", s - 7), ("per-slot", [s, 0, s // 3, 5]),
+                      ("full", s)):
+        ln = torch.tensor(ln, dtype=torch.int32, device="cuda")
+        before = kv_decode_attention_cuda.launches
+        o = ops.kv_decode_attention(*case, ln)
+        require(kv_decode_attention_cuda.launches == before + 1,
+                "one launch a call")
+        ref = ops.kv_decode_attention(*case, ln, plain=True)
+        torch.cuda.synchronize()
+        err = (o - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        worst = max(worst, err)
+        require(bool(torch.isfinite(o).all()) and rel <= TOL,
+                f"kv_decode_attention S={s} KH={kh} R={r} {label}: rel {rel}")
+        require(torch.equal(o, ops.kv_decode_attention(*case, ln)),
+                "repeat not bit-identical")
+        if ln.ndim:
+            require(bool((o[1] == 0).all()), "length-0 row is zeros")
+        log(f"[kv_decode check] S={s} KH={kh} R={r} ({p.heads} heads a "
+            f"block, {p.stages} stages, {p.n_split} splits, {p.smem} B of "
+            f"shared memory) {label} lengths: max_abs_err {err:.3e} (rel "
+            f"{rel:.2e}, bar {TOL:.0e}); repeat bit-identical")
+    return worst
+
+
+def phase_kv_decode_timing(timer, kh=32, r=1):
+    """(b) kv_decode_attention at B=4 KH=32 R=1 D=128 (or ``kh`` KV heads
+    of ``r`` query rows), full lengths 4096 and 32768: the kernel alone
+    on the dispatcher's operands, the plain version, SDPA on K/V
+    dequantized to bf16 beforehand (dequantization and the KV heads'
+    repeat over their query rows not timed) and the bound (codes and
+    scales read once; 4 R flops a code pair at the f32 rate)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.kv_decode_attention import (
         kv_decode_attention_cuda, plan)
     g = torch.Generator(device="cuda").manual_seed(SEED + 19)
-    b, kh, d = STATIC_B, 32, 128
+    b, d = STATIC_B, 128
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     for s in KV_DECODE_TIMED:
-        q, k8, ks, v8, vs = _kv_cache_case(g, s)
+        q, k8, ks, v8, vs = _kv_cache_case(g, s, kh=kh, r=r)
         ln = torch.tensor(s, dtype=torch.int32, device="cuda")
-        p = plan(b, kh, s, 1, d, sms)
+        p = plan(b, kh, s, r, d, sms)
         t_k = timer.ms(lambda: kv_decode_attention_cuda(q, k8, ks, v8, vs,
                                                         ln))
         t_p = timer.ms(lambda: ops.kv_decode_attention(
             q, k8, ks, v8, vs, ln, plain=True), iters=5)
         kk, vv = ((c.float() * sc[..., None]).to(torch.bfloat16)
-                  .permute(0, 2, 1, 3).contiguous()
-                  for c, sc in ((k8, ks), (v8, vs)))
-        qs = q.to(torch.bfloat16)
+                  .permute(0, 2, 1, 3).repeat_interleave(r, dim=1)
+                  .contiguous() for c, sc in ((k8, ks), (v8, vs)))
+        qs = q.reshape(b, kh * r, 1, d).to(torch.bfloat16)
         t_l = timer.ms(lambda: F.scaled_dot_product_attention(qs, kk, vv))
-        nbytes = 2 * b * s * kh * (d + 4) + 2 * b * kh * d * 4
-        bound = _bound_ms(nbytes, 4 * b * s * kh * d)
-        log(f"[kv_decode time] B=4 KH=32 R=1 D=128 S=length={s} "
+        nbytes = 2 * b * s * kh * (d + 4) + 2 * b * kh * r * d * 4
+        flops = 4 * b * s * kh * r * d
+        bound, by, bound_f32 = _attn_bound(nbytes, flops)
+        log(f"[kv_decode time] B=4 KH={kh} R={r} D=128 S=length={s} "
             f"({p.heads} heads a block, {p.stages} stages, {p.n_split} "
             f"splits): kernel {t_k * 1e3:.1f}us plain {t_p * 1e3:.1f}us "
-            f"sdpa {t_l * 1e3:.1f}us bound {bound * 1e3:.1f}us "
-            f"({nbytes / 1e9:.4f} GB) -> {bound / t_k:.0%} of bound")
+            f"sdpa {t_l * 1e3:.1f}us bound {bound * 1e3:.1f}us by {by} "
+            f"(f32 rate {bound_f32 * 1e3:.1f}us; {nbytes / 1e9:.4f} GB) -> "
+            f"{bound / t_k:.0%} of bound")
         out[str(s)] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
-                           bound_ms=bound)
+                           bound_ms=bound, bound_by=by,
+                           bound_f32_ms=bound_f32)
         del q, k8, ks, v8, vs, kk, vv, qs
         torch.cuda.empty_cache()
     return dict(out[str(KV_DECODE_TIMED[-1])], lengths=out)
@@ -2264,28 +2365,29 @@ def serve_static(params, cfg, cache, new, plain=False, feed=None,
     return fed + [tok], (logits if with_logits else None)
 
 
-def phase_static():
-    """Phase 18, the static-batch contiguous path at llama2-7b full width
-    and depth, GQSA W4 S50 G16 packed on the card: (c) the serve step
-    through the kernels against the plain versions on an int8 cache of
-    4096 positions, f32 and bf16; (d) f32 serve steps with an f32 cache
-    against the prefill step's forward at every prompt position; (e) the
-    main path: bf16, int8 cache of 32768 positions, 4 sequences each
-    served 32 greedy tokens after its teacher-forced prompt; (f) a
-    profiled decode step at 32704-32711 positions of synthetic history.
-    Returns the main path's launch counts."""
+def phase_static(arch="llama2_7b"):
+    """Phase 18, the static-batch contiguous path at full width and depth
+    of ``arch`` (llama2-7b; phase 21 runs starcoder2-3b), GQSA
+    W4 S50 G16 packed on the card: (c) the serve step through the kernels
+    against the plain versions on an int8 cache of 4096 positions, f32
+    and bf16; (d) f32 serve steps with an f32 cache against the prefill
+    step's forward at every prompt position; (e) the main path: bf16,
+    int8 cache of 32768 positions, 4 sequences each served 32 greedy
+    tokens after its teacher-forced prompt; (f) a profiled decode step at
+    32704-32711 positions of synthetic history. Returns the main path's
+    launch counts."""
     import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.core.gqs_layer import GQSAConfig
     from repro_torch.launch.steps import build_prefill_step, build_serve_step
     from repro_torch.models import transformer as tf
     from repro_torch.models.layers import quantize_kv
-    full = dataclasses.replace(get_config("llama2_7b"), kv_cache_dtype="int8")
+    full = dataclasses.replace(get_config(arch), kv_cache_dtype="int8")
     t0 = time.time()
     params = tf.init_params(SEED, full, "cuda", compress=GQSAConfig())
     torch.cuda.synchronize()
-    log(f"[static] llama2-7b full width, GQSA W4 S50 G16 packed on the card "
-        f"in {time.time() - t0:.1f}s")
+    log(f"[static] {full.name} full width, GQSA W4 S50 G16 packed on the "
+        f"card in {time.time() - t0:.1f}s")
 
     # (c) kernels vs plain, int8 cache
     for dtype, tol in (("float32", LOGITS_TOL_INT8_F32),
@@ -2300,7 +2402,8 @@ def phase_static():
                                      with_logits=True))
             del cache
         for i, (a, p) in enumerate(zip(runs[0][1], runs[1][1])):
-            compare_logits(a, p, tol, f"static int8 {dtype}", f"step {i}")
+            compare_logits(a, p, tol, f"static int8 {full.name} {dtype}",
+                           f"step {i}")
     # (d) the serve step against the prefill step's forward, f32
     cfg = dataclasses.replace(full, dtype="float32", kv_cache_dtype="bf16")
     toks = _static_prompts(cfg.vocab, SEED + 1)[0][:, :12]
@@ -2312,7 +2415,8 @@ def phase_static():
                                torch.tensor(i, device="cuda"))
         ptok, plogits = prefill(params, {"tokens": toks[:, :i + 1]})
         compare_logits(logits, plogits, LOGITS_TOL_F32,
-                       "static f32 serve vs forward", f"position {i}")
+                       f"static f32 serve vs forward {full.name}",
+                       f"position {i}")
     del cache
     torch.cuda.empty_cache()
 
@@ -2333,7 +2437,8 @@ def phase_static():
     launches = read_launches()
     n_steps = len(fed) - 1
     out = torch.cat(fed[1:], dim=1)
-    log(f"[static serve] {n_steps} steps of 4 sequences in {wall:.2f}s "
+    log(f"[static serve] {full.name}: {n_steps} steps of 4 sequences in "
+        f"{wall:.2f}s "
         f"({wall / n_steps * 1e3:.2f} ms a step, "
         f"{STATIC_B * 32 / wall:.1f} tok/s over the 32 greedy tokens a "
         f"sequence); peak memory "
@@ -2369,8 +2474,8 @@ def phase_static():
         step(params, cache, tok, pos)
         pos = pos + 1
 
-    profile_steps(one, 8, f"bf16 static int8 decode step at 4 x "
-                          f"{STATIC_FILL}-{STATIC_FILL + 16} positions "
+    profile_steps(one, 8, f"{full.name} bf16 static int8 decode step at 4 "
+                          f"x {STATIC_FILL}-{STATIC_FILL + 16} positions "
                           f"(synthetic history)")
     del cache, params
     return launches
@@ -2445,7 +2550,8 @@ def spec_launches(cfg, compress, profile, spec, rounds, prefills):
     """Each kernel's launches over a speculative run, from the layer
     structure: every call launches, in each layer it runs, one attention
     kernel and one a packed projection (four attention projections and
-    three of the MLP: a dense model's, or the fused shared experts', then
+    three of the MLP: a dense model's (two in a GELU MLP), or the fused
+    shared experts', then
     one expert-axis launch for each of the three routed projections); the
     target runs in every prefill and verify (all its layers), the draft
     (its leading layers) K times a chain round, or a root call and a
@@ -2461,10 +2567,11 @@ def spec_launches(cfg, compress, profile, spec, rounds, prefills):
     level_calls = len(spec["spec_fanout"]) - 1 if tree else 0
     plain_calls = 1 if tree else spec["spec_k"]
     want = {k: 0 for k in read_launches() if not k.endswith("_tc")}
+    n_proj = 6 if cfg.moe is None and cfg.mlp_type == "gelu" else 7
     for kind, calls, layers in ((target, prefills + rounds, lt),
                                 (drafter, (plain_calls + level_calls)
                                  * rounds, ld)):
-        want[kind] += 7 * layers * calls
+        want[kind] += n_proj * layers * calls
         if cfg.moe is not None:
             want[f"{kind}_experts"] += 3 * layers * calls
     tree_attn = (level_calls * ld + lt) * rounds if tree else 0
@@ -2719,10 +2826,7 @@ def latent_tree_time(timer, g):
         rows = sum(bases) + b * win
         nbytes = rows * DS_D * 2 + b * t * DS_H * (DS_D + DS_R) * 4
         flops = 2 * DS_H * (t * sum(bases) + b * seen_anc) * (DS_D + DS_R)
-        bound = _bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
-        bound_f32 = _bound_ms(nbytes, flops)
-        by = ("bytes" if nbytes / HBM_BYTES_PER_S
-              >= flops / BF16_TC_FLOP_PER_S else "operations")
+        bound, by, bound_f32 = _attn_bound(nbytes, flops)
         o = ops.paged_latent_attention(q, lat, lq, bt, v_rank=DS_R, anc=anc,
                                        anc_base=base, anc_window=win)
         ref = ops.paged_latent_attention(q, lat, lq, bt, v_rank=DS_R,
@@ -2921,6 +3025,237 @@ def group_size_rows(groups, launches, kind):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the reference's four other dense configs
+# ---------------------------------------------------------------------------
+
+DENSE_ARCHS = ("yi_34b", "starcoder2_3b", "qwen3_14b", "mistral_nemo_12b")
+DENSE_CHECK_LAYERS = 4              # (b)'s depth
+DENSE_GEMV_ROWS = (1, 4, 64, 116)   # (a)'s x rows of gqsa_gemv
+DENSE_W4_ROWS = (1, 4, 64)          # (a)'s x rows of w4_matmul
+KV_DECODE_ROWS = (4, 5, 7, 12, 16)  # (a)'s query rows a KV head
+DENSE_SPEC = ("starcoder2-3b tree serve",
+              ["--spec-tree", "4,2,2", "--draft-profile", "w4l25"],
+              ("gqsa", "w4l25", dict(spec_fanout=(4, 2, 2))))
+
+
+def dense_ratio(arch):
+    """(KV heads, query heads a KV head) of ``arch`` at full width."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    return cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+
+
+def dense_layer_shapes(arch):
+    """(shapes, per_layer) of one full-width layer's packed projections,
+    projections of one (N, K) under one label (yi-34b's wq and wo are
+    both 7168 x 7168; a GELU MLP has no wg)."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    d, hd, h, kh = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    mlp = [("wg", cfg.d_ff, d)] if cfg.mlp_type == "swiglu" else []
+    names = [("wq", h * hd, d), ("wk", kh * hd, d), ("wv", kh * hd, d),
+             ("wo", d, h * hd)] + mlp + [("wu", cfg.d_ff, d),
+                                         ("wd", d, cfg.d_ff)]
+    by = {}
+    for name, n, k in names:
+        by.setdefault((n, k), []).append(name)
+    shapes = {"/".join(v): nk for nk, v in by.items()}
+    return shapes, {label: len(label.split("/")) for label in shapes}
+
+
+def phase_dense_kernels():
+    """(a) Every kernel of the dense configs' paths against its plain
+    version at their shapes: paged attention's plain and int8 modes at
+    each config's (KV heads, R) with D=128, T in {1, 4}; the tree mode on
+    a (4, 2, 2) verify block (T=29) at yi-34b's and starcoder2-3b's;
+    kv_decode_attention at B=4, R in KV_DECODE_ROWS (KH 8; 2 at R = 12),
+    S=4096; gqsa_gemv on one yi-34b and one starcoder2-3b layer, T in
+    DENSE_GEMV_ROWS, bf16 and f32 x; w4_matmul on one starcoder2-3b
+    layer, T in DENSE_W4_ROWS. Returns the worst max-abs error a kernel."""
+    from repro_torch.kernels.gqsa_gemv import plan
+    from repro_torch.kernels.build import sm_count
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    worst = {k: 0.0 for k in ("gqsa_gemv", "paged_attention",
+                              "paged_attention_int8", "paged_attention_tree",
+                              "kv_decode_attention", "w4_matmul")}
+    for arch in DENSE_ARCHS:
+        kh, r = dense_ratio(arch)
+        for dtype in (torch.bfloat16, torch.float32, torch.int8):
+            mode = ("paged_attention_int8" if dtype == torch.int8
+                    else "paged_attention")
+            for t in (1, 4):
+                worst[mode] = max(worst[mode], _attn_check(dtype, t, g, kh,
+                                                           r))
+        if arch in ("yi_34b", "starcoder2_3b"):
+            for dtype in (torch.bfloat16, torch.float32, torch.int8):
+                worst["paged_attention_tree"] = max(
+                    worst["paged_attention_tree"],
+                    _tree_check(dtype, (4, 2, 2), 0, None, kh, g, r))
+    for r in KV_DECODE_ROWS:
+        worst["kv_decode_attention"] = max(
+            worst["kv_decode_attention"],
+            _kv_decode_check(g, 4096, kh=2 if r == 12 else 8, r=r))
+    torch.cuda.empty_cache()
+    for arch in ("yi_34b", "starcoder2_3b"):
+        shapes, _ = dense_layer_shapes(arch)
+        for label, (n, k) in shapes.items():
+            bsr = _packed(n, k, SEED)
+            for t in DENSE_GEMV_ROWS:
+                for dt in (torch.bfloat16, torch.float32):
+                    x = torch.randn((t, k), generator=g,
+                                    device="cuda").to(dt)
+                    tile = plan(t, n, k, 16, x.element_size(),
+                                sm_count(0)).tile
+                    worst["gqsa_gemv"] = max(worst["gqsa_gemv"], _gemv_case(
+                        x, bsr, f"{arch} {label} N={n} K={k} (tile {tile}, "
+                                f"bar rel {TOL:.0e})"))
+            del bsr
+    shapes, _ = dense_layer_shapes("starcoder2_3b")
+    for label, (n, k) in shapes.items():
+        p = _w4_packed(n, k, SEED)
+        for t in DENSE_W4_ROWS:
+            for dt in (torch.bfloat16, torch.float32):
+                x = torch.randn((t, k), generator=g, device="cuda").to(dt)
+                worst["w4_matmul"] = max(worst["w4_matmul"], _w4_case(
+                    x, p, 16, f"starcoder2-3b {label}"))
+    torch.cuda.empty_cache()
+    log(f"[dense kernels] worst max_abs_err a kernel: {worst}")
+    return worst
+
+
+def phase_dense_timing(timer):
+    """(e) Timings at the dense configs' shapes, each beside its plain
+    version, its library call and its bound: gqsa_gemv on one yi-34b and
+    one starcoder2-3b layer at T = 4 and 64 (against torch.matmul on the
+    dense bf16 W); the paged plain mode at yi-34b's (8, 7) and
+    starcoder2-3b's (2, 12), serve lengths (against SDPA); and
+    kv_decode_attention at starcoder2-3b's (2, 12) and at the kernel's
+    limit, (8, 16), over 4 x 4096 and 4 x 32768 (against SDPA on
+    dequantized K/V)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    out = {"gqsa_gemv": {}, "paged_attention": {}}
+    for arch in ("yi_34b", "starcoder2_3b"):
+        shapes, per_layer = dense_layer_shapes(arch)
+        out["gqsa_gemv"][arch] = {
+            str(t): gemv_layer(timer, g, t, shapes=shapes,
+                               per_layer=per_layer) for t in (4, 64)}
+        kh, r = dense_ratio(arch)
+        out["paged_attention"][arch] = attn_time(
+            timer, g, torch.bfloat16, "serve", [20, 25, 31, 29], kh, r)
+        torch.cuda.empty_cache()
+    out["kv_decode_attention"] = {
+        "starcoder2_3b": phase_kv_decode_timing(
+            timer, *dense_ratio("starcoder2_3b"))["lengths"],
+        "kh8_r16": phase_kv_decode_timing(timer, 8, 16)["lengths"]}
+    return out
+
+
+def dense_model_check(arch):
+    """(b) ``arch`` at full width and DENSE_CHECK_LAYERS layers, GQSA W4
+    S50 G16: prefill + 4 decode steps through the kernels against the
+    plain versions, f32 (greedy tokens equal at every step) and bf16.
+    Returns the inputs of :func:`profile_decode`."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_config(arch), n_layers=DENSE_CHECK_LAYERS)
+    params = tf.init_params(SEED, cfg, "cuda", compress=_gqsa())
+    out = check_model(params, cfg, f"{arch} {DENSE_CHECK_LAYERS} layers",
+                      tokens_equal=True)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_full_model(arch, inputs, int8_engine=False):
+    """``arch`` at full width and depth, GQSA W4 S50 G16 packed on the
+    card: a profiled bf16 decode step at 4 slots; with ``int8_engine``
+    the int8-pool main path (the engine serves 8 requests x 32 new
+    tokens). Returns that path's launches, or None."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tf
+    full = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = tf.init_params(SEED, full, "cuda", compress=_gqsa())
+    torch.cuda.synchronize()
+    log(f"[model] {arch} full width and depth ({full.n_layers} layers), "
+        f"GQSA W4 S50 G16 packed on the card in {time.time() - t0:.1f}s: "
+        f"{_packed_bytes(params['layers']) / 1e9:.3f} GB of packed linears; "
+        f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    profile_decode(params, full, *inputs,
+                   label=f"{arch} bf16 decode step at 4 slots")
+    launches = engine_int8(params, full) if int8_engine else None
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dense_configs(timer):
+    """Phase 21, the reference's four other dense configs (yi-34b,
+    starcoder2-3b, qwen3-14b, mistral-nemo-12b), bf16 unless marked, seed
+    0, 4 slots, 8 requests of 4-15 prompt and 32 new tokens, max_seq 256,
+    greedy: (a) :func:`phase_dense_kernels`; (b) :func:`dense_model_check`
+    for each; (c) the main paths at full width and depth: the serve CLI
+    under GQSA W4 S50 G16 for each, ``--compress w4`` on starcoder2-3b,
+    the int8 pool through the engine on qwen3-14b, the tree speculation
+    serve ``--spec-tree 4,2,2 --draft-profile w4l25`` on starcoder2-3b
+    (launches held to :func:`spec_launches`) and, in f32 at 4 layers, its
+    tokens against the same engine's without speculation; profiled
+    decode steps of yi-34b and starcoder2-3b; (d) starcoder2-3b's static
+    int8 contiguous path (:func:`phase_static`: 4 x 32768 positions, R =
+    12); (e) :func:`phase_dense_timing`. Every kernel must launch on each
+    config's path that runs it. Returns (errors, times, {path: launches},
+    {kernel: {arch: launches}})."""
+    t0 = time.time()
+    errs = phase_dense_kernels()
+    times = phase_dense_timing(timer)
+    torch.cuda.empty_cache()
+    launches = {}
+    for arch in DENSE_ARCHS:
+        inputs = dense_model_check(arch)
+        if arch in ("yi_34b", "starcoder2_3b"):
+            dense_full_model(arch, inputs)
+        elif arch == "qwen3_14b":
+            launches[f"{arch} int8-kv engine"] = dense_full_model(
+                arch, inputs, int8_engine=True)
+        launches[f"{arch} gqsa serve"] = phase_serve("gqsa", arch)
+        torch.cuda.empty_cache()
+    launches["starcoder2_3b w4 serve"] = phase_serve("w4", "starcoder2_3b")
+    torch.cuda.empty_cache()
+    label, flags, counted = DENSE_SPEC
+    phase_spec_engine("starcoder2_3b", DENSE_CHECK_LAYERS, [
+        (f"starcoder2-3b {DENSE_CHECK_LAYERS} layers: tree (4,2,2), draft "
+         f"w4l25", counted[1], counted[2])])
+    torch.cuda.empty_cache()
+    launches[label] = phase_serve_spec(label, flags, counted,
+                                       arch="starcoder2_3b")
+    torch.cuda.empty_cache()
+    launches["starcoder2_3b static int8 serve"] = phase_static(
+        "starcoder2_3b")
+    torch.cuda.empty_cache()
+    by_kernel = {
+        "gqsa_gemv": {a: launches[f"{a} gqsa serve"]["gqsa_gemv"]
+                      for a in DENSE_ARCHS},
+        "paged_attention": {a: launches[f"{a} gqsa serve"]["paged_attention"]
+                            for a in DENSE_ARCHS},
+        "w4_matmul": {"starcoder2_3b": launches["starcoder2_3b w4 serve"][
+            "w4_matmul"]},
+        "paged_attention_int8": {"qwen3_14b": launches[
+            "qwen3_14b int8-kv engine"]["paged_attention_int8"]},
+        "paged_attention_tree": {"starcoder2_3b": launches[label][
+            "paged_attention_tree"]},
+        "kv_decode_attention": {"starcoder2_3b": launches[
+            "starcoder2_3b static int8 serve"]["kv_decode_attention"]}}
+    log(f"[dense configs] launches by kernel and config: {by_kernel}")
+    require(all(n > 0 for per in by_kernel.values() for n in per.values()),
+            "every kernel launched on each dense config's path that runs "
+            "it")
+    log(f"[time] the four dense configs (phase 21) {time.time() - t0:.1f}s")
+    return errs, times, launches, by_kernel
+
+
 KERNELS = {
     "gqsa_gemv": dict(
         source="src/repro_torch/csrc/gqsa_gemv.cu",
@@ -3077,6 +3412,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     groups, group_launches = phase_group_sizes(timer)
     launches.update(group_launches)
+    torch.cuda.empty_cache()
+    dense_errs, dense_times, dense_launches, dense_by = phase_dense_configs(
+        timer)
+    launches.update(dense_launches)
     path_of = {"gqsa_gemv": "gqsa serve", "paged_attention": "gqsa serve",
                "w4_matmul": "w4 serve",
                "paged_attention_int8": "int8-kv engine",
@@ -3137,6 +3476,15 @@ def main() -> int:
     gemv["group_sizes"] = group_size_rows(groups, launches, "gemv")
     gx["group_sizes"] = group_size_rows(groups, launches, "experts")
     gemv["spec_g32_launches"] = launches[GROUP_SPEC_SERVE[0]]["gqsa_gemv"]
+    # phase 21: the four dense configs' launches on their paths (every
+    # kernel keeps the key; those off the dense paths hold {}), worst
+    # errors at their shapes and their timings
+    for k in kernels:
+        k["dense_configs"] = dense_by.get(k["name"], {})
+        if k["name"] in dense_errs:
+            k["dense_max_abs_err"] = dense_errs[k["name"]]
+        if k["name"] in dense_times:
+            k["dense_times"] = dense_times[k["name"]]
     require(all(k["launches"] > 0 for k in kernels),
             "every kernel launched on its main path")
     require(all(r["launches"] > 0 for k in (gemv, gx)

@@ -22,7 +22,8 @@ the plain version (30 launches):
     its own kernel, ``kv_decode_attention_cuda``, or in an older checkout
     the paged kernel's int8 mode over the cache viewed as pages of 64
     under identity tables), KH=32, R=1, D=128, full lengths 4096 and
-    32768 (a checkout without the route skips them); ``--heads 4,8
+    32768, and KH=8 at R=4 and R=7 (``CONTIGUOUS_HEADS``), 32768 (a
+    checkout without the route skips them); ``--heads 4,8
     --stages 2,3,4`` also times those heads a block and ring depths of
     the kernel (each at its plan's split count).
 ``--cases`` keeps the cases whose label starts with one of its comma
@@ -65,12 +66,19 @@ CASES = (("plain serve", "plain", None, SERVE, None),
          ("latent tree (2,2) ~256", "latent", (2, 2), [240, 235, 245, 230],
           None),
          ("contiguous 4096", "contiguous", None, [4096] * 4, None),
-         ("contiguous 32768", "contiguous", None, [32768] * 4, None))
+         ("contiguous 32768", "contiguous", None, [32768] * 4, None),
+         ("contiguous R=4 32768", "contiguous", None, [32768] * 4, None),
+         ("contiguous R=7 32768", "contiguous", None, [32768] * 4, None))
+# (KV heads, query rows a KV head) of a contiguous case: llama2-7b's, or
+# mistral-nemo-12b's and yi-34b's
+CONTIGUOUS_HEADS = {"contiguous R=4 32768": (8, 4),
+                    "contiguous R=7 32768": (8, 7)}
 
 
-def _contiguous(cs, lens, g):
+def _contiguous(cs, lens, g, kh=32, r=1):
     """The ``_operands`` of a contiguous int8 cache of max(lens)
-    positions, plus the count of columns ``--splits`` may take: through
+    positions (``kh`` KV heads of ``r`` query rows), plus the count of
+    columns ``--splits`` may take: through
     ``kv_decode_attention_cuda`` (32-position chunks), or, in a checkout
     without it, through the paged kernel's int8 mode over the cache
     viewed as pages of 64 (``ops.contiguous_pages``)."""
@@ -78,7 +86,7 @@ def _contiguous(cs, lens, g):
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     b = len(lens)
-    q, k8, ks, v8, vs = cs._kv_cache_case(g, max(lens), b)
+    q, k8, ks, v8, vs = cs._kv_cache_case(g, max(lens), b, kh, r)
     ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
     if hasattr(ops, "contiguous_pages"):
         from repro_torch.kernels.paged_attention import paged_attention_cuda
@@ -108,12 +116,13 @@ def _contiguous(cs, lens, g):
 
 
 def latent_bound(cs, fanout, lens):
-    """(us, "bytes" or "operations"): the least time of a latent case on
-    the card. Bytes: each live latent row once (bf16), q and the output
-    once (f32). Operations: a score and a value product (D + v_rank
-    multiply-adds) for every position a query row sees (the slot's base,
-    plus its ancestors in a tree block), at the f32 rate of
-    ``chip_smoke``."""
+    """(us, "bytes" or "operations", us at the f32 rate): the least time
+    of a latent case on the card. Bytes: each live latent row once
+    (bf16), q and the output once (f32). Operations: a score and a value
+    product (D + v_rank multiply-adds) for every position a query row
+    sees (the slot's base, plus its ancestors in a tree block), at the
+    bf16 tensor cores' rate of ``chip_smoke``, and beside it at its f32
+    rate, the rate of the kernel's CUDA-core products."""
     from repro_torch.engine.spec import TreeTemplate
     h, d, r = cs.DS_H, cs.DS_D, cs.DS_R
     if fanout is None:
@@ -124,11 +133,10 @@ def latent_bound(cs, fanout, lens):
         anc = sum(bin(int(a)).count("1") for a in spec["anc"])
         seen = t * sum(lens) + len(lens) * anc
         rows = sum(lens) + len(lens) * spec["window"]
-    by_bytes = (rows * d * 2 + len(lens) * t * h * (d + r) * 4) \
-        / cs.HBM_BYTES_PER_S
-    by_ops = 2 * h * seen * (d + r) / cs.F32_FLOP_PER_S
-    return (1e6 * max(by_bytes, by_ops),
-            "bytes" if by_bytes >= by_ops else "operations")
+    nbytes = rows * d * 2 + len(lens) * t * h * (d + r) * 4
+    flops = 2 * h * seen * (d + r)
+    return (1e3 * cs._bound_ms(nbytes, flops), cs._bound_by(nbytes, flops),
+            1e3 * cs._bound_ms(nbytes, flops, cs.F32_FLOP_PER_S))
 
 
 def _operands(cs, mode, fanout, lens, cols, g):
@@ -250,7 +258,8 @@ def time_cases(name: str, root: str, splits, prefixes=(),
         if mode == "contiguous":
             if not hasattr(cs, "_kv_cache_case"):
                 continue
-            call, ref, plain, sdpa, cols = _contiguous(cs, lens, g)
+            call, ref, plain, sdpa, cols = _contiguous(
+                cs, lens, g, *CONTIGUOUS_HEADS.get(label, (32, 1)))
         else:
             call, ref, plain, sdpa = _operands(cs, mode, fanout, lens, cols,
                                                g)
@@ -263,7 +272,8 @@ def time_cases(name: str, root: str, splits, prefixes=(),
         pl = timer.ms(plain, iters=30) * 1e3
         bound = ""
         if mode == "latent":
-            bound = "; bound %.2fus by %s" % latent_bound(cs, fanout, lens)
+            bound = ("; bound %.2fus by %s (f32 rate %.2fus)"
+                     % latent_bound(cs, fanout, lens))
         print(f"RESULT {name} {label} {us:.2f}us (rel {rel:.1e}; sdpa "
               f"{sd:.2f}us; plain {pl:.1f}us{bound})", flush=True)
         if mode == "contiguous" and sweep and not hasattr(
@@ -302,7 +312,7 @@ def main(argv=None) -> int:
         import chip_smoke as cs
         for label, mode, fanout, lens, _ in CASES:
             if mode == "latent":
-                print("BOUND %s %.2fus by %s"
+                print("BOUND %s %.2fus by %s (f32 rate %.2fus)"
                       % ((label,) + latent_bound(cs, fanout, lens)))
         return 0
     trees = dict(t.split("=", 1) for t in args.trees)

@@ -17,9 +17,15 @@
 // Scale 1/sqrt(D). A row of length 0 returns zeros.
 //
 // Bound on the card: bytes. Every live code and scale is read once, and a
-// code feeds R multiply-adds (R = 1 at llama2-7b width), far below the f32
-// flop/byte balance: the floor is 2 * B * length * KH * (D + 4) bytes over
-// 3.35 TB/s (4 x 32768 positions x 32 heads x 128: 1.107 GB, 330.6 us).
+// code pair (K and V) feeds 4 R flops (R = 1 at llama2-7b width): the
+// floor is 2 * B * length * KH * (D + 4) bytes over 3.35 TB/s (4 x 32768
+// positions x 32 heads x 128: 1.107 GB, 330.6 us). At R = 16 that is ~32
+// flops a byte, far under the bf16 tensor cores' ~295. This kernel
+// multiplies in f32 on the CUDA cores (67 TFLOP/s, 20 flops a byte), so
+// from R = 11 on its own multiply-adds outlast the bytes: at
+// starcoder2-3b's R = 12 (24 heads over 2 KV heads), 4 x 32768, 24.0 us
+// of f32 work against a 20.7 us bound. R runs up to 16; a template of
+// kRows = R rounded up to a power of two computes its padding rows too.
 //
 // Design, for that bound:
 //   Blocks. One block per (split, group of `heads` KV heads, slot), one
@@ -76,7 +82,7 @@ namespace {
 constexpr int kChunk = 32;          // positions a stage: a lane each
 constexpr int kRowPad = 16;         // bytes after a staged position's codes
 constexpr int kMaxHeads = 8;        // heads (warps) a block
-constexpr int kMaxRows = 8;         // query rows a KV head
+constexpr int kMaxRows = 16;        // query rows a KV head
 constexpr int kMaxStages = 8;
 constexpr int kCombineThreads = 128;
 constexpr int kDefaultSmem = 48 * 1024;  // dynamic smem without opting in
@@ -290,34 +296,39 @@ kv_decode_split_kernel(const Args a) {
     const int p0 = (c0 + i) * kChunk;
     const bool valid = p0 + lane < len;
 
-    // scores: lane = position, whole dot products over D; two partial
-    // sums a row (even and odd 16-code vectors) for two FMA chains
-    float sc[kRows][2];
+    // scores: lane = position, whole dot products over D; one sum a row,
+    // 16 codes read at a time (one conflict-free 16-byte load) and
+    // converted 8 at a time. Two sums a row and 16 codes converted at a
+    // time took the 16-row thread past 255 registers (80 bytes of spill
+    // stores at D = 128, against 24 this way), and were no faster at 1 row
+    float sc[kRows];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) sc[r][0] = sc[r][1] = 0.f;
+    for (int r = 0; r < kRows; ++r) sc[r] = 0.f;
     const unsigned char* krow = ks + lane * row + warp * kD;
 #pragma unroll
     for (int d0 = 0; d0 < kD; d0 += 16) {
       const uint4 u = *reinterpret_cast<const uint4*>(krow + d0);
-      float kf[16];
-      codes4(u.x, kf);
-      codes4(u.y, kf + 4);
-      codes4(u.z, kf + 8);
-      codes4(u.w, kf + 12);
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4* qv =
-            reinterpret_cast<const float4*>(qw + min(r, R - 1) * kD + d0);
-        float x = sc[r][(d0 / 16) & 1];
+      for (int h = 0; h < 16; h += 8) {
+        float kf[8];
+        codes4(w[h / 4], kf);
+        codes4(w[h / 4 + 1], kf + 4);
 #pragma unroll
-        for (int e4 = 0; e4 < 4; ++e4) {
-          const float4 qq = qv[e4];
-          x = fmaf(qq.x, kf[4 * e4], x);
-          x = fmaf(qq.y, kf[4 * e4 + 1], x);
-          x = fmaf(qq.z, kf[4 * e4 + 2], x);
-          x = fmaf(qq.w, kf[4 * e4 + 3], x);
+        for (int r = 0; r < kRows; ++r) {
+          const float4* qv = reinterpret_cast<const float4*>(
+              qw + min(r, R - 1) * kD + d0 + h);
+          float x = sc[r];
+#pragma unroll
+          for (int e4 = 0; e4 < 2; ++e4) {
+            const float4 qq = qv[e4];
+            x = fmaf(qq.x, kf[4 * e4], x);
+            x = fmaf(qq.y, kf[4 * e4 + 1], x);
+            x = fmaf(qq.z, kf[4 * e4 + 2], x);
+            x = fmaf(qq.w, kf[4 * e4 + 3], x);
+          }
+          sc[r] = x;
         }
-        sc[r][(d0 / 16) & 1] = x;
       }
     }
 
@@ -327,7 +338,7 @@ kv_decode_split_kernel(const Args a) {
     const float vmul = vss[lane * heads + warp];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const float s = valid ? (sc[r][0] + sc[r][1]) * kmul : -INFINITY;
+      const float s = valid ? sc[r] * kmul : -INFINITY;
       float mx = s;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -473,7 +484,7 @@ int launch_d(const Args& a, int D, size_t smem, cudaStream_t s) {
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched; 1,
 // cudaErrorInvalidValue: arguments the kernel does not take). D in {16,
-// 64, 128} (the port's head dims); 1 <= R <= 8; heads in {1, 2, 4, 8}
+// 64, 128} (the port's head dims); 1 <= R <= 16; heads in {1, 2, 4, 8}
 // dividing KH; 2 <= n_stages <= 8; `smem` the block's shared memory as smem_bytes counts it
 // (kernels/kv_decode_attention.py:smem_bytes); len_bytes 4 (int32) or 8
 // (int64), len_stride 0 (one length) or 1 ([B]); `workspace` of
@@ -526,6 +537,7 @@ extern "C" int kv_decode_attention_launch(
     case 1: return launch_d<1>(a, D, sm, s);
     case 2: return launch_d<2>(a, D, sm, s);
     case 4: return launch_d<4>(a, D, sm, s);
-    default: return launch_d<8>(a, D, sm, s);
+    case 8: return launch_d<8>(a, D, sm, s);
+    default: return launch_d<16>(a, D, sm, s);
   }
 }

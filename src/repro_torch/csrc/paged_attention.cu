@@ -28,11 +28,11 @@
 // Scale 1/sqrt(D). A row whose length is 0 returns exact zeros.
 //
 // Bound on the card: bytes. Each live K/V element is read once and used
-// for 2*TR flops per operand, far below the f32 flop/byte balance, so the
-// floor is the live K/V bytes (int8: codes plus scales) over 3.35 TB/s.
-// A tree verify of T = 29 rows does 29x the operations on the same bytes
-// and the latent mode serves 128 rows from every row it reads: both are
-// bound by f32 operations instead.
+// for 2*TR flops per operand, below the bf16 tensor cores' flop/byte
+// balance, so the floor is the live K/V bytes (int8: codes plus scales)
+// over 3.35 TB/s. A tree verify of T = 29 rows does 29x the operations on
+// the same bytes and the latent mode serves 128 rows from every row it
+// reads: there this kernel's f32 products outlast the bytes.
 //
 // One page walk, paged_attention_split_kernel, runs every mode:
 //   Split. The grid is (split x row group, KV head, slot). Split s of S

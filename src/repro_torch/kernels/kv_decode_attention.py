@@ -10,7 +10,10 @@ in every layer.
 
 Bound on the H100: bytes. Each live code and scale is read once; the
 floor is 2 * B * length * KH * (D + 4) bytes over 3.35 TB/s (4 slots x
-32768 positions x 32 heads of 128: 330.6 us).
+32768 positions x 32 heads of 128: 330.6 us). Each code pair feeds 4 R
+flops, under the bf16 tensor cores' balance at every R up to 16; the
+kernel's f32 multiply-adds on the CUDA cores outlast the bytes from R =
+11 on (starcoder2-3b: 24 heads over 2 KV heads, R = 12).
 
 Design (details in the CUDA source): one block per (split, group of
 ``heads`` KV heads, slot), a warp per head, lanes over the 32 positions
@@ -36,7 +39,7 @@ from repro_torch.kernels.build import load, sm_count
 CHUNK = 32           # positions a stage (a lane each)
 ROW_PAD = 16         # bytes after a staged position's codes
 HEADS = 8            # KV heads a block, at most (a warp each)
-MAX_ROWS = 8         # query rows a KV head
+MAX_ROWS = 16        # query rows a KV head
 HEAD_DIMS = (16, 64, 128)  # the port's: reduced configs, tests, full
 STAGES = 3           # ring stages
 MAX_STAGES = 8
@@ -67,22 +70,30 @@ def plan(b: int, khn: int, s: int, r: int, d: int, sms: int,
          heads: Optional[int] = None, stages: Optional[int] = None) -> Plan:
     """Heads a block (the largest power of two up to ``HEADS`` that
     divides KH, or ``heads``), ring stages (``STAGES`` or ``stages``,
-    fewer if the block would not fit) and the split count, from shapes
-    and the SM count alone: the (slot, head group) blocks times the
-    splits come to at most ``SPLIT_WAVES`` x the blocks the card holds at
-    once by shared memory, and a split has at least one chunk of the
-    cache's S positions. At 4 slots x 32 KV heads of 128, R = 1, on 132
-    SMs: 8 heads, 3 stages (210,944 bytes, one block an SM), 16 splits,
-    256 blocks."""
+    fewer if the block would not fit; if 2 stages still do not fit, half
+    the heads, unless ``heads`` was given) and the split count, from
+    shapes and the SM count alone: the (slot, head group) blocks times
+    the splits come to at most ``SPLIT_WAVES`` x the blocks the card
+    holds at once by shared memory, and a split has at least one chunk of
+    the cache's S positions. At 4 slots x 32 KV heads of 128, R = 1, on
+    132 SMs: 8 heads, 3 stages (210,944 bytes, one block an SM), 16
+    splits, 256 blocks. At R = 16 with 8 KV heads: 8 heads, 2 stages
+    (219,136 bytes)."""
+    fixed = heads is not None
     if heads is None:
         heads = HEADS
         while khn % heads:
             heads //= 2
-    stages = STAGES if stages is None else stages
-    smem = smem_bytes(heads, r, d, stages)
-    while smem > SMEM_LIMIT and stages > 2:
-        stages -= 1
+    depth = STAGES if stages is None else stages
+    while True:
+        stages = depth
         smem = smem_bytes(heads, r, d, stages)
+        while smem > SMEM_LIMIT and stages > 2:
+            stages -= 1
+            smem = smem_bytes(heads, r, d, stages)
+        if smem <= SMEM_LIMIT or fixed or heads == 1:
+            break
+        heads //= 2
     per_sm = max(1, SMEM_PER_SM // (smem + 1024))
     groups = b * (khn // heads)
     want = SPLIT_WAVES * sms * per_sm

@@ -13,11 +13,13 @@ level and verify, and in latent mode (``v_pages=None``: the MLA latent
 pool, one KV head of D = 576 whose value is its leading ``v_rank`` = 512
 dims), which every DeepSeek-V2 decode step reaches in every layer.
 
-Bound on the H100: bytes in the plain, int8 and tree modes. Each live K/V
-element is read once and used for two f32 multiply-adds per query row;
-the floor is the live K/V bytes (int8: codes plus scales) over 3.35 TB/s.
-The latent mode is bound by operations at long lengths: each 1152-byte
-bf16 row serves all T*H = 128 query rows (~0.28 MFLOP per row).
+Bound on the H100: bytes in every mode. Each live K/V element is read
+once and used for two multiply-adds per query row; the floor is the live
+K/V bytes (int8: codes plus scales) over 3.35 TB/s, under the bf16
+tensor cores' balance in every mode. The latent mode (each 1152-byte bf16
+row serves all T*H = 128 query rows, ~0.28 MFLOP a row) and the tree
+verify do so many operations a byte that this kernel's f32 products on
+the CUDA cores outlast the bytes at long lengths.
 
 Design, every mode: the page walk is split across blocks. Split s of S
 takes each slot's live pages s, s+S, ...; a block of up to

@@ -84,10 +84,14 @@ def _layer_weights(cfg) -> List[Tuple[Tuple[str, ...], Tuple[int, ...],
 
 
 def _layer_norms(cfg) -> Dict[Tuple[str, ...], int]:
-    """Per-layer norm weights (ones) beside ln1 / ln2."""
+    """Per-layer norm weights (ones) beside ln1 / ln2: MLA's latent norms,
+    or ``qk_norm``'s per-head norms of q and k (the reference's
+    ``attn_init``)."""
     if cfg.family == "mla_moe":
         return {("attn", "q_norm"): cfg.mla.q_lora_rank,
                 ("attn", "kv_norm"): cfg.mla.kv_lora_rank}
+    if cfg.qk_norm:
+        return {("attn", "q_norm"): cfg.hd, ("attn", "k_norm"): cfg.hd}
     return {}
 
 
@@ -146,11 +150,10 @@ def _draw(seed: int, cfg, device, targets) -> List[Dict]:
     """One draw of the weights, packed into one tree per ``(compression
     or None, layer count)`` of ``targets``; every tree holds the leading
     layers of the same draw and the same embedding and head tensors."""
-    if cfg.family not in ("dense", "moe", "mla_moe") or cfg.qk_norm \
-            or cfg.tie_embeddings:
+    if cfg.family not in ("dense", "moe", "mla_moe") or cfg.tie_embeddings:
         raise NotImplementedError(
-            f"init for family {cfg.family!r} (qk_norm={cfg.qk_norm}, "
-            f"tie_embeddings={cfg.tie_embeddings}) is not yet ported")
+            f"init for family {cfg.family!r} (tie_embeddings="
+            f"{cfg.tie_embeddings}) is not yet ported (ROADMAP A.7.3, A.8)")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)

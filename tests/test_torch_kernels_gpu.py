@@ -61,6 +61,26 @@ def test_gqsa_gemv_kernel_matches_plain(cuda, n, k, dtype):
         _close(y, ops.gqsa_gemv(x, bsr, plain=True))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gqsa_gemv_kernel_at_yi_34b_wd(cuda, dtype):
+    """yi-34b's wd (N = 7168, K = 20480), the widest K of a served config:
+    8 bf16 rows (4 f32) do not fit a block, so the tile stops at 4 (2);
+    one launch a call at every row count."""
+    from repro_torch.kernels.gqsa_gemv import plan
+    n, k = 7168, 20480
+    bsr = pack_linear(torch.randn((n, k), generator=cuda, device="cuda")
+                      / k ** 0.5, GQSAConfig())
+    top = 4 if dtype == torch.bfloat16 else 2
+    for b in GEMV_ROWS:
+        x = torch.randn((b, k), generator=cuda, device="cuda").to(dtype)
+        tile = plan(b, n, k, 16, x.element_size(), 132).tile
+        assert tile == min(top, 1 << (b - 1).bit_length())
+        before = gqsa_gemv_cuda.launches
+        y = ops.gqsa_gemv(x, bsr)
+        assert gqsa_gemv_cuda.launches - before == 1
+        _close(y, ops.gqsa_gemv(x, bsr, plain=True))
+
+
 def test_gqsa_gemv_kernel_ragged_rows(cuda):
     """-1 padding slots, an empty row and M = 17 (a ragged last lane
     trip), bf16 and f32 x at every row count."""
@@ -256,7 +276,8 @@ def _attn_case(cuda, t, kh, r, d, dtype):
 
 @pytest.mark.parametrize("t", [1, 4])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("kh,r,d", [(32, 1, 128), (4, 2, 64)])
+@pytest.mark.parametrize("kh,r,d", [(32, 1, 128), (4, 2, 64), (8, 7, 128),
+                                    (2, 12, 128)])
 def test_paged_attention_kernel_matches_plain(cuda, t, dtype, kh, r, d):
     q, kp, vp, lens, bt = _attn_case(cuda, t, kh, r, d, dtype)
     before = paged_attention_cuda.launches
@@ -268,7 +289,8 @@ def test_paged_attention_kernel_matches_plain(cuda, t, dtype, kh, r, d):
 
 
 @pytest.mark.parametrize("t", [1, 4])
-@pytest.mark.parametrize("kh,r,d", [(32, 1, 128), (4, 2, 64)])
+@pytest.mark.parametrize("kh,r,d", [(32, 1, 128), (4, 2, 64), (8, 7, 128),
+                                    (2, 12, 128)])
 def test_paged_attention_kernel_int8_matches_plain(cuda, t, kh, r, d):
     """int8 mode: random codes with positive per-token scales."""
     q, kp, vp, lens, bt = _attn_case(cuda, t, kh, r, d, torch.int8)
@@ -305,7 +327,8 @@ def test_paged_attention_kernel_rows_above_one_group(cuda, t, dtype):
                                       (5, 13), (13, 5), (4, 0)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                    torch.int8])
-@pytest.mark.parametrize("kh,r,d", [(32, 1, 128), (4, 2, 64)])
+@pytest.mark.parametrize("kh,r,d", [(32, 1, 128), (4, 2, 64), (8, 7, 128),
+                                    (2, 12, 128)])
 def test_paged_attention_kernel_tree_matches_plain(cuda, t, window, dtype,
                                                    kh, r, d):
     """Tree mode: random ancestor bitmaps over a fed window equal to T, as
@@ -1317,6 +1340,44 @@ def test_kv_decode_attention_kernel_matches_plain(cuda, s, r, d):
         assert torch.equal(o, ops.kv_decode_attention(q, *cache, ln))
         if ln.ndim:
             assert (o[1] == 0).all()
+
+
+@pytest.mark.parametrize("kh,r,s", [(8, 5, 4096), (8, 7, 4096), (2, 12, 4096),
+                                    (8, 16, 4096), (2, 12, 1000),
+                                    (8, 16, 1000)])
+def test_kv_decode_attention_kernel_at_query_rows(cuda, kh, r, s):
+    """The kernel past 8 query rows a KV head (the 16-row template; R = 5
+    and 7 on the 8-row one) at D=128, B=4: qwen3-14b's (8, 5),
+    yi-34b's (8, 7), starcoder2-3b's (2, 12) and the limit (8, 16); a
+    shared length, per-slot lengths with a row of 0 and the full length;
+    one launch a call, repeats bit-identical."""
+    from repro_torch.kernels.kv_decode_attention import plan
+    b = 4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = plan(b, kh, s, r, 128, sms)
+    assert p.heads == min(kh, 8) and p.smem <= 232448
+    q = torch.randn((b, kh, r, 128), generator=cuda, device="cuda")
+    cache = _kv_cache(cuda, b, s, kh=kh)
+    for ln in (s - 7, [s, 0, s // 3, 5], s):
+        ln = torch.tensor(ln, dtype=torch.int32, device="cuda")
+        before = kv_decode_attention_cuda.launches
+        o = ops.kv_decode_attention(q, *cache, ln)
+        assert kv_decode_attention_cuda.launches == before + 1
+        _close(o, ops.kv_decode_attention(q, *cache, ln, plain=True))
+        assert torch.equal(o, ops.kv_decode_attention(q, *cache, ln))
+        if ln.ndim:
+            assert (o[1] == 0).all()
+
+
+def test_kv_decode_attention_kernel_refuses_17_rows(cuda):
+    """R = 17 raises NotImplementedError naming the limit, before any
+    launch; nothing goes to the plain version."""
+    q = torch.randn((2, 2, 17, 128), generator=cuda, device="cuda")
+    cache = _kv_cache(cuda, 2, 64, kh=2)
+    before = kv_decode_attention_cuda.launches
+    with pytest.raises(NotImplementedError, match="R <= 16"):
+        ops.kv_decode_attention(q, *cache, torch.tensor(64, device="cuda"))
+    assert kv_decode_attention_cuda.launches == before
 
 
 @pytest.mark.parametrize("heads,stages,n_split", [(8, 3, None), (4, 3, None),
