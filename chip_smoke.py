@@ -121,21 +121,25 @@ Phases (any failure exits non-zero before the result line is printed):
      axes at verify capacities (deepseek-moe-16b C = 2 and 13,
      DeepSeek-V2 C = 5) with the buffer rows of a verify dispatch
      recorded on the served paths of (b);
- 20. gqsa_gemv at group sizes 8 and 32 (phases 3-19 run at 16, the
-     paper's): (a) against its plain version as phase 3 holds it (the
-     llama2-7b shapes and a ragged packing, T in GEMV_ROWS, bf16 and f32
-     x, one launch a call, repeats bit-identical); (b) its expert axis as
-     phase 13 holds it, at the DeepSeek-V2 and deepseek-moe-16b expert
-     shapes, C in {1, 5, 13, 30}, with and without ``rows``, NaN-poisoned
-     idle experts; (c) a llama2-7b layer at T = 4, 64 and 116 and a
-     deepseek-moe-16b expert layer at C = 1 timed beside the plain
-     version, the library call and the bound; (d) llama2-7b at full
-     width and depth, GQSA W4 S50 at g: prefill + 4 decode steps through
-     the kernels against the plain versions, f32 and bf16; (e) the serve
-     CLI with ``--compress gqsa --group-size {8, 32}`` on llama2-7b and
-     deepseek-moe-16b at full width and depth, and ``--group-size 32
-     --spec 4 --draft-profile w4s75`` on llama2-7b, its launches held to
-     the count its rounds, prefills and layers give;
+ 20. gqsa_gemv at group sizes 8, 32, 64 and 128 (phases 3-19 run at 16,
+     the paper's; above 32 a kept group is g / 32 parts of 32 codes): (a)
+     against its plain version as phase 3 holds it (the llama2-7b shapes
+     and a ragged packing, T in GEMV_ROWS, bf16 and f32 x, one launch a
+     call, repeats bit-identical; at 128 also DeepSeek-V2's kv_a); (b)
+     its expert axis as phase 13 holds it, at the DeepSeek-V2 and
+     deepseek-moe-16b expert shapes, C in {1, 5, 13, 30}, with and
+     without ``rows``, NaN-poisoned idle experts; (c) a llama2-7b layer
+     at T = 4, 64 and 116 and a deepseek-moe-16b expert layer at C = 1
+     (at 128 also kv_a at T = 4) timed beside the plain version, the
+     library call and the bound; (d) llama2-7b at full width and depth,
+     GQSA W4 S50 at g: prefill + 4 decode steps through the kernels
+     against the plain versions, f32 (greedy tokens equal) and bf16; (e)
+     the serve CLI with ``--compress gqsa --group-size g`` on llama2-7b
+     and deepseek-moe-16b at full width and depth, ``--group-size {32,
+     128} --spec 4 --draft-profile w4s75`` on llama2-7b, its launches
+     held to the count its rounds, prefills and layers give, and
+     ``--compress w4 --group-size 128`` on llama2-7b (the dense W4 G128
+     baseline, on the tensor cores);
  21. the reference's four other dense configs, yi-34b (56 heads over 8
      KV heads: R = 7), starcoder2-3b (GELU MLP, R = 12), qwen3-14b
      (qk_norm, R = 5) and mistral-nemo-12b (heads x head_dim != d_model,
@@ -1686,30 +1690,31 @@ def phase_mla_moe_timing(timer):
     return out
 
 
-def kv_a_time(timer, g, t=4):
+def kv_a_time(timer, g, t=4, gs=16):
     """Single-matrix gqsa_gemv at DeepSeek-V2's kv_a projection (N = 576 =
-    kv_lora_rank 512 + rope 64, K = 5120), T = 4 decode rows, bf16 x:
-    kernel, plain, ``torch.matmul`` on the dense bf16 W and the bound, as
-    :func:`gemv_layer` counts it."""
+    kv_lora_rank 512 + rope 64, K = 5120), T = 4 decode rows, bf16 x, at
+    group size ``gs``: kernel, plain, ``torch.matmul`` on the dense bf16 W
+    and the bound, as :func:`gemv_layer` counts it."""
     from repro_torch.core.bsr import to_dense
     from repro_torch.kernels import ops
     from repro_torch.kernels.build import sm_count
-    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_cuda, plan
+    from repro_torch.kernels.gqsa_gemv import (gqsa_gemv_cuda,
+                                               payload_bytes, plan)
     n, k = DS_KV_A
-    bsr = _packed(n, k, SEED + 17)
+    bsr = _packed(n, k, SEED + 17, gs)
     x = torch.randn((t, k), generator=g, device="cuda", dtype=torch.bfloat16)
     dense = to_dense(bsr).to(torch.bfloat16)
     m = bsr.idx.shape[1]
-    nbytes = n * m * 20 + t * k * 2 + t * n * 4
-    flops = 2 * t * n * m * 16
+    nbytes = n * m * payload_bytes(gs) + t * k * 2 + t * n * 4
+    flops = 2 * t * n * m * gs
     bound = _bound_ms(nbytes, flops)
     t_k = timer.ms(lambda: gqsa_gemv_cuda(x, bsr))
     t_p = timer.ms(lambda: ops.gqsa_gemv(x, bsr, plain=True))
     t_l = timer.ms(lambda: torch.matmul(x, dense.T))
-    p = plan(t, n, k, 16, 2, sm_count(0))
+    p = plan(t, n, k, gs, 2, sm_count(0))
     by = _bound_by(nbytes, flops)
-    log(f"[gemv time] deepseek-v2 kv_a N={n} K={k} M={m} T={t} bf16 (tile "
-        f"{p.tile}, {p.blocks} blocks): kernel {t_k * 1e3:.1f}us plain "
+    log(f"[gemv time] deepseek-v2 kv_a N={n} K={k} M={m} G={gs} T={t} "
+        f"bf16 (tile {p.tile}, {p.blocks} blocks): kernel {t_k * 1e3:.1f}us plain "
         f"{t_p * 1e3:.1f}us torch.matmul(dense bf16) {t_l * 1e3:.1f}us "
         f"bound {bound * 1e3:.2f}us by {by} ({nbytes / 1e6:.2f} MB) -> "
         f"{bound / t_k:.0%} of bound")
@@ -2937,52 +2942,95 @@ def phase_spec_moe(timer):
 
 
 # ---------------------------------------------------------------------------
-# phase 20: gqsa_gemv at group sizes 8 and 32
+# phase 20: gqsa_gemv at group sizes 8, 32, 64 and 128
 # ---------------------------------------------------------------------------
 
-GROUP_SIZES_NEW = (8, 32)             # the kernels' group sizes beside 16
+GROUP_SIZES_NEW = (8, 32, 64, 128)    # the kernels' group sizes beside 16
 GROUP_EXPERT_CAPS = (1, 5, 13, 30)    # C of (b)
-GROUP_SPEC_SERVE = (                  # (e)'s speculative serve
-    "chain serve g32",
-    ["--spec", "4", "--draft-profile", "w4s75", "--group-size", "32"],
-    ("gqsa", "w4s75", dict(spec_k=4)))
+GROUP_SPEC_SERVE = tuple(             # (e)'s speculative serves
+    (f"chain serve g{gs}",
+     ["--spec", "4", "--draft-profile", "w4s75", "--group-size", str(gs)],
+     ("gqsa", "w4s75", dict(spec_k=4)))
+    for gs in (32, 128))
+GROUP_W4_SERVE = 128                  # (e)'s dense W4 baseline: G128
 
 
 def phase_group_model(gs):
     """(d) llama2-7b at full width and depth, GQSA W4 S50 at group size
     ``gs`` packed on the card layer by layer: one batched prefill + 4
     decode steps through the kernels and through the plain versions, f32
-    and bf16 (:func:`check_model`)."""
+    and bf16, the f32 greedy tokens equal (:func:`check_model`). Returns
+    the GB of its packed linears."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import transformer as tf
     full = get_config("llama2_7b")
     t0 = time.time()
     params = tf.init_params(SEED, full, "cuda", compress=_gqsa(gs))
     torch.cuda.synchronize()
+    gb = _packed_bytes(params['layers']) / 1e9
     log(f"[model] llama2-7b full width and depth, GQSA W4 S50 G{gs} packed "
-        f"on the card in {time.time() - t0:.1f}s: "
-        f"{_packed_bytes(params['layers']) / 1e9:.3f} GB of packed linears")
-    check_model(params, full, f"gqsa g{gs}")
+        f"on the card in {time.time() - t0:.1f}s: {gb:.3f} GB of packed "
+        f"linears")
+    check_model(params, full, f"gqsa g{gs}", tokens_equal=True)
     del params
+    return gb
+
+
+def moe_packed_gb(gs):
+    """GB of deepseek-moe-16b's packed linears at full width and depth
+    under GQSA W4 S50 at group size ``gs``, packed on the card as its
+    serve packs them."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tf
+    params = tf.init_params(SEED, get_config("deepseek_moe_16b"), "cuda",
+                            compress=_gqsa(gs))
+    gb = _packed_bytes(params["layers"]) / 1e9
+    log(f"[model] deepseek-moe-16b full width and depth, GQSA W4 S50 G{gs}: "
+        f"{gb:.3f} GB of packed linears")
+    del params
+    return gb
+
+
+def kv_a_check(gs):
+    """DeepSeek-V2's kv_a projection (N = 576, K = 5120) at group size
+    ``gs`` against its plain version (:func:`_gemv_case`), T = 1, 4, 9
+    and 116, bf16 and f32 x. Returns the worst max-abs error."""
+    n, k = DS_KV_A
+    bsr = _packed(n, k, SEED + 17, gs)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    worst = 0.0
+    for b in (1, 4, 9, 116):
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn((b, k), generator=g, device="cuda").to(dt)
+            worst = max(worst, _gemv_case(x, bsr, f"deepseek-v2 kv_a N={n} "
+                                                  f"K={k}"))
+    return worst
 
 
 def phase_group_sizes(timer):
     """Phase 20, at each group size of GROUP_SIZES_NEW: (a) gqsa_gemv
-    against its plain version as phase 3 holds it; (b) its expert axis as
-    phase 13 holds it, C in GROUP_EXPERT_CAPS; (c) a llama2-7b layer at T
-    = 4, 64 and 116 and a deepseek-moe-16b expert layer at C = 1 timed
-    beside the plain version, the library call and the bound; (d)
-    :func:`phase_group_model`; (e) the serve CLI with ``--group-size``:
-    llama2-7b and deepseek-moe-16b at full width and depth, and at g = 32
-    the chain K=4 speculative serve (draft w4s75 at the same g) with its
-    launches held to :func:`spec_launches`. Returns ({g: errors and
-    times}, {main path: launches})."""
+    against its plain version as phase 3 holds it (at g = 128 also
+    DeepSeek-V2's kv_a, :func:`kv_a_check`); (b) its expert axis as phase
+    13 holds it, C in GROUP_EXPERT_CAPS; (c) a llama2-7b layer at T = 4,
+    64 and 116 and a deepseek-moe-16b expert layer at C = 1 timed beside
+    the plain version, the library call and the bound (at g = 128 also
+    kv_a at T = 4); (d) :func:`phase_group_model` and deepseek-moe-16b's
+    packed GB (:func:`moe_packed_gb`); (e) the serve CLI with
+    ``--group-size``: llama2-7b and deepseek-moe-16b at full width and
+    depth, at g = 32 and 128 the chain K=4 speculative serve (draft w4s75
+    at the same g) with its launches held to :func:`spec_launches`, and
+    llama2-7b under ``--compress w4 --group-size 128`` (the dense W4 G128
+    baseline). Returns ({g: errors and times}, {main path: launches})."""
     t0 = time.time()
     g = torch.Generator(device="cuda").manual_seed(SEED + 20)
     out, launches = {}, {}
     for gs in GROUP_SIZES_NEW:
+        t_g = time.time()
         row = dict(gemv_err=phase_gemv_check(gs),
                    experts_err=phase_experts_check(gs, GROUP_EXPERT_CAPS))
+        if gs == 128:
+            row["gemv_err"] = max(row["gemv_err"], kv_a_check(gs))
+            row["kv_a"] = kv_a_time(timer, g, gs=gs)
         row["gemv"] = gemv_layer(timer, g, 4, gs)
         row["gemv"]["rows"] = {str(t): gemv_layer(timer, g, t, gs)
                                for t in (64, 116)}
@@ -2990,15 +3038,21 @@ def phase_group_sizes(timer):
                                        MOE_EXPERTS, MOE_EXPERT_SHAPES, 4,
                                        gs=gs)
         torch.cuda.empty_cache()
-        phase_group_model(gs)
+        row["packed_gb"] = {"llama2_7b": phase_group_model(gs)}
+        torch.cuda.empty_cache()
+        row["packed_gb"]["deepseek_moe_16b"] = moe_packed_gb(gs)
         for arch in ("llama2_7b", "deepseek_moe_16b"):
             torch.cuda.empty_cache()
             tag = "gqsa" if arch == "llama2_7b" else "deepseek-moe gqsa"
             launches[f"{tag} serve g{gs}"] = phase_serve("gqsa", arch, gs)
         out[gs] = row
+        log(f"[time] group size {gs} (phase 20) {time.time() - t_g:.1f}s")
+    for label, flags, counted in GROUP_SPEC_SERVE:
+        torch.cuda.empty_cache()
+        launches[label] = phase_serve_spec(label, flags, counted)
     torch.cuda.empty_cache()
-    label, flags, counted = GROUP_SPEC_SERVE
-    launches[label] = phase_serve_spec(label, flags, counted)
+    launches[f"w4 serve g{GROUP_W4_SERVE}"] = phase_serve(
+        "w4", "llama2_7b", GROUP_W4_SERVE)
     log(f"[time] group sizes {GROUP_SIZES_NEW} (phase 20) "
         f"{time.time() - t0:.1f}s")
     return out, launches
@@ -3019,9 +3073,13 @@ def group_size_rows(groups, launches, kind):
             max_abs_err=row[f"{kind}_err"], ms=t["ms"],
             plain_ms=t["plain_ms"], library_ms=t["library_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            launches=launches[path][name], path=path)
+            launches=launches[path][name], path=path,
+            packed_gb=row["packed_gb"]["llama2_7b" if kind == "gemv"
+                                       else "deepseek_moe_16b"])
         if "rows" in t:
             rows[str(gs)]["rows"] = t["rows"]
+        if kind == "gemv" and "kv_a" in row:
+            rows[str(gs)]["deepseek_v2_kv_a"] = row["kv_a"]
     return rows
 
 
@@ -3269,9 +3327,11 @@ KERNELS = {
              "K=5120) at T = 4; every bound is the "
              "larger of the bytes over 3.35 TB/s and the multiply-adds "
              "over the bf16 tensor cores' 989 TFLOP/s; all at group size "
-             "16, and 'group_sizes' the same layer at g = 8 and 32 (T = "
-             "4, 'rows' T = 64 and 116) with its error and its launches "
-             "on the llama2-7b serve at that g"),
+             "16, and 'group_sizes' the same layer at g = 8, 32, 64 and "
+             "128 (T = 4, 'rows' T = 64 and 116; at 128 also kv_a) with "
+             "its error, llama2-7b's packed GB and its launches on the "
+             "llama2-7b serve at that g; 'spec_g32_launches' / 'spec_g128_launches' those of the "
+             "chain w4s75 serve at g"),
     "paged_attention": dict(
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:181",
@@ -3280,7 +3340,10 @@ KERNELS = {
     "w4_matmul": dict(
         source="src/repro_torch/csrc/w4_matmul.cu",
         replaces="src/repro/kernels/w4_matmul.py:51",
-        unit="one decode layer: 7 projections at 4 slots, G16, bf16 x"),
+        unit="one decode layer: 7 projections at 4 slots, G16, bf16 x; "
+             "'g128_serve_launches' / 'g128_serve_tc_launches' its "
+             "launches on the llama2-7b serve under --compress w4 "
+             "--group-size 128 (tensor cores: the second)"),
     "paged_attention_int8": dict(
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:181",
@@ -3311,9 +3374,9 @@ KERNELS = {
              "by 'routing', and "
              "'spec_launches' the launches of the MoE families' GQSA "
              "tree paths; all at group size 16, and 'group_sizes' a "
-             "deepseek-moe-16b decode layer (C=1) at g = 8 and 32 with "
-             "its error and its launches on the deepseek-moe-16b serve at "
-             "that g"),
+             "deepseek-moe-16b decode layer (C=1) at g = 8, 32, 64 and "
+             "128 with its error, deepseek-moe-16b's packed GB and its "
+             "launches on the deepseek-moe-16b serve at that g"),
     "paged_attention_latent": dict(
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:181",
@@ -3472,10 +3535,14 @@ def main() -> int:
     w4x["spec_tc_launches"] = spec_moe["deepseek-moe gqsa tree serve"][
         "w4_matmul_experts_tc"]
     w4x["verify"] = spec_times["w4_experts_verify"]
-    # phase 20: the group sizes 8 and 32
+    # phase 20: the group sizes 8, 32, 64 and 128
     gemv["group_sizes"] = group_size_rows(groups, launches, "gemv")
     gx["group_sizes"] = group_size_rows(groups, launches, "experts")
-    gemv["spec_g32_launches"] = launches[GROUP_SPEC_SERVE[0]]["gqsa_gemv"]
+    for label, flags, _ in GROUP_SPEC_SERVE:
+        gemv[f"spec_g{flags[-1]}_launches"] = launches[label]["gqsa_gemv"]
+    w4_g = launches[f"w4 serve g{GROUP_W4_SERVE}"]
+    w4[f"g{GROUP_W4_SERVE}_serve_launches"] = w4_g["w4_matmul"]
+    w4[f"g{GROUP_W4_SERVE}_serve_tc_launches"] = w4_g["w4_matmul_tc"]
     # phase 21: the four dense configs' launches on their paths (every
     # kernel keeps the key; those off the dense paths hold {}), worst
     # errors at their shapes and their timings

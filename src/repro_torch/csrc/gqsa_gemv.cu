@@ -9,14 +9,14 @@
 // f32 or bf16; idx [N, M] int32 (-1 = padding); vals [N, M, g/2] uint8,
 // two 4-bit codes per byte, element 2i in the low nibble; scale, zero
 // [N, M] f32 (scale 0 on padding); y [T, N] f32. The group size g is 8,
-// 16 or 32, a template parameter (G) of every kernel; the launchers refuse
-// any other.
+// 16, 32, 64 or 128, a template parameter (G) of every kernel; the
+// launchers refuse any other.
 //
 // Bound on the card (H100 SXM): bytes at every T the model sends. Each
 // kept group streams g/2 + 12 bytes of payload (codes, idx, scale, zero:
-// 16, 20 and 28 bytes at g = 8, 16 and 32) for g * T multiply-adds of
-// bf16 x and exact 4-bit codes, which the card's tensor cores take at 989
-// TFLOP/s; at g = 16 the bytes over 3.35 TB/s stay the larger time up to
+// 16, 20, 28, 44 and 76 bytes at g = 8, 16, 32, 64 and 128) for g * T
+// multiply-adds of bf16 x and exact 4-bit codes, which the card's tensor
+// cores take at 989 TFLOP/s; at g = 16 the bytes over 3.35 TB/s stay the larger time up to
 // T of about 280 (4.05 GB per llama2-7b decode step -> 1.21 ms; a
 // llama2-7b layer: 38 us at T = 4, 46 us at T = 116). The design below
 // runs on CUDA cores (f32, 67 TFLOP/s, 350 us a layer of multiply-adds
@@ -24,7 +24,8 @@
 // instructions a kept group and x row at g = 16 (16 bf16 widenings, 16
 // multiply-adds, two 16-byte reads, the zero fold), so it stays far above
 // the byte floor (PERF.md); a group's fixed costs (its slot's payload, the
-// zero fold) weigh more at g = 8 and less at g = 32. Tensor cores on a
+// zero fold) weigh more at g = 8 and less at g = 32; above 32 they are
+// paid per 32-code part (below), as at g = 32. Tensor cores on a
 // densified stage are the next step (ROADMAP.md B.3).
 //
 // Design (gqsa_gemv_launch, any T in one launch): one block of 16 warps
@@ -40,15 +41,15 @@
 //    distinct 16-byte bank groups whatever the columns: no bank conflict
 //    once a line (TT * P chunks) is 128 bytes or more (g = 16: bf16 TT >=
 //    4, f32 TT >= 2; g = 8: bf16 TT = 8, f32 TT >= 4; g = 32: bf16 TT >=
-//    2, f32 any TT); below that, at most the columns' collisions of one or
-//    two lines, where bytes dominate.
+//    2, f32 any TT; above 32 the lines are g = 32's); below that, at most
+//    the columns' collisions of one or two lines, where bytes dominate.
 //  * The payload streams: a warp owns whole rows (rows r, r + W, ... of
 //    its tile's W warps), its lanes take slots m = 32 p + lane, so a
 //    warp's copy of a field is 128 consecutive bytes. Each lane copies its
 //    own slot's idx, scale, zero and codes (one cp.async of 4, 8 or 16
 //    bytes) into its warp's ring of kDepth = 3 stages (512, 640 or 896
-//    bytes a stage at g = 8, 16, 32), two slots ahead of the
-//    arithmetic. An 8-stage ring was slower at decode (PERF.md,
+//    bytes a stage at g = 8, 16, 32; 896 above), two slots ahead of
+//    the arithmetic. An 8-stage ring was slower at decode (PERF.md,
 //    scripts/gemv_variants.py), since the kernel is bound by its
 //    arithmetic and a deeper prologue delays the x tile behind the
 //    payload's requests. The kernel reads the depth from its arguments,
@@ -58,6 +59,19 @@
 //    the raw codes (a nibble becomes the exact float by a byte permute and
 //    one subtract), per group; the codes are converted once and used for
 //    the TT tokens of the tile (g floats a lane).
+//  * Group sizes above 32 (64, 128): a kept group is g / 32 work items,
+//    its parts of 32 codes, which share its idx, scale and zero; a lane
+//    takes a work item where it would take a slot at g <= 32 (item m of a
+//    row: part m % (g/32) of slot m / (g/32)), its codes one 16-byte copy,
+//    and computes it as a g = 32 group on x staged as at g = 32 ([K/32]
+//    lines, a sum per 32-column part): acc += s * d_p - (s z) * xs_p. The
+//    fold is linear, so the parts add to the group's value; a lane never
+//    converts more than 32 codes (registers as at g = 32), and a row's
+//    M * g / 32 items fill a warp's lanes where its M groups would not
+//    (llama2-7b's wq at g = 128: M = 16, 64 items; deepseek-moe-16b's
+//    expert w_d: M = 6, 24 items). The lanes of a group's parts copy its
+//    idx, scale and zero from the same 4 bytes, one request for the warp;
+//    the codes of a row's items are consecutive 16-byte chunks.
 //  * Any T: ceil(T / TT) tiles, each on its own blocks (one wave up to
 //    132 tiles). The blocks of every tile read all the weights; they run
 //    at the same time, so a byte comes from device memory once and from
@@ -85,10 +99,11 @@
 //    span pair by pair: it stages that expert's x tile and group sums
 //    (rows at or past rows[e] as zeros, by 0-byte copies), then its warps
 //    stream the pair's rows through their rings (kExpertDepth stages).
-//  * Short rows: where a row's M groups would leave half a warp or more
-//    idle on its last 32-slot trip (w_d at g = 16: M = 48 and 44), a warp
+//  * Short rows: where a row's work items (M groups; M * g / 32 above g =
+//    32) would leave half a warp or more idle on its last 32-item trip
+//    (w_d at g = 16: M = 48 and 44), a warp
 //    takes two rows at once, 16 lanes each (kRowLanes = 16; the wrapper
-//    picks it from M): a DeepSeek-V2 w_d at C = 1 74 -> 64 us, at C = 3
+//    picks it from them): a DeepSeek-V2 w_d at C = 1 74 -> 64 us, at C = 3
 //    630 -> 462 us; rows of M = 64 and 160 lose by it (PERF.md).
 //  * Buffer rows at or past rows[e], all of an idle expert's, are written
 //    as zeros in the same launch; an idle expert's payload and x rows past
@@ -122,15 +137,29 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kDepth = 3;          // stages of each warp's ring
 constexpr int kMaxSmem = 232448;   // dynamic shared memory a block, sm_90
 
-// A kept group's codes at group size G: G / 2 bytes, one vector load.
+// A work item's codes at group size G, one vector load: a kept group's
+// G / 2 bytes at G <= 32, one 32-code part of it (16 bytes) above.
 template <int G> struct Codes;
 template <> struct Codes<8> { using type = uint32_t; };
 template <> struct Codes<16> { using type = uint2; };
 template <> struct Codes<32> { using type = uint4; };
+template <> struct Codes<64> { using type = uint4; };
+template <> struct Codes<128> { using type = uint4; };
 
-inline bool takes_group(int g) { return g == 8 || g == 16 || g == 32; }
+inline bool takes_group(int g) { return g == 8 || g == 16 || g == 32 || g == 64 || g == 128; }
 
-// One stage of a warp's ring: the payload of 32 slots, one a lane.
+// The work of group size G: a staged line of x holds kLine values (G, at
+// most 32), and a kept group is kItems = G / kLine work items, its parts
+// of kLine codes, which share its idx, scale and zero.
+__host__ __device__ constexpr int line_of(int g) { return g < 32 ? g : 32; }
+
+template <int G>
+struct Width {
+  static constexpr int kLine = line_of(G);
+  static constexpr int kItems = G / kLine;
+};
+
+// One stage of a warp's ring: the payload of 32 work items, one a lane.
 template <int G>
 struct Stage {
   int32_t idx[32];
@@ -142,6 +171,8 @@ struct Stage {
 static_assert(sizeof(Stage<8>) == 512, "g = 8: 32 slots of 16 bytes");
 static_assert(sizeof(Stage<16>) == 640, "g = 16: 32 slots of 20 bytes");
 static_assert(sizeof(Stage<32>) == 896, "g = 32: 32 slots of 28 bytes");
+static_assert(sizeof(Stage<64>) == 896, "g = 64: 32 parts of 28 bytes");
+static_assert(sizeof(Stage<128>) == 896, "g = 128: 32 parts of 28 bytes");
 
 inline size_t stage_bytes(int g) {
   return g == 8 ? sizeof(Stage<8>)
@@ -176,7 +207,8 @@ struct ExpertArgs {
   int depth;              // kExpertDepth, read at run time
 };
 
-// A group's staged line: TT tokens of G values, P 16-byte chunks each.
+// A staged line: TT tokens of G (at most 32) values, P 16-byte chunks
+// each.
 template <typename T, int TT, int G>
 struct Tile {
   static constexpr int kParts = G * static_cast<int>(sizeof(T)) / 16;
@@ -185,24 +217,25 @@ struct Tile {
   static constexpr int kRot = kChunks < 8 ? kChunks : 8;  // lane rotations
 };
 
-// Shared memory of a launch: the x tile ([K/g][tt][g], K * tt values
-// whatever g), its group sums (rounded up to 16 bytes), the rings.
+// Shared memory of a launch: the x tile ([K/l][tt][l] for lines of l =
+// line_of(g) values, K * tt values whatever g), its line sums (rounded up
+// to 16 bytes), the rings.
 __host__ __device__ inline size_t x_bytes(int K, int tt, int elem) {
   return static_cast<size_t>(K) * tt * elem;
 }
 
-__host__ __device__ inline size_t sum_bytes(int K, int g, int tt) {
-  return (static_cast<size_t>(K / g) * tt * 4 + 15) / 16 * 16;
+__host__ __device__ inline size_t sum_bytes(int K, int line, int tt) {
+  return (static_cast<size_t>(K / line) * tt * 4 + 15) / 16 * 16;
 }
 
 inline size_t smem_bytes(int K, int g, int tt, int elem) {
-  return x_bytes(K, tt, elem) + sum_bytes(K, g, tt)
+  return x_bytes(K, tt, elem) + sum_bytes(K, line_of(g), tt)
       + static_cast<size_t>(kWarps) * kDepth * stage_bytes(g);
 }
 
 // The expert axis's: the same, its rings kExpertDepth deep, then kCtrlInts.
 inline size_t experts_smem_bytes(int K, int g, int tt, int elem) {
-  return x_bytes(K, tt, elem) + sum_bytes(K, g, tt)
+  return x_bytes(K, tt, elem) + sum_bytes(K, line_of(g), tt)
       + static_cast<size_t>(kWarps) * kExpertDepth * stage_bytes(g)
       + kCtrlInts * sizeof(int);
 }
@@ -420,8 +453,9 @@ __device__ __forceinline__ void write_row(float (&acc)[TT], float* y,
     y[static_cast<size_t>(t0 + sub) * N + row] = out;
 }
 
-// The group sums of the staged x tile: xsum[q] = the sum of line q's G
-// values in order, q over (group, token)
+// The line sums of the staged x tile: xsum[q] = the sum of line q's G
+// values in order, q over (line, token); a line is a group at g <= 32, a
+// 32-column part above
 template <typename T, int TT, int G>
 __device__ __forceinline__ void stage_sums(const uint8_t* xg, float* xsum,
                                            int groups) {
@@ -443,21 +477,23 @@ __device__ __forceinline__ void stage_sums(const uint8_t* xg, float* xsum,
 template <typename T, int TT, int G>
 __global__ void __launch_bounds__(kThreads, 1)
 gqsa_gemv_stream_kernel(const Args a) {
-  using L = Tile<T, TT, G>;
+  constexpr int kLine = Width<G>::kLine, kItems = Width<G>::kItems;
+  using L = Tile<T, TT, kLine>;
   using V = typename Codes<G>::type;
   extern __shared__ __align__(16) uint8_t smem[];
-  const int groups = a.K / G;
-  uint8_t* xg = smem;                                  // [groups][TT][G]
+  const int groups = a.K / kLine;                      // staged lines
+  uint8_t* xg = smem;                                  // [groups][TT][kLine]
   float* xsum = reinterpret_cast<float*>(
       smem + x_bytes(a.K, TT, sizeof(T)));             // [groups][TT]
   Stage<G>* ring = reinterpret_cast<Stage<G>*>(
-      smem + x_bytes(a.K, TT, sizeof(T)) + sum_bytes(a.K, G, TT));
+      smem + x_bytes(a.K, TT, sizeof(T)) + sum_bytes(a.K, kLine, TT));
   const V* vals = static_cast<const V*>(a.vals);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t0 = (blockIdx.x % a.n_tiles) * TT;
   const int W = gridDim.x / a.n_tiles * kWarps;        // the tile's warps
   const int r0 = blockIdx.x / a.n_tiles * kWarps + warp;
-  const int trips = (a.M + 31) / 32;
+  const int items = a.M * kItems;                      // work items a row
+  const int trips = (items + 31) / 32;
   const int steps = r0 < a.N ? ((a.N - 1 - r0) / W + 1) * trips : 0;
   const int D = a.depth;
   Stage<G>* ring_w = ring + warp * D;
@@ -472,23 +508,25 @@ gqsa_gemv_stream_kernel(const Args a) {
       const bool ok = t0 + t < a.T;
       cp_async16(xg + 16 * p,
                  x + static_cast<size_t>(ok ? t0 + t : 0) * a.K
-                   + c * G + part * L::kElems,
+                   + c * kLine + part * L::kElems,
                  ok ? 16 : 0);
     }
     cp_async_commit();
   }
 
-  // the ring: each lane copies its own slot of every step
+  // the ring: each lane copies its own work item of every step (item m
+  // of a row: part m % kItems of slot m / kItems)
   int ld_row = r0, ld_trip = 0, ld_stage = 0;
   auto load_next = [&]() {
     const int m = ld_trip * 32 + lane;
-    if (m < a.M) {
-      const size_t f = static_cast<size_t>(ld_row) * a.M + m;
+    if (m < items) {
+      const size_t f = static_cast<size_t>(ld_row) * a.M + m / kItems;
       Stage<G>& st = ring_w[ld_stage];
       cp_async4(&st.idx[lane], a.idx + f, 4);
       cp_async4(&st.scale[lane], a.scale + f, 4);
       cp_async4(&st.zero[lane], a.zero + f, 4);
-      cp_async_codes(&st.vals[lane], vals + f);
+      cp_async_codes(&st.vals[lane],
+                     vals + (static_cast<size_t>(ld_row) * items + m));
     }
     if (++ld_stage == D) ld_stage = 0;
     if (++ld_trip == trips) {
@@ -503,7 +541,7 @@ gqsa_gemv_stream_kernel(const Args a) {
 
   cp_async_wait_ring<kDepth>(D);   // the x tile has landed (the ring may not)
   __syncthreads();
-  stage_sums<T, TT, G>(xg, xsum, groups);
+  stage_sums<T, TT, kLine>(xg, xsum, groups);
   __syncthreads();
 
   const int rq = lane & (L::kRot - 1);
@@ -518,12 +556,15 @@ gqsa_gemv_stream_kernel(const Args a) {
     cp_async_commit();
     cp_async_wait_ring<kDepth>(D);   // this step's slot has landed
     const int m = trip * 32 + lane;
-    if (m < a.M) {
+    if (m < items) {
       const Stage<G>& st = ring_w[stage];
       // padding slots carry idx -1: read group 0 instead (their scale is
-      // 0, so they add nothing), as the TPU kernel's clamp does
-      group<T, TT, G>(st.vals[lane], max(st.idx[lane], 0), st.scale[lane],
-                      st.zero[lane], xg, xsum, u, v, acc);
+      // 0, so they add nothing), as the TPU kernel's clamp does; a part
+      // reads its own line of the group
+      group<T, TT, kLine>(st.vals[lane],
+                          max(st.idx[lane], 0) * kItems + m % kItems,
+                          st.scale[lane], st.zero[lane], xg, xsum, u, v,
+                          acc);
     }
     if (++stage == D) stage = 0;
     if (++trip == trips) {
@@ -554,17 +595,18 @@ __device__ __forceinline__ int expert_rows(const ExpertArgs& a, int e) {
 template <typename T, int TT, int G, int kRowLanes>
 __global__ void __launch_bounds__(kThreads, 1)
 gqsa_gemv_experts_kernel(const ExpertArgs a) {
-  using L = Tile<T, TT, G>;
+  constexpr int kLine = Width<G>::kLine, kItems = Width<G>::kItems;
+  using L = Tile<T, TT, kLine>;
   using V = typename Codes<G>::type;
   constexpr int kRowsPerWarp = 32 / kRowLanes;
   extern __shared__ __align__(16) uint8_t smem[];
-  const int groups = a.K / G;
+  const int groups = a.K / kLine;                      // staged lines
   const int D = a.depth;
-  uint8_t* xg = smem;                                  // [groups][TT][G]
+  uint8_t* xg = smem;                                  // [groups][TT][kLine]
   float* xsum = reinterpret_cast<float*>(
       smem + x_bytes(a.K, TT, sizeof(T)));             // [groups][TT]
   Stage<G>* ring = reinterpret_cast<Stage<G>*>(
-      smem + x_bytes(a.K, TT, sizeof(T)) + sum_bytes(a.K, G, TT));
+      smem + x_bytes(a.K, TT, sizeof(T)) + sum_bytes(a.K, kLine, TT));
   int* ctrl = reinterpret_cast<int*>(ring + kWarps * D);
   const V* vals = static_cast<const V*>(a.vals);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -609,7 +651,8 @@ gqsa_gemv_experts_kernel(const ExpertArgs a) {
   const int units = (a.N + kUnit - 1) / kUnit;        // units a pair
   const long long total = static_cast<long long>(pairs) * units;
   const long long hi = total * (blockIdx.x + 1) / gridDim.x;
-  const int trips = (a.M + kRowLanes - 1) / kRowLanes;
+  const int items = a.M * kItems;                    // work items a row
+  const int trips = (items + kRowLanes - 1) / kRowLanes;
   const int sub = lane & (kRowLanes - 1);            // lane within the row
   const int rq = lane & (L::kRot - 1);
   const int v = rq & (L::kParts - 1);
@@ -653,7 +696,7 @@ gqsa_gemv_experts_kernel(const ExpertArgs a) {
         const bool ok = t0 + t < R;
         cp_async16(xg + 16 * q,
                    x + (ok ? x0 + static_cast<size_t>(t) * a.K : 0)
-                     + c * G + part * L::kElems,
+                     + c * kLine + part * L::kElems,
                    ok ? 16 : 0);
       }
       cp_async_commit();
@@ -668,13 +711,16 @@ gqsa_gemv_experts_kernel(const ExpertArgs a) {
     int ld_row = r0 + lane / kRowLanes, ld_trip = 0, ld_stage = 0;
     auto load_next = [&]() {
       const int m = ld_trip * kRowLanes + sub;
-      if (m < a.M && ld_row < n1) {
-        const size_t fo = eoff + static_cast<size_t>(ld_row) * a.M + m;
+      if (m < items && ld_row < n1) {
+        const size_t fo = eoff + static_cast<size_t>(ld_row) * a.M
+            + m / kItems;
         Stage<G>& st = ring_w[ld_stage];
         cp_async4(&st.idx[lane], a.idx + fo, 4);
         cp_async4(&st.scale[lane], a.scale + fo, 4);
         cp_async4(&st.zero[lane], a.zero + fo, 4);
-        cp_async_codes(&st.vals[lane], vals + fo);
+        cp_async_codes(&st.vals[lane],
+                       vals + ((eoff + static_cast<size_t>(ld_row) * a.M)
+                               * kItems + m));
       }
       if (++ld_stage == D) ld_stage = 0;
       if (++ld_trip == trips) {
@@ -689,7 +735,7 @@ gqsa_gemv_experts_kernel(const ExpertArgs a) {
 
     cp_async_wait_ring<kExpertDepth>(D);   // the x tile has landed
     __syncthreads();
-    stage_sums<T, TT, G>(xg, xsum, groups);
+    stage_sums<T, TT, kLine>(xg, xsum, groups);
     __syncthreads();
 
     float* y = a.y + static_cast<size_t>(e) * a.C * a.N;
@@ -702,10 +748,12 @@ gqsa_gemv_experts_kernel(const ExpertArgs a) {
       cp_async_commit();
       cp_async_wait_ring<kExpertDepth>(D);   // this step's slot has landed
       const int m = trip * kRowLanes + sub;
-      if (m < a.M && row < n1) {
+      if (m < items && row < n1) {
         const Stage<G>& st = ring_w[stage];
-        group<T, TT, G>(st.vals[lane], max(st.idx[lane], 0),
-                        st.scale[lane], st.zero[lane], xg, xsum, u, v, acc);
+        group<T, TT, kLine>(st.vals[lane],
+                            max(st.idx[lane], 0) * kItems + m % kItems,
+                            st.scale[lane], st.zero[lane], xg, xsum, u, v,
+                            acc);
       }
       if (++stage == D) stage = 0;
       if (++trip == trips) {   // every lane: the butterfly is warp-wide
@@ -778,8 +826,12 @@ int launch_group(const A& a, int g, int x_is_bf16, int tt, int blocks,
       return launch_tile<8, kRowLanes>(a, x_is_bf16, tt, blocks, smem, s);
     case 16:
       return launch_tile<16, kRowLanes>(a, x_is_bf16, tt, blocks, smem, s);
-    default:
+    case 32:
       return launch_tile<32, kRowLanes>(a, x_is_bf16, tt, blocks, smem, s);
+    case 64:
+      return launch_tile<64, kRowLanes>(a, x_is_bf16, tt, blocks, smem, s);
+    default:
+      return launch_tile<128, kRowLanes>(a, x_is_bf16, tt, blocks, smem, s);
   }
 }
 
@@ -788,9 +840,9 @@ int launch_group(const A& a, int g, int x_is_bf16, int tt, int blocks,
 }  // namespace
 
 // One matrix, any T: x [T, K] (f32 or bf16), y [T, N] f32, group size
-// `g` (8, 16 or 32; K a multiple of it). `tt`: x rows a token tile (1, 2,
-// 4, 8; f32 x at most 4); `n_tiles` = ceil(T / tt); `blocks`: a multiple
-// of n_tiles; `smem`: the block's dynamic shared memory as the wrapper's
+// `g` (8, 16, 32, 64 or 128; K a multiple of it). `tt`: x rows a token
+// tile (1, 2, 4, 8; f32 x at most 4); `n_tiles` = ceil(T / tt);
+// `blocks`: a multiple of n_tiles; `smem`: the block's dynamic shared memory as the wrapper's
 // plan counts it (kernels/gqsa_gemv.py:smem_bytes), refused unless it is
 // this layout's. Launches on `stream` and returns cudaGetLastError() (0 =
 // launched).

@@ -10,17 +10,20 @@ in prefill and decode, and the same kernel under the reference's
 (``src/repro/models/moe.py:_expert_ffn``): :func:`gqsa_gemv_experts_cuda`,
 one launch per projection at any capacity.
 
-Group sizes: 8, 16 and 32 (``GROUP_SIZES``), each its own instantiation
-of the kernels, picked from ``bsr.group_size``; any other raises (the
-reference takes any even g: ROADMAP.md B.8).
+Group sizes: 8, 16, 32, 64 and 128 (``GROUP_SIZES``), each its own
+instantiation of the kernels, picked from ``bsr.group_size``; any other
+raises (the reference takes any even g: ROADMAP.md B.8). Above 32 a kept
+group is g / 32 work items, its 32-code parts, each computed as a g = 32
+group against x staged in 32-column lines (``line_values``).
 
 Bound on the H100: bytes. The kernel streams each kept group's payload
 (g/2 code bytes, int32 idx, f32 scale and zero: ``payload_bytes``, 16,
-20 and 28 bytes at g = 8, 16, 32) once; the floor is N * M times that,
-plus x and y, over 3.35 TB/s (at g = 16: wq of llama2-7b 10.5 MB -> 3.1
-us; wg/wu/wd 28.2 MB -> 8.4 us; a layer 38.0 us at T = 4, 46.1 us at T =
-116). The products (g multiply-adds a kept group and row, bf16 x by
-exact 4-bit codes) take the tensor cores' 989 TFLOP/s, under the bytes
+20, 28, 44 and 76 bytes at g = 8, 16, 32, 64, 128) once; the floor is N *
+M times that, plus x and y, over 3.35 TB/s (at g = 16: wq of llama2-7b
+10.5 MB -> 3.1 us; wg/wu/wd 28.2 MB -> 8.4 us; a layer 38.0 us at T = 4,
+46.1 us at T = 116; at T = 4 21.1 us at g = 64, 18.2 us at g = 128). The
+products (g multiply-adds a kept group and row, bf16 x by exact 4-bit
+codes) take the tensor cores' 989 TFLOP/s, under the bytes
 up to T of about 280. The kernel runs them on CUDA cores in f32 and is
 bound by that arithmetic at every T (~41 instructions a kept group and
 row at g = 16, 16 of them the bf16 widening of x), far above the byte
@@ -39,8 +42,8 @@ copied.
 
 The expert axis runs the same design in one launch at any capacity C:
 token tiles of ``token_tile(C)`` buffer rows, rings ``EXPERT_RING_DEPTH``
-deep, two rows a warp where a row's groups leave half a warp's last trip
-idle (``row_lanes``), and a grid of one block an SM (``experts_plan``,
+deep, two rows a warp where a row's work items leave half a warp's last
+trip idle (``row_lanes``), and a grid of one block an SM (``experts_plan``,
 from shapes and the SM count). Each block counts the occupied (expert, tile) pairs from
 ``rows`` [E] on the card and walks its equal share of their output rows;
 buffer rows at or past ``rows[e]`` come out as zeros from the same launch,
@@ -59,13 +62,14 @@ import torch
 from repro_torch.core.bsr import BSRMatrix
 from repro_torch.kernels.build import load, sm_count
 
-GROUP_SIZES = (8, 16, 32)   # the kernel's group sizes (g/2 code bytes)
+GROUP_SIZES = (8, 16, 32, 64, 128)   # the kernels' group sizes
 STREAM_WARPS = 16   # warps a block of the streaming kernel
 # The block's shared-memory layout, as the CUDA source lays it out (its
 # launcher refuses a size that differs from its own count):
-# a warp's ring stage by group size: 32 slots x (g/2 + 12) bytes
+# a warp's ring stage by group size: 32 work items x (codes + 12) bytes,
+# an item's codes g/2 bytes up to g = 32 and a 16-byte part above
 # (`Stage<G>`)
-STAGE_BYTES = {8: 512, 16: 640, 32: 896}
+STAGE_BYTES = {8: 512, 16: 640, 32: 896, 64: 896, 128: 896}
 RING_DEPTH = 3      # stages of a warp's ring (`kDepth`)
 EXPERT_RING_DEPTH = 4   # the same on the expert axis (`kExpertDepth`)
 CTRL_BYTES = 128    # the expert axis's block-shared ints (`kCtrlInts`)
@@ -97,13 +101,20 @@ def payload_bytes(g: int) -> int:
     return g // 2 + 12
 
 
+def line_values(g: int) -> int:
+    """x values a staged line holds at group size ``g``, and codes a work
+    item converts: g up to 32; 32 above, where a kept group is g / 32 work
+    items (its parts) and x is staged as at g = 32 (`Width<G>::kLine`)."""
+    return min(g, 32)
+
+
 def smem_bytes(tt: int, k: int, g: int, itemsize: int) -> int:
     """Dynamic shared memory of a block at group size ``g``: the x tile
-    ([K/g][tt][g] of x's type), its group sums ([K/g][tt] f32, rounded up
-    to 16 bytes) and ``STREAM_WARPS`` rings of ``RING_DEPTH`` stages of
-    ``STAGE_BYTES[g]``."""
-    groups = k // g
-    return (k * tt * itemsize + -(-groups * tt * 4 // 16) * 16
+    ([K/l][tt][l] of x's type, l = ``line_values(g)``), its line sums
+    ([K/l][tt] f32, rounded up to 16 bytes) and ``STREAM_WARPS`` rings of
+    ``RING_DEPTH`` stages of ``STAGE_BYTES[g]``."""
+    lines = k // line_values(g)
+    return (k * tt * itemsize + -(-lines * tt * 4 // 16) * 16
             + STREAM_WARPS * RING_DEPTH * STAGE_BYTES[g])
 
 
@@ -123,8 +134,8 @@ def token_tile(t: int, k: int, g: int, itemsize: int,
     block (``size``: the block's shared memory at a tile; a larger tile
     converts each kept group's codes once for more rows; a tile past T
     computes on zero rows). llama2-7b's wd (K = 11008) at 8 bf16 rows
-    fits at g = 16 and 32 but not at g = 8 (its group sums take 44032
-    bytes), so there it takes 4."""
+    fits at g = 16 and above but not at g = 8 (its group sums take 44032
+    bytes), so there it takes 4; g = 64 and 128 take g = 32's count."""
     fits = [tt for tt in TILES[itemsize]
             if size(tt, k, g, itemsize) <= SMEM_LIMIT]
     if not fits:
@@ -158,12 +169,13 @@ class ExpertsPlan(NamedTuple):
     smem: int       # dynamic shared memory a block
 
 
-def row_lanes(m: int) -> int:
-    """Lanes a row for M kept groups a row: 16 (two rows a warp) when a
-    row's last 32-slot trip would be half empty or less (M = 48 and 44,
-    the w_d of both MoE families: 25% and 31% of a row's lane-slots idle
+def row_lanes(items: int) -> int:
+    """Lanes a row for a row's work items (its M kept groups at g <= 32,
+    M * g / 32 parts above): 16 (two rows a warp) when a row's last
+    32-item trip would be half empty or less (M = 48 and 44, the w_d of
+    both MoE families at g = 16: 25% and 31% of a row's lane-slots idle
     against 0% and 8%), else 32."""
-    return 16 if 0 < m % 32 <= 16 else 32
+    return 16 if 0 < items % 32 <= 16 else 32
 
 
 def experts_plan(e: int, c: int, n: int, m: int, k: int, g: int,
@@ -172,14 +184,15 @@ def experts_plan(e: int, c: int, n: int, m: int, k: int, g: int,
     rows against [N, K] matrices of M = ``m`` kept groups a row at group
     size ``g``, from shapes and the SM count alone: the token tile as
     :func:`token_tile`
-    takes it for C rows, :func:`row_lanes`, and one block an SM, fewer
+    takes it for C rows, :func:`row_lanes` of a row's M * g / l work
+    items (l = :func:`line_values`), and one block an SM, fewer
     only when every expert holding all C rows gives fewer than 16 rows (a
     block's warps) a block. The kernel shares the occupied pairs' rows out
     over whatever grid it gets."""
     tt = token_tile(c, k, g, itemsize, experts_smem_bytes)
     rows_all = e * -(-c // tt) * n
     blocks = max(1, min(sms, -(-rows_all // STREAM_WARPS)))
-    return ExpertsPlan(tt, row_lanes(m), blocks,
+    return ExpertsPlan(tt, row_lanes(m * g // line_values(g)), blocks,
                        experts_smem_bytes(tt, k, g, itemsize))
 
 
@@ -198,16 +211,16 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
 def _check_operands(x: torch.Tensor, bsr: BSRMatrix, lead) -> None:
     """x [*lead, B, K] against a padded BSR whose leaves carry the
     leading dims ``lead[:-1]`` (one matrix: none; the expert axis: E)."""
-    if x.device.type != "cuda":
-        raise ValueError("gqsa_gemv_cuda: x must be a CUDA tensor")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"gqsa_gemv_cuda: x must be f32 or bf16, "
-                        f"got {x.dtype}")
     if bsr.group_size not in GROUP_SIZES or bsr.bits > 4:
         raise NotImplementedError(
             f"gqsa_gemv_cuda takes group sizes {GROUP_SIZES} with <= 4-bit "
             f"codes, got G{bsr.group_size} W{bsr.bits} (other group sizes: "
             f"ROADMAP.md B.8)")
+    if x.device.type != "cuda":
+        raise ValueError("gqsa_gemv_cuda: x must be a CUDA tensor")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"gqsa_gemv_cuda: x must be f32 or bf16, "
+                        f"got {x.dtype}")
     g = bsr.group_size
     k = x.shape[-1]
     n, m = bsr.idx.shape[-2:]
@@ -219,9 +232,11 @@ def _check_operands(x: torch.Tensor, bsr: BSRMatrix, lead) -> None:
     _check(bsr.vals, "vals", torch.uint8, w + (n, m, g // 2))
     _check(bsr.scale, "scale", torch.float32, w + (n, m))
     _check(bsr.zero, "zero", torch.float32, w + (n, m))
-    if x.data_ptr() % 16 or bsr.vals.data_ptr() % (g // 2):
+    # a work item's codes are one copy of g/2 bytes, 16 above g = 32
+    align = line_values(g) // 2
+    if x.data_ptr() % 16 or bsr.vals.data_ptr() % align:
         raise ValueError(f"gqsa_gemv_cuda: x must be 16-byte and vals "
-                         f"{g // 2}-byte aligned (vector loads)")
+                         f"{align}-byte aligned (vector loads)")
 
 
 def gqsa_gemv_cuda(x: torch.Tensor, bsr: BSRMatrix) -> torch.Tensor:

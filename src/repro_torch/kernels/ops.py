@@ -33,8 +33,8 @@ def gqsa_gemv(x: torch.Tensor, bsr: BSRMatrix, *,
     """y [B, N] f32 = x [B, K] @ dense(bsr).T, any B.
 
     On the card, one launch at any B (prefill sends slots x bucket rows
-    through here, a tree verify slots x tree tokens), at group size 8, 16
-    or 32; another group size raises there (ROADMAP.md B.8)."""
+    through here, a tree verify slots x tree tokens), at group size 8, 16,
+    32, 64 or 128; another group size raises there (ROADMAP.md B.8)."""
     if _use_plain(x, plain, "gqsa_gemv"):
         return kref.gqsa_gemv_ref(x, bsr)
     return gqsa_gemv_cuda(x.contiguous(), bsr)
@@ -50,8 +50,8 @@ def gqsa_gemv_experts(x: torch.Tensor, bsr: BSRMatrix,
     tokens; the others come out as zeros, and on the card an expert with
     none is not read. On the card every expert and all C rows go through
     one launch of the kernel's expert axis, which finds the occupied
-    experts from ``rows`` itself, at group size 8, 16 or 32 (another
-    raises there)."""
+    experts from ``rows`` itself, at group size 8, 16, 32, 64 or 128
+    (another raises there)."""
     if _use_plain(x, plain, "gqsa_gemv_experts"):
         return kref.gqsa_gemv_experts_ref(x, bsr, rows)
     if rows is not None:

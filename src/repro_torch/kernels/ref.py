@@ -47,22 +47,29 @@ def gqsa_gemv_ref(x: torch.Tensor, bsr: BSRMatrix) -> torch.Tensor:
 
 def gqsa_gemv_grouped_ref(x: torch.Tensor, bsr: BSRMatrix) -> torch.Tensor:
     """:func:`gqsa_gemv_ref` in the CUDA kernel's order of arithmetic
-    (tests only): per kept slot, d = sum_j q_j x_j over the raw codes and
-    xs = sum_j x_j of its column group, in f32, then y += s * d - (s * z)
-    * xs, slots in order (padding slots: column 0, scale 0). x widened to
-    f32 exactly."""
+    (tests only): per work item, d = sum_j q_j x_j over the raw codes and
+    xs = sum_j x_j of its column line, in f32, then y += s * d - (s * z)
+    * xs, items in order (padding slots: column 0, scale 0). At g <= 32
+    an item is a kept slot and its line the slot's column group; above,
+    a slot is g / 32 items, its parts of 32 codes in order, part p
+    reading 32-column line max(idx, 0) * g / 32 + p with the slot's s and
+    z. x widened to f32 exactly."""
     n, m = bsr.idx.shape
     t, k = x.shape
-    g = bsr.group_size
-    q = unpack_int4(bsr.vals).float()                          # [N, M, G]
-    xg = x.float().reshape(t, k // g, g)
-    xs = xg.sum(-1)                                            # [T, K/G]
-    col = bsr.idx.clamp_min(0).long()                          # [N, M]
+    line = min(bsr.group_size, 32)
+    parts = bsr.group_size // line
+    q = unpack_int4(bsr.vals).float().reshape(n, m * parts, line)
+    xg = x.float().reshape(t, k // line, line)
+    xs = xg.sum(-1)                                            # [T, K/line]
+    col = (bsr.idx.clamp_min(0).long()[..., None] * parts
+           + torch.arange(parts, device=x.device)).reshape(n, m * parts)
+    scale = bsr.scale.repeat_interleave(parts, dim=1)          # [N, items]
+    zero = bsr.zero.repeat_interleave(parts, dim=1)
     y = torch.zeros((t, n), dtype=torch.float32, device=x.device)
-    for i in range(m):
+    for i in range(m * parts):
         d = torch.einsum("tng,ng->tn", xg[:, col[:, i]], q[:, i])
-        s = bsr.scale[:, i]
-        y = y + s * d - (s * bsr.zero[:, i]) * xs[:, col[:, i]]
+        s = scale[:, i]
+        y = y + s * d - (s * zero[:, i]) * xs[:, col[:, i]]
     return y
 
 

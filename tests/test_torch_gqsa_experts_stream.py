@@ -3,9 +3,9 @@ order of arithmetic in plain PyTorch
 (``kernels/ref.py:gqsa_gemv_experts_grouped_ref``) against the port's
 plain version (``gqsa_gemv_experts_ref``) and, expert by expert, the JAX
 reference's Pallas kernel in interpret mode, on the same numpy inputs,
-at each group size the kernel takes (8, 16, 32); and the expert launch's
-plan (token tile, grid, shared memory), which comes from shapes, the
-group size and the SM count alone.
+at each group size the kernel takes (8, 16, 32, 64, 128); and the
+expert launch's plan (token tile, grid, shared memory), which comes from
+shapes, the group size and the SM count alone.
 
 Tolerance, max-abs error over max |y|: 1e-5 for bf16 and f32 x, as for
 the single-matrix kernel (``test_torch_gqsa_stream.py``): every side
@@ -235,7 +235,7 @@ def test_experts_layout_constants_match_the_cuda_source():
     their constants: the CUDA source's ring depth, block-shared ints and
     per-group-size stages (``Stage<G>``, the single-matrix kernel's) are
     the wrapper's. On the card the launcher also refuses any size but its
-    own count, and any group size but 8, 16 and 32."""
+    own count, and any group size but 8, 16, 32, 64 and 128."""
     path = os.path.join(os.path.dirname(__file__), "..", "src",
                         "repro_torch", "csrc", "gqsa_gemv.cu")
     with open(path) as f:

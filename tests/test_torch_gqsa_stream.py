@@ -2,9 +2,9 @@
 in plain PyTorch (``kernels/ref.py:gqsa_gemv_grouped_ref``) against the
 port's plain version and the JAX reference (the Pallas kernel in
 interpret mode and its jnp oracle) on the same numpy inputs, at each
-group size the kernel takes (8, 16, 32; the reference packs at g), and
-the launcher's choices (token tile, grid, shared memory), which come
-from shapes, the group size and the SM count alone.
+group size the kernel takes (8, 16, 32, 64, 128; the reference packs at
+g), and the launcher's choices (token tile, grid, shared memory), which
+come from shapes, the group size and the SM count alone.
 
 Tolerance, max-abs error over max |y|: 1e-5 for bf16 and f32 x. Every
 side multiplies the same f32 values (bf16 x widens exactly, the codes are

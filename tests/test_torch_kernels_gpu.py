@@ -223,14 +223,15 @@ def test_gqsa_gemv_kernel_bit_identical_at_group_sizes(cuda, g, dtype):
 
 
 def test_gqsa_gemv_kernel_refuses_other_group_sizes(cuda):
-    """g = 64 (which the reference takes) raises, naming ROADMAP.md, on one
-    matrix and on the expert axis, before anything launches; nothing goes
-    to the plain version. The launcher itself refuses g = 64 and 4."""
+    """g = 256 (which the reference takes) raises, naming ROADMAP.md, on
+    one matrix and on the expert axis, before anything launches; nothing
+    goes to the plain version. The launcher itself refuses g = 256 and
+    4."""
     from repro_torch.kernels.gqsa_gemv import (_launcher,
                                                gqsa_gemv_experts_cuda)
-    bsr = pack_linear(torch.randn((64, 256), generator=cuda, device="cuda"),
-                      _gqsa(64))
-    x = torch.randn((4, 256), generator=cuda, device="cuda")
+    bsr = pack_linear(torch.randn((64, 512), generator=cuda, device="cuda"),
+                      _gqsa(256))
+    x = torch.randn((4, 512), generator=cuda, device="cuda")
     before = (gqsa_gemv_cuda.launches, gqsa_gemv_experts_cuda.launches)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ops.gqsa_gemv(x, bsr)
@@ -242,12 +243,13 @@ def test_gqsa_gemv_kernel_refuses_other_group_sizes(cuda):
     assert (gqsa_gemv_cuda.launches,
             gqsa_gemv_experts_cuda.launches) == before
     y = torch.empty((4, 64), device="cuda")
-    for g in (64, 4):
+    for g in (256, 4):
         rc = _launcher()(x.data_ptr(), 0, bsr.idx.data_ptr(),
                          bsr.vals.data_ptr(), bsr.scale.data_ptr(),
                          bsr.zero.data_ptr(), y.data_ptr(), 4, 64,
-                         bsr.idx.shape[1], 256, g, 4, 1, 1, 0,
+                         bsr.idx.shape[1], 512, g, 4, 1, 1, 0,
                          torch.cuda.current_stream().cuda_stream)
+        assert rc == 1, rc
         assert rc == 1, rc
 
 
@@ -897,8 +899,8 @@ def test_gqsa_gemv_experts_at_group_sizes(cuda, g, e, n, k, dtype):
 def test_gqsa_gemv_experts_rejects_what_it_does_not_take(cuda):
     """Operands the wrapper refuses before any launch, and a launcher
     that takes no shared-memory count but its own (g = 8's count is not
-    g = 16's), only 16 or 32 lanes a row and no group size but 8, 16 or
-    32."""
+    g = 16's), only 16 or 32 lanes a row and no group size but 8, 16, 32,
+    64 or 128."""
     from repro_torch.kernels.build import sm_count
     from repro_torch.kernels.gqsa_gemv import (_experts_launcher,
                                                experts_plan,
@@ -928,14 +930,122 @@ def test_gqsa_gemv_experts_rejects_what_it_does_not_take(cuda):
     y = torch.empty((e, 2, n), device="cuda")
     for smem, lanes, g in ((p.smem - 16, p.row_lanes, 16),
                            (p.smem + 16, p.row_lanes, 16), (p.smem, 8, 16),
-                           (p.smem, p.row_lanes, 64), (p.smem, p.row_lanes,
-                                                       8)):
+                           (p.smem, p.row_lanes, 256), (p.smem, p.row_lanes,
+                                                        8)):
         rc = _experts_launcher()(
             x.data_ptr(), 0, bsr.idx.data_ptr(), bsr.vals.data_ptr(),
             bsr.scale.data_ptr(), bsr.zero.data_ptr(), y.data_ptr(), None,
             e, 2, n, m, k, g, p.tile, lanes, p.blocks, smem,
             torch.cuda.current_stream().cuda_stream)
         assert rc == 1, rc
+
+
+WIDE_ROWS = (1, 4, 8, 9, 64, 116)   # x rows at g = 64 and 128
+
+
+@pytest.mark.parametrize("n,k", [(4096, 4096), (11008, 4096), (4096, 11008),
+                                 (40, 1408)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g", [64, 128])
+def test_gqsa_gemv_kernel_matches_grouped_at_wide_group_sizes(cuda, g, n, k,
+                                                             dtype):
+    """g = 64 and 128 (a kept group as g / 32 parts of 32 codes) at the
+    llama2-7b shapes and K = 1408 (11 groups of 128): one launch a call
+    at every row count, a repeat bit-identical, the output held to its
+    grouped plain version (the kernel's order of arithmetic per part) and
+    to the plain version."""
+    from repro_torch.kernels import ref
+    bsr = pack_linear(torch.randn((n, k), generator=cuda, device="cuda")
+                      / k ** 0.5, _gqsa(g))
+    assert bsr.group_size == g and bsr.vals.shape[-1] == g // 2
+    for b in WIDE_ROWS:
+        x = torch.randn((b, k), generator=cuda, device="cuda").to(dtype)
+        before = gqsa_gemv_cuda.launches
+        y = ops.gqsa_gemv(x, bsr)
+        assert gqsa_gemv_cuda.launches - before == 1
+        assert torch.equal(y, ops.gqsa_gemv(x, bsr))
+        _close(y, ref.gqsa_gemv_grouped_ref(x, bsr))
+        _close(y, ops.gqsa_gemv(x, bsr, plain=True))
+
+
+@pytest.mark.parametrize("g", [64, 128])
+def test_gqsa_gemv_kernel_ragged_rows_at_wide_group_sizes(cuda, g):
+    """-1 padding slots, an empty row and rows of an odd number of parts
+    (K = 1408), bf16 and f32 x at every row count."""
+    from repro_torch.kernels import ref
+    k = 1408
+    w = torch.randn((300, k), generator=cuda, device="cuda")
+    mask = torch.rand((300, k // g), generator=cuda, device="cuda") < 0.3
+    mask[7] = False
+    bsr = pack_dense(w, mask, QuantConfig(bits=4, group_size=g))
+    assert bool((bsr.idx < 0).any())
+    for b in WIDE_ROWS:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((b, k), generator=cuda, device="cuda").to(dtype)
+            y = ops.gqsa_gemv(x, bsr)
+            _close(y, ref.gqsa_gemv_grouped_ref(x, bsr))
+            _close(y, ops.gqsa_gemv(x, bsr, plain=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g", [64, 128])
+def test_gqsa_gemv_kernel_bit_identical_at_wide_group_sizes(cuda, g, dtype):
+    """At g = 64 and 128 a row of x gives the same bits at T = 1, in a
+    tile of 2, 4 or 8, or in a 116-row call."""
+    from repro_torch.kernels.gqsa_gemv import plan
+    bsr = pack_linear(torch.randn((4096, 11008), generator=cuda,
+                                  device="cuda"), _gqsa(g))
+    x = torch.randn((116, 11008), generator=cuda, device="cuda").to(dtype)
+    y = ops.gqsa_gemv(x, bsr)
+    tiles = set()
+    for rows in (slice(5, 6), slice(6, 8), slice(8, 12), slice(16, 24),
+                 slice(0, 20)):
+        part = x[rows].contiguous()
+        tiles.add(plan(part.shape[0], 4096, 11008, g, part.element_size(),
+                       132).tile)
+        assert torch.equal(ops.gqsa_gemv(part, bsr), y[rows])
+    assert len(tiles) >= 3
+
+
+@pytest.mark.parametrize("e,n,k", GQSA_EXPERT_SHAPES + [(5, 300, 512)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g", [64, 128])
+def test_gqsa_gemv_experts_at_wide_group_sizes(cuda, g, e, n, k, dtype):
+    """The expert axis at g = 64 and 128, at the DeepSeek-V2 and
+    deepseek-moe-16b expert shapes (its w_d: 6 kept groups of 128, 24
+    parts a row) and a small one: C = 1, 5, 13 and 30, one launch a call,
+    ``rows`` absent and given (idle rows exact zeros), a repeat
+    bit-identical, held to the grouped plain version and the plain
+    version; then NaN in the idle experts' scales and in x past every
+    expert's rows leaves the output equal to the plain version's on the
+    clean operands (nothing idle is read)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gqsa_gemv import gqsa_gemv_experts_cuda
+    bsr = _experts(cuda, e, n, k, g)
+    assert bsr.group_size == g
+    for c in (1, 5, 13, 30):
+        x = torch.randn((e, c, k), generator=cuda, device="cuda").to(dtype)
+        rows = _occupancy(cuda, e, c)
+        idle = torch.arange(c, device="cuda")[None, :] >= rows[:, None]
+        for r in (None, rows):
+            before = gqsa_gemv_experts_cuda.launches
+            y = ops.gqsa_gemv_experts(x, bsr, r)
+            assert gqsa_gemv_experts_cuda.launches - before == 1
+            assert y.shape == (e, c, n) and y.dtype == torch.float32
+            assert torch.equal(y, ops.gqsa_gemv_experts(x, bsr, r))
+            _close(y, ops.gqsa_gemv_experts(x, bsr, r, plain=True))
+            if r is not None:
+                assert (y[idle] == 0).all()
+        _close(ops.gqsa_gemv_experts(x, bsr, rows),
+               ref.gqsa_gemv_experts_grouped_ref(x, bsr, rows))
+        plain = ops.gqsa_gemv_experts(x, bsr, rows, plain=True)
+        poisoned = dataclasses.replace(bsr, scale=bsr.scale.clone())
+        poisoned.scale[rows == 0] = float("nan")
+        xp = x.clone()
+        xp[idle] = float("nan")
+        y = ops.gqsa_gemv_experts(xp, poisoned, rows)
+        assert torch.isfinite(y).all()
+        _close(y, plain)
 
 
 def test_paged_attention_kernel_above_48kb_of_shared_memory(cuda):
