@@ -164,7 +164,26 @@ Phases (any failure exits non-zero before the result line is printed):
      and 64, the plain mode at (8, 7) and (2, 12), kv_decode_attention at
      (2, 12) and (8, 16) over 4 x 4096 and 4 x 32768. Every kernel must launch on
      each config's path that runs it; the kernels line's ``dense_configs``
-     holds those launches by config.
+     holds those launches by config;
+ 22. the shared-prefix KV cache and its ragged tail prefill: (a) paged
+     attention's plain (bf16, f32 pages) and int8 modes on the tail feed,
+     B=4, KH=32, D=128, ps=16, T=64 query rows a slot on the staircase
+     over (shared base, fed rows) (1024, 17), (1040, 64), (1008, 33) and
+     a slot fed nothing: every row finite, padding included, within the
+     bar of the plain version, repeats bit-identical; the plain mode
+     timed there beside its plain version, SDPA under the same staircase
+     mask and the bound; (b) the main path, llama2-7b at full width and
+     depth, GQSA W4 S50 G16, bf16, the engine with the prefix cache on, 4
+     slots, max_seq 2048: 8 requests x 32 new tokens, seven sharing a
+     1024-token prefix with tails of 8-48 tokens, the last exactly the
+     prefix (a page-aligned full hit: copy on write); hits, misses and hit
+     tokens as the admission order implies, every kernel's launches equal
+     to the count the batched prefills, tail dispatches, decode steps and
+     layers give, TTFT of the misses and the hits; (c) f32 at full width
+     and 4 layers: greedy tokens with the cache on equal to off on (b)'s
+     requests, and again on a pool small enough to evict; (d) the serve
+     CLI with ``--prefix-cache`` at full width and depth: its ``[prefix]``
+     line with misses=8 (its 4-15-token prompts fill no page).
 Each main path is driven with every kernel's launch count set to 0 just
 before it and read just after. The line before the last is a JSON object
 with every kernel's numbers; the last line is {"ok": true, "device": {...}}.
@@ -1036,10 +1055,12 @@ def profile_steps(step, steps, label):
             f"device busy)")
 
 
-def phase_serve(compress, arch="llama2_7b", group_size=16):
+def phase_serve(compress, arch="llama2_7b", group_size=16, extra=(),
+                out=None):
     """A main path: the serve CLI at full width (and depth), ``arch``
     under ``compress`` at ``group_size`` (``--group-size``; 16 is the
-    CLI's default)."""
+    CLI's default), with the flags ``extra``; ``out``, a list, gets the
+    CLI's printed output."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import serve
     moe = get_config(arch).moe is not None
@@ -1047,9 +1068,10 @@ def phase_serve(compress, arch="llama2_7b", group_size=16):
            f"deepseek-moe {compress}"}.get(arch, f"{arch} {compress}")
     if group_size != 16:
         tag += f" g{group_size}"
+    tag = " ".join([tag, *extra])
     argv = ["--arch", arch, "--full", "--compress", compress, "--slots",
             "4", "--requests", "8", "--max-new", "32", "--max-seq", "256",
-            "--seed", str(SEED), "--group-size", str(group_size)]
+            "--seed", str(SEED), "--group-size", str(group_size), *extra]
     buf = io.StringIO()
     reset_launches()
     t0 = time.time()
@@ -1058,6 +1080,8 @@ def phase_serve(compress, arch="llama2_7b", group_size=16):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_launches()
+    if out is not None:
+        out.append(buf.getvalue())
     for line in buf.getvalue().splitlines():
         log(f"[serve {tag}] {line}")
     log(f"[serve {tag}] wall {wall:.1f}s (init + pack + serve); "
@@ -3314,6 +3338,324 @@ def phase_dense_configs(timer):
     return errs, times, launches, by_kernel
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the shared-prefix KV cache and its ragged tail prefill
+# ---------------------------------------------------------------------------
+
+PREFIX_TAIL_SLOTS = ((1024, 17), (1040, 64), (1008, 33), (0, 0))
+PREFIX_T = 64                 # the tail's query rows a slot (t_pad)
+PREFIX_LEN = 1024             # the shared prefix of (b)-(c): 64 pages
+PREFIX_MAX_SEQ = 2048
+PREFIX_CHECK_LAYERS = 4       # (c)'s depth
+# (c)'s pool under eviction: one request of up to 69 pages resident at a
+# time, so a hit's own pages (5 past the 64 of the prefix) come from
+# dropping the cached tail blocks of earlier requests
+PREFIX_EVICT_PAGES = 70
+
+
+def _tail_feed(dtype, g, kh=32, d=128, ps=16):
+    """The tail dispatch's attention operands at full width (a shuffled
+    pool): slot i's ``PREFIX_T`` rows on the staircase base + t + 1 over
+    its cached prefix and tail pages, rows at t >= feed padding; the last
+    slot is fed nothing (all-sentinel table, as a slot outside the
+    admission group). Returns (q, k_pages, v_pages, lengths, table,
+    scales, feed)."""
+    b, t = len(PREFIX_TAIL_SLOTS), PREFIX_T
+    mp = max(-(-(base + t + 32) // ps) for base, _ in PREFIX_TAIL_SLOTS)
+    lens = torch.tensor([[base + i + 1 for i in range(t)]
+                         for base, _ in PREFIX_TAIL_SLOTS],
+                        dtype=torch.int32)
+    q, kp, vp, lq, bt, ks, vs = _attn_case(b, t, lens, dtype, g, kh=kh,
+                                           d=d, ps=ps, mp=mp)
+    bt[-1] = kp.shape[0]
+    feed = torch.tensor([f for _, f in PREFIX_TAIL_SLOTS], device="cuda")
+    return q, kp, vp, lq, bt, ks, vs, feed
+
+
+def phase_prefix_kernels(timer):
+    """(a) The plain (bf16, f32 pages) and int8 modes on the tail feed
+    against their plain versions: every row finite (padding included:
+    its sentinel pages clamp to the pool's last page), the fed rows and
+    the padding within the bar, one launch a call, repeats
+    bit-identical; then the plain mode at this shape timed beside its
+    plain version, SDPA under the same staircase mask (K/V gathered
+    beforehand) and the bound. Returns ({mode: worst error}, timing)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    worst = {"plain": 0.0, "int8": 0.0}
+    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+        mode = "int8" if dtype == torch.int8 else "plain"
+        q, kp, vp, lq, bt, ks, vs, feed = _tail_feed(dtype, g)
+        counter = "int8_launches" if mode == "int8" else "launches"
+        before = getattr(paged_attention_cuda, counter)
+        o = ops.paged_decode_attention(q, kp, vp, lq, bt, ks, vs)
+        require(getattr(paged_attention_cuda, counter) == before + 1,
+                f"tail feed ({mode}): one launch")
+        ref = ops.paged_decode_attention(q, kp, vp, lq, bt, ks, vs,
+                                         plain=True)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(o).all()),
+                f"tail feed ({mode}): every row finite, padding included")
+        real = (torch.arange(PREFIX_T, device="cuda")[None, :]
+                < feed[:, None])
+        scale = ref.abs().max().item()
+        err = (o - ref).abs().max().item()
+        err_real = (o - ref)[real].abs().max().item()
+        log(f"[prefix kernels] tail feed pages={str(dtype)[6:]} B=4 T="
+            f"{PREFIX_T} KH=32 D=128 ps=16 (base, feed) "
+            f"{list(PREFIX_TAIL_SLOTS)} "
+            f"({split_note(4, 32, PREFIX_T, bt.shape[1], 128)}): "
+            f"max_abs_err {err:.3e} (fed rows {err_real:.3e}) rel "
+            f"{err / scale:.3e} (bar rel {TOL:.0e})")
+        require(err <= TOL * scale,
+                f"tail feed ({mode}) disagrees: rel {err / scale}")
+        require(torch.equal(o, ops.paged_decode_attention(q, kp, vp, lq, bt,
+                                                          ks, vs)),
+                f"tail feed ({mode}): repeat not bit-identical")
+        worst[mode] = max(worst[mode], err)
+    # the plain mode timed at the tail shape (bf16 pages)
+    q, kp, vp, lq, bt, _, _, _ = _tail_feed(torch.bfloat16, g)
+    q = q.to(torch.bfloat16)
+    b, t, h, d = q.shape
+    lq2, live = ops.paged_query_prep(lq, bt, b, t, kp.shape[1])
+    qh = q.reshape(b, t, h, 1, d).permute(0, 2, 1, 3, 4) \
+          .reshape(b, h, t, d).float().contiguous()
+    smax = int(lq.max())
+    bti = bt.clamp(max=kp.shape[0] - 1).long()
+    kk, vv = (p[bti].reshape(b, -1, h, d)[:, :smax].permute(0, 2, 1, 3)
+              .contiguous() for p in (kp, vp))
+    mask = (torch.arange(smax, device="cuda")[None, None, :]
+            < lq[:, :, None])[:, None]                 # [B, 1, T, S]
+    qs = q.permute(0, 2, 1, 3).contiguous()
+    t_k = timer.ms(lambda: paged_attention_cuda(qh, kp, vp, lq2, bt, live,
+                                                t))
+    t_p = timer.ms(lambda: ops.paged_decode_attention(q, kp, vp, lq, bt,
+                                                      plain=True))
+    t_l = timer.ms(lambda: F.scaled_dot_product_attention(qs, kk, vv,
+                                                          attn_mask=mask))
+    # bytes: each slot's live K/V (its longest row's positions) read once,
+    # q read and the output written in f32; operations: two multiply-adds
+    # a head dim for every (row, visible position)
+    nbytes = sum(int(r.max()) for r in lq) * h * d * 2 * 2 \
+        + 2 * b * t * h * d * 4
+    flops = 4 * int(lq.long().sum()) * h * d
+    bound, by, bound_f32 = _attn_bound(nbytes, flops)
+    log(f"[prefix time] tail feed B=4 T={PREFIX_T} KH=32 D=128 bf16 pages, "
+        f"lengths up to {smax}: kernel {t_k * 1e3:.1f}us plain "
+        f"{t_p * 1e3:.1f}us sdpa (staircase mask) {t_l * 1e3:.1f}us bound "
+        f"{bound * 1e3:.2f}us by {by} (f32 rate {bound_f32 * 1e3:.2f}us; "
+        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP) -> "
+        f"{bound / t_k:.0%} of bound")
+    return worst, dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                       bound_ms=bound, bound_by=by, bound_f32_ms=bound_f32)
+
+
+def prefix_requests(vocab, seed=SEED):
+    """(b)-(c)'s 8 prompts from ``seed``: seven share a ``PREFIX_LEN``
+    prefix and have unique tails of 8-48 tokens; the eighth, submitted
+    last, is exactly the prefix (a page-aligned full hit)."""
+    rng = np.random.default_rng(seed + 22)
+    pre = rng.integers(0, vocab, PREFIX_LEN).astype(np.int32)
+    tails = rng.integers(8, 49, 7)
+    return [np.concatenate([pre, rng.integers(0, vocab, n).astype(np.int32)])
+            for n in tails] + [pre.copy()]
+
+
+def prefix_expected(prompts, slots=4, ps=16):
+    """The prefix counters that FIFO admission of ``prompts`` into
+    ``slots`` slots implies, every request of one budget: the first group
+    misses (a prefix enters the cache only after its prefill), each
+    later one hits the common prefix's full pages, clamped to its length
+    - 1 (a page-aligned full hit then copies on write)."""
+    common = PREFIX_LEN // ps * ps
+    hits = prompts[slots:]
+    return dict(misses=min(slots, len(prompts)), hits=len(hits),
+                hit_tokens=sum(min(common, len(p) - 1) for p in hits),
+                cow=sum(min(common, len(p) - 1) % ps != 0 for p in hits))
+
+
+def _prefix_engine(cfg, params, prefix, tails=None, **kw):
+    """8 prefix requests x 32 new tokens through the engine, 4 slots,
+    max_seq 2048; ``tails``, a list, gets the arguments of every tail
+    dispatch. Returns (tokens in submission order, engine, launches, wall
+    seconds)."""
+    from repro_torch.engine import EngineConfig, InferenceEngine
+    prompts = prefix_requests(cfg.vocab)
+    reset_launches()
+    t0 = time.time()
+    eng = InferenceEngine(cfg, params, EngineConfig(
+        num_slots=4, max_seq=PREFIX_MAX_SEQ, seed=SEED, device="cuda",
+        prefix_cache=prefix, **kw))
+    if tails is not None:
+        inner = eng._tail_fn
+
+        def recorded(*args):
+            tails.append(args)
+            return inner(*args)
+        eng._tail_fn = recorded
+    rids = [eng.submit(p, 32) for p in prompts]
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    by = {r["rid"]: r["tokens"] for r in res["results"]}
+    require(len(by) == 8 and all(len(by[r]) == 32 for r in rids),
+            "8 requests x 32 tokens")
+    alc = eng.kv.allocator
+    require(alc.num_free + alc.num_outstanding == eng.kv.num_pages,
+            "page conservation")
+    return [by[r] for r in rids], eng, read_launches(), wall
+
+
+def _prefix_counters(eng):
+    reg = eng.tel.registry
+    return {k: int(reg.counter(f"prefix.{c}").value) for k, c in (
+        ("hits", "hits"), ("misses", "misses"), ("hit_tokens", "hit_tokens"),
+        ("cow", "cow_copies"), ("evicted", "evicted_pages"))}
+
+
+def phase_prefix_engine():
+    """(b) The main path: llama2-7b at full width and depth, GQSA W4 S50
+    G16, bf16, the engine with the prefix cache on: hits and misses as
+    the admission order implies, every kernel's launches equal to the
+    count the batched prefills, tail dispatches, decode steps and layers
+    give. Returns (launches, TTFT numbers)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.gqs_layer import GQSAConfig
+    from repro_torch.models import transformer as tf
+    full = get_config("llama2_7b")
+    t0 = time.time()
+    params = tf.init_params(SEED, full, "cuda", compress=GQSAConfig())
+    torch.cuda.synchronize()
+    log(f"[prefix engine] llama2-7b GQSA packed in {time.time() - t0:.1f}s")
+    prompts = prefix_requests(full.vocab)
+    tails = []
+    toks, eng, launches, wall = _prefix_engine(full, params, True, tails)
+    m = eng.metrics.summary()
+    got, want = _prefix_counters(eng), prefix_expected(prompts)
+    log(f"[prefix engine] {eng.metrics.format_summary()}")
+    log(f"[prefix engine] prompts {[len(p) for p in prompts]}; counters "
+        f"{got} (admission order implies {want}); {m['prefills']} batched "
+        f"prefills, {m['prefill_tails']} tail dispatches, "
+        f"{m['decode_steps']} decode steps; wall {wall:.1f}s; launches "
+        f"{launches}")
+    require(all(got[k] == v for k, v in want.items()),
+            f"prefix counters {got} are not the admission order's {want}")
+    require(got["cow"] >= 1, "the page-aligned full hit copied on write")
+    layers = full.n_layers
+    calls = m["prefills"] + m["prefill_tails"] + m["decode_steps"]
+    expect = {"gqsa_gemv": 7 * layers * calls,
+              "paged_attention": layers * (m["prefill_tails"]
+                                           + m["decode_steps"])}
+    require(all(launches[k] == v for k, v in expect.items()),
+            f"launches {launches} are not the layer structure's {expect}")
+    require(m["prefill_tails"] >= 1, "a tail dispatch ran")
+    require(all(v == 0 for k, v in launches.items()
+                if k not in expect and k != "w4_matmul_tc"),
+            "no tree-mode, latent-mode, int8-mode, expert-axis or w4_matmul "
+            "launch on the prefix path")
+    timing = {}
+    for kind, group in (("misses", range(4)), ("hits", range(4, 8))):
+        rts = [eng.metrics.requests[i] for i in group]
+        ttft = [r.ttft_s * 1e3 for r in rts]
+        pre = [(r.first_token_t - r.admit_t) * 1e3 for r in rts]
+        timing[kind] = dict(ttft_ms=float(np.median(ttft)),
+                            admit_to_first_ms=float(np.median(pre)))
+        log(f"[prefix engine] TTFT of the {kind}: "
+            f"{['%.1f' % x for x in ttft]} ms (median "
+            f"{timing[kind]['ttft_ms']:.1f}); admission to first token "
+            f"(the {'batched prefill' if kind == 'misses' else 'tail'} "
+            f"dispatch) {['%.1f' % x for x in pre]} ms (median "
+            f"{timing[kind]['admit_to_first_ms']:.1f})")
+    # the hits' tail dispatch again (it rewrites its rows with the same
+    # values), profiled: B x t_pad rows through every projection
+    args = tails[0]
+    log(f"[prefix engine] tail dispatch: {args[2].shape[0]} slots x "
+        f"t_pad {args[2].shape[1]} rows, feed {args[4].tolist()}, "
+        f"max_live {args[7]} pages")
+    profile_steps(lambda: eng._tail_fn(*args), 2,
+                  "llama2-7b GQSA bf16 tail dispatch (prefix hits)")
+    del params, eng
+    return launches, timing
+
+
+def _tokens_equal(params, cfg, prompts, got, want, label):
+    """``got`` against ``want`` (the cache-off run), request by request:
+    equal, or first different only where the cache-off path's top-2
+    margin is under the near-tie bound. Returns the number differing."""
+    mism = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        diff = np.flatnonzero(a != b)
+        if len(diff) == 0:
+            continue
+        mism += 1
+        at = int(diff[0])
+        margin, scale = greedy_margin(params, cfg, prompts[i], b, at)
+        log(f"[prefix f32] {label}: request {i} first differs at token "
+            f"{at}: cache-off top-2 margin {margin:.4e} (rel "
+            f"{margin / scale:.2e})")
+        require(margin <= SPEC_MARGIN_REL * scale,
+                f"{label}: tokens differ at a clear top-2 margin")
+    return mism
+
+
+def phase_prefix_f32():
+    """(c) f32 compute at full width and ``PREFIX_CHECK_LAYERS`` layers:
+    greedy tokens with the cache on against off on (b)'s 8 requests, then
+    on a pool of ``PREFIX_EVICT_PAGES`` pages that forces evictions."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.gqs_layer import GQSAConfig
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_config("llama2_7b"), dtype="float32",
+                              n_layers=PREFIX_CHECK_LAYERS)
+    params = tf.init_params(SEED, cfg, "cuda", compress=GQSAConfig())
+    prompts = prefix_requests(cfg.vocab)
+    off, _, _, w_off = _prefix_engine(cfg, params, False)
+    for label, kw in (("cache on", {}),
+                      ("cache on, evicting",
+                       dict(num_pages=PREFIX_EVICT_PAGES))):
+        got, eng, launches, wall = _prefix_engine(cfg, params, True, **kw)
+        c = _prefix_counters(eng)
+        mism = _tokens_equal(params, cfg, prompts, got, off, label)
+        log(f"[prefix f32] {label} ({PREFIX_CHECK_LAYERS} layers, "
+            f"{eng.kv.num_pages} pages): {8 - mism} of 8 requests' tokens "
+            f"equal to the cache off; counters {c}; wall {wall:.1f}s "
+            f"(off {w_off:.1f}s)")
+        require(c["hits"] > 0, f"{label}: the cache hit")
+        if kw:
+            require(c["evicted"] > 0, f"{label}: cached pages evicted")
+        require(launches["paged_attention"] > 0
+                and launches["gqsa_gemv"] > 0, "the kernels launched")
+        del eng
+    del params
+
+
+def phase_prefix(timer):
+    """Phase 22, the shared-prefix KV cache: (a)
+    :func:`phase_prefix_kernels`; (b) :func:`phase_prefix_engine`; (c)
+    :func:`phase_prefix_f32`; (d) the serve CLI with ``--prefix-cache``
+    on llama2-7b at full width and depth (its 4-15-token prompts fill no
+    page: 8 misses). Returns (errors, timing, {path: launches}, TTFT)."""
+    t0 = time.time()
+    errs, timing = phase_prefix_kernels(timer)
+    torch.cuda.empty_cache()
+    launches, ttft = {}, {}
+    launches["prefix engine"], ttft = phase_prefix_engine()
+    torch.cuda.empty_cache()
+    phase_prefix_f32()
+    torch.cuda.empty_cache()
+    out = []
+    launches["prefix serve"] = phase_serve("gqsa", extra=["--prefix-cache"],
+                                           out=out)
+    line = [x for x in out[0].splitlines() if x.startswith("[prefix]")]
+    require(len(line) == 1 and " misses=8 " in line[0],
+            f"the serve CLI printed its [prefix] line with misses=8: {line}")
+    log(f"[time] the prefix cache (phase 22) {time.time() - t0:.1f}s")
+    return errs, timing, launches, ttft
+
+
 KERNELS = {
     "gqsa_gemv": dict(
         source="src/repro_torch/csrc/gqsa_gemv.cu",
@@ -3331,12 +3673,17 @@ KERNELS = {
              "128 (T = 4, 'rows' T = 64 and 116; at 128 also kv_a) with "
              "its error, llama2-7b's packed GB and its launches on the "
              "llama2-7b serve at that g; 'spec_g32_launches' / 'spec_g128_launches' those of the "
-             "chain w4s75 serve at g"),
+             "chain w4s75 serve at g; 'prefix_launches' its launches on "
+             "phase 22's prefix engine"),
     "paged_attention": dict(
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:181",
         unit="one layer's decode attention: 4 slots, lengths 20/25/31/29, "
-             "KH=32, D=128, bf16 pages"),
+             "KH=32, D=128, bf16 pages; 'prefix_tail' the prefix cache's "
+             "tail feed (T=64 rows a slot over 1008-1040 cached "
+             "positions, phase 22) timed, its error, its launches on the "
+             "prefix engine and the TTFT of that engine's misses and "
+             "hits"),
     "w4_matmul": dict(
         source="src/repro_torch/csrc/w4_matmul.cu",
         replaces="src/repro/kernels/w4_matmul.py:51",
@@ -3348,7 +3695,8 @@ KERNELS = {
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:181",
         unit="one layer's decode attention: 4 slots, lengths 20/25/31/29, "
-             "KH=32, D=128, int8 pages + f32 scales"),
+             "KH=32, D=128, int8 pages + f32 scales; "
+             "'prefix_tail_max_abs_err' its error on phase 22's tail feed"),
     "paged_attention_tree": dict(
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:181",
@@ -3479,6 +3827,10 @@ def main() -> int:
     dense_errs, dense_times, dense_launches, dense_by = phase_dense_configs(
         timer)
     launches.update(dense_launches)
+    torch.cuda.empty_cache()
+    prefix_errs, prefix_time, prefix_launches, prefix_ttft = phase_prefix(
+        timer)
+    launches.update(prefix_launches)
     path_of = {"gqsa_gemv": "gqsa serve", "paged_attention": "gqsa serve",
                "w4_matmul": "w4 serve",
                "paged_attention_int8": "int8-kv engine",
@@ -3552,6 +3904,15 @@ def main() -> int:
             k["dense_max_abs_err"] = dense_errs[k["name"]]
         if k["name"] in dense_times:
             k["dense_times"] = dense_times[k["name"]]
+    # phase 22: the prefix cache's tail feed and its main path
+    pa = next(k for k in kernels if k["name"] == "paged_attention")
+    pa["prefix_tail"] = dict(
+        prefix_time, max_abs_err=prefix_errs["plain"],
+        launches=launches["prefix engine"]["paged_attention"],
+        ttft=prefix_ttft)
+    pi8 = next(k for k in kernels if k["name"] == "paged_attention_int8")
+    pi8["prefix_tail_max_abs_err"] = prefix_errs["int8"]
+    gemv["prefix_launches"] = launches["prefix engine"]["gqsa_gemv"]
     require(all(k["launches"] > 0 for k in kernels),
             "every kernel launched on its main path")
     require(all(r["launches"] > 0 for k in (gemv, gx)

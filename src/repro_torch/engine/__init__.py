@@ -11,6 +11,7 @@ on top of the GQSA-compressed model::
 from repro_torch.engine.engine import EngineConfig, InferenceEngine
 from repro_torch.engine.kv_cache import PageAllocator, PagedKVCache
 from repro_torch.engine.metrics import EngineMetrics
+from repro_torch.engine.prefix_cache import PrefixCache
 from repro_torch.engine.resilience import (OversizedRequest, RejectedRequest,
                                            ResilienceConfig)
 from repro_torch.engine.sampling import SamplingParams, sample
@@ -19,7 +20,7 @@ from repro_torch.engine.telemetry import (MetricsRegistry, SpanTracer,
                                           StreamingHistogram, Telemetry)
 
 __all__ = ["EngineConfig", "InferenceEngine", "PageAllocator",
-           "PagedKVCache", "EngineMetrics", "SamplingParams", "sample",
-           "Request", "Scheduler", "Telemetry", "MetricsRegistry",
+           "PagedKVCache", "PrefixCache", "EngineMetrics", "SamplingParams",
+           "sample", "Request", "Scheduler", "Telemetry", "MetricsRegistry",
            "SpanTracer", "StreamingHistogram", "ResilienceConfig",
            "RejectedRequest", "OversizedRequest"]

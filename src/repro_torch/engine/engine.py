@@ -20,11 +20,17 @@ token TREE (DESIGN.md §8): top-k branches per draft depth, one T = N+1
 tree-attention verify and an accepted-path KV compaction, optionally
 retuned per segment from the observed acceptance (``spec_adaptive``).
 
+With ``prefix_cache=True`` admission maps a prompt's cached full-page
+prefix onto pages other requests already wrote (DESIGN.md §13,
+``engine/prefix_cache.py``), and the slot prefills only its unshared
+tail: one ragged multi-token decode dispatch (``tail_fn``) for all such
+slots of an admission group, beside the batched prefill of the others.
+
 Steps are plain eager PyTorch functions (no ``torch.compile``, no CUDA
-graphs). The prefix cache, chunked prefill, timed admission and the
+graphs). Chunked prefill (ROADMAP A.4), timed admission and the
 resilience features of the reference engine (with them the spec ladder's
-pressure degrade) are later slices (ROADMAP A.4-A.5): ``run`` raises
-when asked for them.
+pressure degrade; ROADMAP A.5) are later slices: ``run`` raises when
+asked for them.
 """
 from __future__ import annotations
 
@@ -72,9 +78,12 @@ class EngineConfig:
     # thrash shrinks it to a chain K=1, sustained acceptance widens it
     # back to the full spec_fanout
     spec_adaptive: bool = False
+    # shared-prefix KV reuse (engine/prefix_cache.py, DESIGN.md §13):
+    # admission maps cached full-page prompt blocks to existing pages
+    # (refcounted, copy-on-write) and prefills only the unshared tail
+    prefix_cache: bool = False
     # options of the reference engine that later slices port; any value
     # but the default makes run() raise
-    prefix_cache: bool = False
     resilience: Optional[ResilienceConfig] = None
     prefill_chunk_tokens: int = 0
 
@@ -87,7 +96,8 @@ def _bucket(n: int, lo: int) -> int:
 
 
 def _step_fns(cfg, sampling: SamplingParams):
-    """The prefill and decode steps (eager, on the params' device)."""
+    """The prefill, decode and tail-prefill steps (eager, on the params'
+    device)."""
     api = get_model(cfg)
 
     def prefill_fn(params, cache, tokens, lengths, block_tables, gen):
@@ -102,7 +112,24 @@ def _step_fns(cfg, sampling: SamplingParams):
                                     max_live_pages=max_live)
         return sample(logits[:, -1, :], gen, sampling), positions + active
 
-    return prefill_fn, decode_fn
+    def tail_fn(params, cache, tokens, positions, feed_len, block_tables,
+                gen, max_live):
+        # prefix-cache tail prefill (DESIGN.md §13): slots whose prompt
+        # prefix lies on cached pages feed only the unshared tail, a
+        # ragged multi-token decode block (token t writes and attends at
+        # positions + t; rows padded to one T, their writes dropped past
+        # feed_len). The first token comes from each row's LAST real
+        # token; assign's clamp guarantees feed_len >= 1 in every row
+        # that is fed.
+        logits, _ = api.decode_step(params, cache, tokens, positions, cfg,
+                                    block_tables, max_live_pages=max_live,
+                                    feed_len=feed_len)
+        last = (feed_len.long() - 1).clamp_min(0)
+        rows = logits[torch.arange(logits.shape[0], device=last.device),
+                      last]
+        return sample(rows, gen, sampling)
+
+    return prefill_fn, decode_fn, tail_fn
 
 
 class InferenceEngine:
@@ -163,7 +190,9 @@ class InferenceEngine:
         self.kv = PagedKVCache(cfg, api, engine_cfg.num_slots,
                                engine_cfg.max_seq, engine_cfg.page_size,
                                engine_cfg.num_pages, lookahead=lookahead,
-                               registry=reg, device=self.device)
+                               registry=reg,
+                               prefix_cache=engine_cfg.prefix_cache,
+                               device=self.device)
         self.scheduler = Scheduler(engine_cfg.num_slots, self.kv,
                                    engine_cfg.max_seq, registry=reg)
         self.metrics = EngineMetrics(registry=reg, tracer=self.tel.tracer)
@@ -183,7 +212,8 @@ class InferenceEngine:
         self._token_log: List[torch.Tensor] = []       # [B] tensors, lazy
         # spec mode log: (tokens [B, W], counts [B]) per prefill/round
         self._spec_log: List[Tuple[torch.Tensor, torch.Tensor]] = []
-        self._prefill_fn, self._decode_fn = _step_fns(cfg, sampling)
+        self._prefill_fn, self._decode_fn, self._tail_fn = _step_fns(
+            cfg, sampling)
 
     # -- device helpers -----------------------------------------------------
 
@@ -223,17 +253,15 @@ class InferenceEngine:
     def _check_ported(self, source) -> None:
         e = self.ecfg
         later = []
-        if source is not None:
-            later.append("timed admission (source)")
-        if e.prefix_cache:
-            later.append("prefix cache")
         if e.prefill_chunk_tokens > 0:
-            later.append("chunked prefill")
+            later.append("chunked prefill (ROADMAP A.4)")
+        if source is not None:
+            later.append("timed admission (source; ROADMAP A.5)")
         if e.resilience is not None and e.resilience != ResilienceConfig():
-            later.append("resilience/chaos config")
+            later.append("resilience/chaos config (ROADMAP A.5)")
         if later:
             raise NotImplementedError(
-                f"not yet ported: {', '.join(later)} (ROADMAP A.4-A.5)")
+                f"not yet ported: {', '.join(later)}")
 
     def run(self, source=None) -> Dict:
         """Serve until the queue and all slots drain. Returns
@@ -445,52 +473,126 @@ class InferenceEngine:
         self._spec_log.append((toks, counts))
         return len(self._spec_log) - 1
 
+    def _log_first(self, first: torch.Tensor, mask: np.ndarray) -> int:
+        """Log a prefill's first tokens [B]; returns the log index."""
+        if self.spec:
+            return self._log_spec(first[:, None],
+                                  self._to_device(mask.astype(np.int32)))
+        self._token_log.append(first)
+        return len(self._token_log) - 1
+
     def _do_prefill(self, admitted: List[Request]) -> None:
-        """Full-prompt batched prefill of one admission group."""
+        """Prefill one admission group, split as the reference splits it
+        (DESIGN.md §13): slots with no shared prefix take the batched
+        full-prompt prefill, the others one ragged tail dispatch
+        together. ``metrics.prefills`` counts the batched prefill calls
+        only; ``metrics.prefill_tails`` counts the tail dispatches (the
+        tail attends through the paged kernel, the batched prefill does
+        not, so launch accounting needs the two apart)."""
         b = self.ecfg.num_slots
         tracer = self.tel.tracer
-        # cap the pow2 bucket at max_seq: prompt_len <= max_seq is
-        # enforced at submit, wider buckets are pure waste
-        s = min(_bucket(max(r.prompt_len for r in admitted),
-                        self.ecfg.prompt_bucket_min), self.ecfg.max_seq)
-        tokens = np.zeros((b, s), np.int32)
-        lengths = np.zeros((b,), np.int32)
-        # non-group slots must be invisible to the prefill writes: their
-        # rows get length 0 + all-sentinel block tables
-        bt = np.full_like(self.kv.block_tables, self.kv.sentinel)
-        mask = np.zeros((b,), bool)
+        shared = [r for r in admitted
+                  if self.kv.slot_shared_tokens(r.slot) > 0]
+        full = [r for r in admitted
+                if self.kv.slot_shared_tokens(r.slot) == 0]
+        merged = self._tokens
+        lengths_all = np.zeros((b,), np.int32)
+        mask_all = np.zeros((b,), bool)
+        idx_of: Dict[int, int] = {}       # rid -> token-log index
         for r in admitted:
             self.metrics.record_admit(r.rid)
-            tokens[r.slot, :r.prompt_len] = r.prompt
-            lengths[r.slot] = r.prompt_len
-            bt[r.slot] = self.kv.block_tables[r.slot]
-            mask[r.slot] = True
-        self.metrics.prefills += 1
-        with tracer.span("prefill") as sp, tracer.annotate("prefill"):
-            lengths_d = self._to_device(lengths)
-            first = self._prefill_fn(self.params, self.kv.data,
-                                     self._to_device(tokens), lengths_d,
-                                     self._to_device(bt), self._gen)
-            # TTFT is stamped below, so the first token must exist
-            self._wait_all()
-            sp.set(admitted=len(admitted), bucket=s, tokens=len(admitted),
-                   prompt_tokens=int(lengths.sum()))
-            if tracer.enabled:
-                for r in admitted:
-                    tracer.flow_point(r.rid, "prefill", t=sp.t0)
-        if self.spec:
-            idx = self._log_spec(first[:, None],
-                                 self._to_device(mask.astype(np.int32)))
-        else:
-            idx = len(self._token_log)
-            self._token_log.append(first)
+            lengths_all[r.slot] = r.prompt_len
+            mask_all[r.slot] = True
+        if full:
+            # cap the pow2 bucket at max_seq: prompt_len <= max_seq is
+            # enforced at submit, wider buckets are pure waste
+            s = min(_bucket(max(r.prompt_len for r in full),
+                            self.ecfg.prompt_bucket_min), self.ecfg.max_seq)
+            tokens = np.zeros((b, s), np.int32)
+            lengths = np.zeros((b,), np.int32)
+            # non-group slots must be invisible to the prefill writes:
+            # their rows get length 0 + all-sentinel block tables
+            bt = np.full_like(self.kv.block_tables, self.kv.sentinel)
+            mask = np.zeros((b,), bool)
+            for r in full:
+                tokens[r.slot, :r.prompt_len] = r.prompt
+                lengths[r.slot] = r.prompt_len
+                bt[r.slot] = self.kv.block_tables[r.slot]
+                mask[r.slot] = True
+            self.metrics.prefills += 1
+            with tracer.span("prefill") as sp, tracer.annotate("prefill"):
+                first = self._prefill_fn(self.params, self.kv.data,
+                                         self._to_device(tokens),
+                                         self._to_device(lengths),
+                                         self._to_device(bt), self._gen)
+                # TTFT is stamped below, so the first token must exist
+                self._wait_all()
+                sp.set(admitted=len(full), bucket=s, tokens=len(full),
+                       prompt_tokens=int(lengths.sum()))
+                if tracer.enabled:
+                    for r in full:
+                        tracer.flow_point(r.rid, "prefill", t=sp.t0)
+            idx = self._log_first(first, mask)
+            for r in full:
+                idx_of[r.rid] = idx
+            merged = torch.where(self._to_device(mask), first, merged)
+        if shared:
+            # unshared tails, padded to one pow2 T; feed_len drops the
+            # padding's K/V writes, so rows of different tail lengths
+            # ride one dispatch
+            t_pad = min(_bucket(max(r.prompt_len
+                                    - self.kv.slot_shared_tokens(r.slot)
+                                    for r in shared),
+                                self.ecfg.prompt_bucket_min),
+                        self.ecfg.max_seq)
+            toks = np.zeros((b, t_pad), np.int32)
+            starts = np.zeros((b,), np.int32)
+            feed = np.zeros((b,), np.int32)
+            bt = np.full_like(self.kv.block_tables, self.kv.sentinel)
+            mask = np.zeros((b,), bool)
+            for r in shared:
+                sh = self.kv.slot_shared_tokens(r.slot)
+                toks[r.slot, :r.prompt_len - sh] = r.prompt[sh:]
+                starts[r.slot] = sh
+                feed[r.slot] = r.prompt_len - sh
+                bt[r.slot] = self.kv.block_tables[r.slot]
+                mask[r.slot] = True
+            occ = int((bt != self.kv.sentinel).sum(1).max())
+            max_live = min(_bucket(max(occ, 1), 1),
+                           self.kv.max_pages_per_slot)
+            self.metrics.prefill_tails += 1
+            with tracer.span("prefill_tail") as sp, \
+                    tracer.annotate("prefill_tail"):
+                first = self._tail_fn(self.params, self.kv.data,
+                                      self._to_device(toks),
+                                      self._to_device(starts),
+                                      self._to_device(feed),
+                                      self._to_device(bt), self._gen,
+                                      max_live)
+                self._wait_all()
+                sp.set(admitted=len(shared), bucket=t_pad,
+                       tail_tokens=int(feed.sum()),
+                       shared_tokens=int(starts.sum()))
+                if tracer.enabled:
+                    for r in shared:
+                        tracer.flow_point(r.rid, "prefill_tail", t=sp.t0)
+            idx = self._log_first(first, mask)
+            for r in shared:
+                idx_of[r.rid] = idx
+            merged = torch.where(self._to_device(mask), first, merged)
+        # every prompt's full-page K/V blocks are now written (cached
+        # prefix + freshly prefilled remainder): cache them BEFORE any
+        # budget-exhausted request below releases its pages
+        if self.kv.prefix is not None:
+            for r in admitted:
+                self.kv.prefix_insert(r.slot, r.prompt)
         t = self.metrics.now()
         done_now = []
         for r in admitted:
             r.state = DECODE
             # prefill produced the first generated token
             r.produced += 1
-            r.log_entries = [idx]
+            r.log_entries = [idx_of[r.rid]]
             self.metrics.record_first_token(r.rid, t)
             if r.produced >= r.max_new_tokens:   # budget exhausted already
                 self.metrics.record_finish(r.rid, t, r.produced)
@@ -498,9 +600,10 @@ class InferenceEngine:
         for r in done_now:
             self.scheduler.finish(r)
         # merge the admitted slots into the device-side decode state
-        mask_d = self._to_device(mask)
-        self._tokens = torch.where(mask_d, first, self._tokens)
-        self._positions = torch.where(mask_d, lengths_d, self._positions)
+        self._tokens = merged
+        self._positions = torch.where(self._to_device(mask_all),
+                                      self._to_device(lengths_all),
+                                      self._positions)
         self._sync_slot_state()
 
     def _sync_slot_state(self) -> None:

@@ -80,7 +80,10 @@ class EngineMetrics:
         r = self.registry
         self._c_dispatches = r.counter("engine.dispatches")
         # batched prefill calls (each runs the target over every slot)
+        # and prefix-cache tail dispatches (each a ragged multi-token
+        # decode block over the slots that hit the cache)
         self._c_prefills = r.counter("engine.prefills")
+        self._c_prefill_tails = r.counter("engine.prefill_tails")
         self._c_enqueued = r.counter("engine.requests_enqueued")
         self._c_finished = r.counter("engine.requests_finished")
         self._c_tokens = r.counter("engine.tokens_generated")
@@ -109,6 +112,7 @@ class EngineMetrics:
 
     decode_steps = _counter_property("_c_dispatches")
     prefills = _counter_property("_c_prefills")
+    prefill_tails = _counter_property("_c_prefill_tails")
     spec_rounds = _counter_property("_c_spec_rounds")
     draft_proposed = _counter_property("_c_draft_proposed")
     draft_accepted = _counter_property("_c_draft_accepted")
@@ -215,6 +219,7 @@ class EngineMetrics:
             "tok_per_s": toks / max(dt, 1e-9),
             "decode_steps": self.decode_steps,
             "prefills": self.prefills,
+            "prefill_tails": self.prefill_tails,
             "queue_wait_ms_p50": self._h_queue_wait.quantile(50),
             "queue_wait_ms_p99": self._h_queue_wait.quantile(99),
             "ttft_ms_p50": self._h_ttft.quantile(50),

@@ -11,6 +11,12 @@ paper's W4A16 rows) instead of GQSA; ``none`` the FP model.
 profile (``--draft-profile``) of the same drawn weights drafts, the
 target verifies; greedy output equals the output without speculation.
 
+``--prefix-cache`` turns on shared-prefix KV reuse: admissions map a
+prompt's cached full-page prefix onto existing pages and prefill only the
+unshared tail; a ``[prefix]`` line of its counters follows the summary.
+The CLI's own prompts (4-15 tokens) fill no page of 16, so here it shows
+misses only; hits come with longer shared prompts through the engine.
+
 Runs on the card (``--device cuda``, the default; it raises when there is
 none) or, when asked, on the CPU (``--device cpu``) through the kernels'
 plain versions. Requests are admitted in FIFO order into a fixed pool of
@@ -96,6 +102,12 @@ def main(argv=None):
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=None,
                     help="KV page pool size (default: slots*max_seq worth)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="shared-prefix KV reuse (DESIGN.md §13): radix "
+                         "cache of full-page prompt blocks; admissions "
+                         "map cached prefixes to existing pages "
+                         "(refcounted, copy-on-write) and prefill only "
+                         "the unshared tail; lossless for greedy")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy")
     ap.add_argument("--top-k", type=int, default=0)
@@ -153,6 +165,7 @@ def main(argv=None):
         cfg, params,
         EngineConfig(num_slots=args.slots, max_seq=args.max_seq,
                      page_size=args.page_size, num_pages=args.num_pages,
+                     prefix_cache=args.prefix_cache,
                      seed=args.seed, device=str(device), spec_k=args.spec,
                      spec_draft_layers=(draft_layers(cfg, args.draft_profile)
                                         if spec_on else None),
@@ -185,6 +198,15 @@ def main(argv=None):
         h.update(np.int64(r["rid"]).tobytes())
         h.update(np.asarray(r["tokens"], np.int32).tobytes())
     print(f"[digest] {h.hexdigest()}")
+    if args.prefix_cache:
+        reg = telemetry.registry
+        print("[prefix] hits="
+              f"{int(reg.counter('prefix.hits').value)} "
+              f"misses={int(reg.counter('prefix.misses').value)} "
+              f"hit_tokens={int(reg.counter('prefix.hit_tokens').value)} "
+              f"cow={int(reg.counter('prefix.cow_copies').value)} "
+              f"evicted={int(reg.counter('prefix.evicted_pages').value)} "
+              f"cached={int(reg.gauge('prefix.cached_pages').value)}")
     if args.trace is not None:
         path = telemetry.tracer.export(args.trace)
         totals = telemetry.tracer.phase_totals()

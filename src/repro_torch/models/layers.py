@@ -273,12 +273,23 @@ class PagedStep:
 
 def paged_step(block_tables: torch.Tensor, positions: torch.Tensor, t: int,
                page_size: int, num_pages: int, cfg,
-               tree: Optional[Dict] = None) -> PagedStep:
-    """``tree``: a token-tree block (:func:`paged_block_geometry`)."""
+               tree: Optional[Dict] = None,
+               feed_len: Optional[torch.Tensor] = None) -> PagedStep:
+    """``tree``: a token-tree block (:func:`paged_block_geometry`).
+    ``feed_len`` [B]: a ragged feed (the prefix cache's tail prefill):
+    slot b's tokens at t >= feed_len[b] are padding, and their K/V writes
+    are dropped in the plan every layer shares, so they never land on a
+    page (a cached page shared with other slots included)."""
     block_tables = block_tables.to(torch.int32).contiguous()
     pos_bt, rope_pos, length, base, anc, window = paged_block_geometry(
         positions, t, tree)
-    flat, valid = page_slots(block_tables, pos_bt, page_size, num_pages)
+    keep = None
+    if feed_len is not None:
+        keep = (torch.arange(t, dtype=torch.int32,
+                             device=positions.device)[None, :]
+                < feed_len.to(torch.int32)[:, None])
+    flat, valid = page_slots(block_tables, pos_bt, page_size, num_pages,
+                             keep=keep)
     return PagedStep(
         block_tables=block_tables, length=length,
         rope=rope_table(rope_pos, rope_dim(cfg), cfg.rope_theta),

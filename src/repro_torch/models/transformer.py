@@ -449,7 +449,9 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
                 block_tables: Optional[torch.Tensor] = None,
                 max_live_pages: Optional[int] = None,
                 plain: bool = False,
-                tree: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
+                tree: Optional[Dict] = None,
+                feed_len: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict]:
     """tokens: [B, T]. ``cache`` is the paged pool of
     :func:`init_paged_cache` (``block_tables`` [B, MP] required; pos: [B]
     per-slot write positions, token t lands at pos + t) or the contiguous
@@ -464,6 +466,12 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     layers of ``cache`` are read and written (a depth-pruned draft passes
     its own shallower config).
 
+    ``feed_len`` [B] (paged pool only) makes the T-token feed ragged: slot
+    b's tokens at t >= feed_len[b] are padding, their K/V writes are
+    dropped and their logits are to be discarded by the caller (the
+    prefix cache's tail prefill: unshared prompt tails of different
+    lengths padded to one T).
+
     ``max_live_pages`` clamps the block tables to the batch's max occupied
     page count: every slot's reservation fits in the leading entries, so
     the trailing all-sentinel columns carry no information. Returns
@@ -471,6 +479,8 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     if "k_pages" not in cache and "lat_pages" not in cache:
         if tree is not None:
             raise ValueError("token-tree decode requires the paged cache")
+        if feed_len is not None:
+            raise ValueError("ragged feed_len requires the paged cache")
         return _decode_contiguous(params, cache, tokens, pos, cfg,
                                   plain), cache
     if block_tables is None:
@@ -481,7 +491,7 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     num_pages, page_size = pool_geometry(cache)
     # positions, rotations and pool rows are the same in every layer
     step = L.paged_step(block_tables, pos, tokens.shape[1], page_size,
-                        num_pages, cfg, tree)
+                        num_pages, cfg, tree, feed_len)
     h = embed_tokens(params, tokens, cfg)
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)

@@ -1558,3 +1558,141 @@ def test_static_serve_step_never_reads_the_device_on_the_host(cuda):
     reads = [e.key for e in prof.key_averages()
              if e.key in ("aten::_local_scalar_dense", "aten::item")]
     assert not reads, reads
+
+
+# ---------------------------------------------------------------------------
+# the prefix cache's ragged tail feed
+# ---------------------------------------------------------------------------
+
+TAIL_SLOTS = ((1024, 17), (1040, 64), (1008, 33), (0, 0))   # (base, feed)
+
+
+def _tail_feed(cuda, dtype, t=64, kh=32, d=128, ps=16):
+    """The tail dispatch's attention operands at full width: each slot's
+    T rows on the staircase base + t + 1 over its cached prefix and
+    tail pages (a shuffled pool), the last slot fed nothing (all-sentinel
+    table); rows at t >= feed are padding."""
+    b = len(TAIL_SLOTS)
+    mp = max(-(-(base + t + 32) // ps) for base, _ in TAIL_SLOTS)
+    num_pages = b * mp + 5
+    q = torch.randn((b, t, kh, d), generator=cuda, device="cuda")
+    sc = ()
+    if dtype == torch.int8:
+        kp, vp = (torch.randint(-127, 128, (num_pages, ps, kh, d),
+                                generator=cuda, device="cuda",
+                                dtype=torch.int8) for _ in range(2))
+        sc = tuple(torch.rand(kp.shape[:3], generator=cuda, device="cuda")
+                   / 64 + 1e-3 for _ in range(2))
+    else:
+        kp, vp = (torch.randn((num_pages, ps, kh, d), generator=cuda,
+                              device="cuda").to(dtype) for _ in range(2))
+    perm = torch.randperm(num_pages, generator=cuda, device="cuda")
+    bt = torch.full((b, mp), num_pages, dtype=torch.int32, device="cuda")
+    for i, (base, feed) in enumerate(TAIL_SLOTS):
+        if feed:
+            occ = -(-(base + feed + 32) // ps)
+            bt[i, :occ] = perm[i * mp:i * mp + occ].to(torch.int32)
+    bases = torch.tensor([base for base, _ in TAIL_SLOTS], device="cuda")
+    lens = (bases[:, None] + torch.arange(1, t + 1, device="cuda")[None, :])
+    return q, kp, vp, lens.to(torch.int32), bt, sc
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.int8])
+def test_paged_attention_kernel_on_the_tail_feed(cuda, dtype):
+    """Plain and int8 modes on 64 query rows a slot over 1008-1040 cached
+    positions: one launch, every row (padding included: its sentinel
+    pages clamp to the pool's last page) finite and equal to the plain
+    version's, repeats bit-identical."""
+    q, kp, vp, lens, bt, sc = _tail_feed(cuda, dtype)
+    counter = "int8_launches" if dtype == torch.int8 else "launches"
+    before = getattr(paged_attention_cuda, counter)
+    o = ops.paged_decode_attention(q, kp, vp, lens, bt, *sc)
+    assert getattr(paged_attention_cuda, counter) == before + 1
+    _close(o, ops.paged_decode_attention(q, kp, vp, lens, bt, *sc,
+                                         plain=True))
+    assert torch.equal(o, ops.paged_decode_attention(q, kp, vp, lens, bt,
+                                                     *sc))
+
+
+@pytest.mark.parametrize("arch,kv", [("llama2_7b", None),
+                                     ("llama2_7b", "int8"),
+                                     ("deepseek_v2_236b", None)])
+def test_copy_page_copies_every_leaf_kind_on_the_card(cuda, arch, kv):
+    """Copy-on-write on the card: K/V pages, int8 codes and scale pages,
+    latent pages; the destination page equals the source bit for bit on
+    every layer, every other page keeps its bytes, nothing moves."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.engine import PagedKVCache
+    from repro_torch.models.registry import get_model
+    cfg = get_config(arch, reduced=True)
+    if kv is not None:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=kv)
+    kvc = PagedKVCache(cfg, get_model(cfg), 2, 32, 4, prefix_cache=True,
+                       device="cuda")
+    for leaf in kvc.data.values():
+        leaf.copy_((torch.randn(leaf.shape, generator=cuda, device="cuda")
+                    * 50).to(leaf.dtype))
+    before = {k: v.clone() for k, v in kvc.data.items()}
+    ptrs = {k: v.data_ptr() for k, v in kvc.data.items()}
+    kvc._copy_page(3, 11)
+    torch.cuda.synchronize()
+    for name, leaf in kvc.data.items():
+        assert leaf.data_ptr() == ptrs[name]
+        assert torch.equal(leaf[:, 11], before[name][:, 3]), name
+        others = [p for p in range(leaf.shape[1]) if p != 11]
+        assert torch.equal(leaf[:, others], before[name][:, others]), name
+
+
+def test_tail_dispatch_bit_identical_and_never_reads_the_host(cuda):
+    """The engine's tail step on the reduced model through the kernels:
+    two runs from the same pool give the same first tokens, logits and
+    pool bits; no tensor value is read on the host; padding writes
+    nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.engine.engine import _step_fns
+    from repro_torch.engine.sampling import SamplingParams
+    from repro_torch.models import transformer as ttf
+    cfg = get_config("llama2_7b", reduced=True)
+    params = ttf.init_params(0, cfg, "cuda", compress=GQSAConfig())
+    cache = ttf.init_paged_cache(cfg, 16, 4, device="cuda")
+    bt = torch.tensor([[0, 1, 2, 3, 4, 5], [0, 6, 7, 8, 16, 16],
+                       [16] * 6], dtype=torch.int32, device="cuda")
+    ttf.prefill(params, cache, torch.tensor([[5, 6, 7, 1, 2, 3, 4, 9],
+                                             [0] * 8, [0] * 8],
+                                            device="cuda"),
+                torch.tensor([8, 0, 0], device="cuda"), bt, cfg)
+    toks = torch.randint(0, cfg.vocab, (3, 8), generator=cuda,
+                         device="cuda", dtype=torch.int32)
+    pos = torch.tensor([8, 4, 0], dtype=torch.int32, device="cuda")
+    feed = torch.tensor([3, 7, 0], dtype=torch.int32, device="cuda")
+    tail_fn = _step_fns(cfg, SamplingParams())[2]
+    pool = {k: v.clone() for k, v in cache.items()}
+    runs = []
+    for _ in range(2):
+        for k in cache:
+            cache[k].copy_(pool[k])
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            first = tail_fn(params, cache, toks, pos, feed, bt, gen, 8)
+            logits, _ = ttf.decode_step(params, {k: v.clone() for k, v in
+                                                 pool.items()},
+                                        toks, pos, cfg, bt,
+                                        max_live_pages=8, feed_len=feed)
+        torch.cuda.synchronize()
+        reads = [e.key for e in prof.key_averages()
+                 if e.key in ("aten::_local_scalar_dense", "aten::item")]
+        assert not reads, reads
+        runs.append((first, logits, {k: v.clone() for k, v in cache.items()}))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert all(torch.equal(runs[0][2][k], runs[1][2][k]) for k in cache)
+    written = torch.zeros(16 * 4, dtype=torch.bool, device="cuda")
+    written[[8, 9, 10]] = True                        # slot 0: pos 8-10
+    for p in range(4, 11):                            # slot 1: pos 4-10
+        written[int(bt[1, p // 4]) * 4 + p % 4] = True
+    for k, v in runs[0][2].items():
+        changed = (v != pool[k]).reshape(v.shape[0], 16 * 4, -1).any(-1)
+        assert not (changed & ~written).any(), k

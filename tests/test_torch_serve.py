@@ -67,7 +67,8 @@ def test_serve_on_cpu_prints_digest(capsys):
 
 @pytest.mark.parametrize("later", [dict(resilience=ResilienceConfig(
                                        deadline_ttft_ms=50.0)),
-                                   dict(prefix_cache=True),
+                                   dict(prefix_cache=True,
+                                        prefill_chunk_tokens=8),
                                    dict(prefill_chunk_tokens=4),
                                    dict(resilience=ResilienceConfig(
                                        chaos=ChaosConfig(alloc_fail=0.5)))])
