@@ -183,7 +183,33 @@ Phases (any failure exits non-zero before the result line is printed):
      and 4 layers: greedy tokens with the cache on equal to off on (b)'s
      requests, and again on a pool small enough to evict; (d) the serve
      CLI with ``--prefix-cache`` at full width and depth: its ``[prefix]``
-     line with misses=8 (its 4-15-token prompts fill no page).
+     line with misses=8 (its 4-15-token prompts fill no page);
+ 23. chunked prefill: (a) paged attention's plain (bf16, f32 pages), int8
+     and latent (DeepSeek-V2 widths, bf16 pages) modes on the chunk feed,
+     B=4, T=64 query rows a slot on the staircase over (base, fed rows)
+     (0, 64), (960, 64), (1024, 17) and a slot fed nothing, each table
+     exposed only up to base + fed: every row finite, padding included,
+     within the bar of the plain version, repeats bit-identical; the
+     latent mode timed there beside its plain version, SDPA under the same
+     staircase mask and the bound; (b) the main path, llama2-7b at full
+     width and depth, GQSA W4 S50 G16, bf16, the engine with
+     ``prefill_chunk_tokens=64`` and without it, 4 slots, max_seq 2048:
+     four short prompts with 24, 48, 72 and 96 new tokens, then four of
+     1024-1536 tokens with 32 each, admitted while other slots decode;
+     chunk tokens as the prompts imply, no chunk over the budget and only
+     mid-prompt slots fed, a decode step between two chunk dispatches
+     whenever a slot decodes, every kernel's launches as the batched
+     prefills, chunk dispatches, decode steps and layers give; the
+     longest device-side decode stall while a long prompt is admitted,
+     the co-resident requests' TPOT and the long prompts' TTFT, chunking
+     on and off; (c) f32 at full width and 4 layers: greedy tokens with
+     chunking on equal to off on (b)'s requests at budgets 64 and 100,
+     and on phase 22's prefix requests with the cache on at budget 16;
+     (d) DeepSeek-V2 at full width and 2 layers, f32, dropless: 200-400-
+     token prompts with chunking on and off, tokens equal, the latent
+     mode launched on every chunk dispatch; (e) the serve CLI with
+     ``--chunked-prefill 3 --trace`` at full width and depth: its trace's
+     ``prefill_chunk`` spans complete all 8 requests.
 Each main path is driven with every kernel's launch count set to 0 just
 before it and read just after. The line before the last is a JSON object
 with every kernel's numbers; the last line is {"ok": true, "device": {...}}.
@@ -3372,6 +3398,55 @@ def _tail_feed(dtype, g, kh=32, d=128, ps=16):
     return q, kp, vp, lq, bt, ks, vs, feed
 
 
+def _feed_check(o, ref, feed, label, tag):
+    """A ragged feed's attention output ``o`` [B, T, ...] against the plain
+    version's: every row finite (padding included: its sentinel pages
+    clamp to the pool's last page), within the bar. Returns the max-abs
+    error."""
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(o).all()),
+            f"{label}: every row finite, padding included")
+    real = (torch.arange(o.shape[1], device="cuda")[None, :]
+            < feed[:, None])
+    scale = ref.abs().max().item()
+    err = (o - ref).abs().max().item()
+    err_real = (o - ref)[real].abs().max().item()
+    log(f"[{tag}] {label}: max_abs_err {err:.3e} (fed rows {err_real:.3e}) "
+        f"rel {err / scale:.3e} (bar rel {TOL:.0e})")
+    require(err <= TOL * scale, f"{label} disagrees: rel {err / scale}")
+    return err
+
+
+def _ragged_modes_check(make_feed, what, shape, tag):
+    """The plain (bf16, f32 pages) and int8 modes on a ragged feed
+    (``make_feed(dtype)`` -> (q, k_pages, v_pages, lengths, table,
+    k_scales, v_scales, feed)) against their plain versions: one launch
+    a call, :func:`_feed_check`, repeats bit-identical. Returns {mode:
+    worst max-abs error}."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    worst = {"plain": 0.0, "int8": 0.0}
+    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+        mode = "int8" if dtype == torch.int8 else "plain"
+        q, kp, vp, lq, bt, ks, vs, feed = make_feed(dtype)
+        counter = "int8_launches" if mode == "int8" else "launches"
+        before = getattr(paged_attention_cuda, counter)
+        o = ops.paged_decode_attention(q, kp, vp, lq, bt, ks, vs)
+        require(getattr(paged_attention_cuda, counter) == before + 1,
+                f"{what} ({mode}): one launch")
+        ref = ops.paged_decode_attention(q, kp, vp, lq, bt, ks, vs,
+                                         plain=True)
+        err = _feed_check(
+            o, ref, feed, f"{what} ({mode}) pages={str(dtype)[6:]} B=4 "
+            f"{shape} ({split_note(4, 32, q.shape[1], bt.shape[1], 128)})",
+            tag)
+        require(torch.equal(o, ops.paged_decode_attention(q, kp, vp, lq, bt,
+                                                          ks, vs)),
+                f"{what} ({mode}): repeat not bit-identical")
+        worst[mode] = max(worst[mode], err)
+    return worst
+
+
 def phase_prefix_kernels(timer):
     """(a) The plain (bf16, f32 pages) and int8 modes on the tail feed
     against their plain versions: every row finite (padding included:
@@ -3384,37 +3459,10 @@ def phase_prefix_kernels(timer):
     from repro_torch.kernels import ops
     from repro_torch.kernels.paged_attention import paged_attention_cuda
     g = torch.Generator(device="cuda").manual_seed(SEED + 22)
-    worst = {"plain": 0.0, "int8": 0.0}
-    for dtype in (torch.bfloat16, torch.float32, torch.int8):
-        mode = "int8" if dtype == torch.int8 else "plain"
-        q, kp, vp, lq, bt, ks, vs, feed = _tail_feed(dtype, g)
-        counter = "int8_launches" if mode == "int8" else "launches"
-        before = getattr(paged_attention_cuda, counter)
-        o = ops.paged_decode_attention(q, kp, vp, lq, bt, ks, vs)
-        require(getattr(paged_attention_cuda, counter) == before + 1,
-                f"tail feed ({mode}): one launch")
-        ref = ops.paged_decode_attention(q, kp, vp, lq, bt, ks, vs,
-                                         plain=True)
-        torch.cuda.synchronize()
-        require(bool(torch.isfinite(o).all()),
-                f"tail feed ({mode}): every row finite, padding included")
-        real = (torch.arange(PREFIX_T, device="cuda")[None, :]
-                < feed[:, None])
-        scale = ref.abs().max().item()
-        err = (o - ref).abs().max().item()
-        err_real = (o - ref)[real].abs().max().item()
-        log(f"[prefix kernels] tail feed pages={str(dtype)[6:]} B=4 T="
-            f"{PREFIX_T} KH=32 D=128 ps=16 (base, feed) "
-            f"{list(PREFIX_TAIL_SLOTS)} "
-            f"({split_note(4, 32, PREFIX_T, bt.shape[1], 128)}): "
-            f"max_abs_err {err:.3e} (fed rows {err_real:.3e}) rel "
-            f"{err / scale:.3e} (bar rel {TOL:.0e})")
-        require(err <= TOL * scale,
-                f"tail feed ({mode}) disagrees: rel {err / scale}")
-        require(torch.equal(o, ops.paged_decode_attention(q, kp, vp, lq, bt,
-                                                          ks, vs)),
-                f"tail feed ({mode}): repeat not bit-identical")
-        worst[mode] = max(worst[mode], err)
+    worst = _ragged_modes_check(
+        lambda dtype: _tail_feed(dtype, g), "tail feed",
+        f"T={PREFIX_T} KH=32 D=128 ps=16 (base, feed) "
+        f"{list(PREFIX_TAIL_SLOTS)}", "prefix kernels")
     # the plain mode timed at the tail shape (bf16 pages)
     q, kp, vp, lq, bt, _, _, _ = _tail_feed(torch.bfloat16, g)
     q = q.to(torch.bfloat16)
@@ -3450,6 +3498,27 @@ def phase_prefix_kernels(timer):
         f"{bound / t_k:.0%} of bound")
     return worst, dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                        bound_ms=bound, bound_by=by, bound_f32_ms=bound_f32)
+
+
+def _llama_gqsa(n_layers=None, dtype=None):
+    """llama2-7b at full width (``n_layers`` of its 32 and in ``dtype``
+    when given), GQSA W4 S50 G16 packed on the card from ``SEED``: (cfg,
+    params). Phases 22 and 23 share one of each."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.gqs_layer import GQSAConfig
+    from repro_torch.models import transformer as tf
+    cfg = get_config("llama2_7b")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    t0 = time.time()
+    params = tf.init_params(SEED, cfg, "cuda", compress=GQSAConfig())
+    torch.cuda.synchronize()
+    log(f"[llama2-7b] GQSA {cfg.n_layers} layers {cfg.dtype} packed in "
+        f"{time.time() - t0:.1f}s")
+    return cfg, params
 
 
 def prefix_requests(vocab, seed=SEED):
@@ -3515,20 +3584,12 @@ def _prefix_counters(eng):
         ("cow", "cow_copies"), ("evicted", "evicted_pages"))}
 
 
-def phase_prefix_engine():
-    """(b) The main path: llama2-7b at full width and depth, GQSA W4 S50
-    G16, bf16, the engine with the prefix cache on: hits and misses as
-    the admission order implies, every kernel's launches equal to the
-    count the batched prefills, tail dispatches, decode steps and layers
-    give. Returns (launches, TTFT numbers)."""
-    from repro_torch.configs.registry import get_config
-    from repro_torch.core.gqs_layer import GQSAConfig
-    from repro_torch.models import transformer as tf
-    full = get_config("llama2_7b")
-    t0 = time.time()
-    params = tf.init_params(SEED, full, "cuda", compress=GQSAConfig())
-    torch.cuda.synchronize()
-    log(f"[prefix engine] llama2-7b GQSA packed in {time.time() - t0:.1f}s")
+def phase_prefix_engine(full, params):
+    """(b) The main path: llama2-7b (``full``, ``params``) at full width
+    and depth, GQSA W4 S50 G16, bf16, the engine with the prefix cache
+    on: hits and misses as the admission order implies, every kernel's
+    launches equal to the count the batched prefills, tail dispatches,
+    decode steps and layers give. Returns (launches, TTFT numbers)."""
     prompts = prefix_requests(full.vocab)
     tails = []
     toks, eng, launches, wall = _prefix_engine(full, params, True, tails)
@@ -3576,14 +3637,16 @@ def phase_prefix_engine():
         f"max_live {args[7]} pages")
     profile_steps(lambda: eng._tail_fn(*args), 2,
                   "llama2-7b GQSA bf16 tail dispatch (prefix hits)")
-    del params, eng
+    del eng
     return launches, timing
 
 
-def _tokens_equal(params, cfg, prompts, got, want, label):
-    """``got`` against ``want`` (the cache-off run), request by request:
-    equal, or first different only where the cache-off path's top-2
-    margin is under the near-tie bound. Returns the number differing."""
+def _tokens_equal(params, cfg, prompts, got, want, label,
+                  tag="prefix f32"):
+    """``got`` against ``want`` (the cache-off run, or the unchunked
+    one), request by request: equal, or first different only where the
+    plain path's top-2 margin is under the near-tie bound. Returns the
+    number differing."""
     mism = 0
     for i, (a, b) in enumerate(zip(got, want)):
         diff = np.flatnonzero(a != b)
@@ -3592,27 +3655,22 @@ def _tokens_equal(params, cfg, prompts, got, want, label):
         mism += 1
         at = int(diff[0])
         margin, scale = greedy_margin(params, cfg, prompts[i], b, at)
-        log(f"[prefix f32] {label}: request {i} first differs at token "
-            f"{at}: cache-off top-2 margin {margin:.4e} (rel "
+        log(f"[{tag}] {label}: request {i} first differs at token "
+            f"{at}: plain top-2 margin {margin:.4e} (rel "
             f"{margin / scale:.2e})")
         require(margin <= SPEC_MARGIN_REL * scale,
                 f"{label}: tokens differ at a clear top-2 margin")
     return mism
 
 
-def phase_prefix_f32():
-    """(c) f32 compute at full width and ``PREFIX_CHECK_LAYERS`` layers:
-    greedy tokens with the cache on against off on (b)'s 8 requests, then
-    on a pool of ``PREFIX_EVICT_PAGES`` pages that forces evictions."""
-    import dataclasses
-    from repro_torch.configs.registry import get_config
-    from repro_torch.core.gqs_layer import GQSAConfig
-    from repro_torch.models import transformer as tf
-    cfg = dataclasses.replace(get_config("llama2_7b"), dtype="float32",
-                              n_layers=PREFIX_CHECK_LAYERS)
-    params = tf.init_params(SEED, cfg, "cuda", compress=GQSAConfig())
+def phase_prefix_f32(cfg, params):
+    """(c) f32 compute at full width and ``PREFIX_CHECK_LAYERS`` layers
+    (``cfg``, ``params``): greedy tokens with the cache on against off on
+    (b)'s 8 requests, then on a pool of ``PREFIX_EVICT_PAGES`` pages that
+    forces evictions. Returns the cache-on tokens (of the first)."""
     prompts = prefix_requests(cfg.vocab)
     off, _, _, w_off = _prefix_engine(cfg, params, False)
+    cache_on = None
     for label, kw in (("cache on", {}),
                       ("cache on, evicting",
                        dict(num_pages=PREFIX_EVICT_PAGES))):
@@ -3628,23 +3686,28 @@ def phase_prefix_f32():
             require(c["evicted"] > 0, f"{label}: cached pages evicted")
         require(launches["paged_attention"] > 0
                 and launches["gqsa_gemv"] > 0, "the kernels launched")
+        cache_on = got if cache_on is None else cache_on
         del eng
-    del params
+    return cache_on
 
 
-def phase_prefix(timer):
+def phase_prefix(timer, llama=None, llama_f32=None):
     """Phase 22, the shared-prefix KV cache: (a)
-    :func:`phase_prefix_kernels`; (b) :func:`phase_prefix_engine`; (c)
-    :func:`phase_prefix_f32`; (d) the serve CLI with ``--prefix-cache``
-    on llama2-7b at full width and depth (its 4-15-token prompts fill no
-    page: 8 misses). Returns (errors, timing, {path: launches}, TTFT)."""
+    :func:`phase_prefix_kernels`; (b) :func:`phase_prefix_engine` on
+    ``llama`` (cfg, params; packed here when None); (c)
+    :func:`phase_prefix_f32` on ``llama_f32``; (d) the serve CLI with
+    ``--prefix-cache`` on llama2-7b at full width and depth (its 4-15-token
+    prompts fill no page: 8 misses). Returns (errors, timing, {path:
+    launches}, TTFT, the cache-on tokens of (c))."""
     t0 = time.time()
     errs, timing = phase_prefix_kernels(timer)
     torch.cuda.empty_cache()
     launches, ttft = {}, {}
-    launches["prefix engine"], ttft = phase_prefix_engine()
+    launches["prefix engine"], ttft = phase_prefix_engine(
+        *(llama or _llama_gqsa()))
     torch.cuda.empty_cache()
-    phase_prefix_f32()
+    cache_on = phase_prefix_f32(*(llama_f32 or _llama_gqsa(
+        PREFIX_CHECK_LAYERS, "float32")))
     torch.cuda.empty_cache()
     out = []
     launches["prefix serve"] = phase_serve("gqsa", extra=["--prefix-cache"],
@@ -3653,7 +3716,436 @@ def phase_prefix(timer):
     require(len(line) == 1 and " misses=8 " in line[0],
             f"the serve CLI printed its [prefix] line with misses=8: {line}")
     log(f"[time] the prefix cache (phase 22) {time.time() - t0:.1f}s")
-    return errs, timing, launches, ttft
+    return errs, timing, launches, ttft, cache_on
+
+
+# ---------------------------------------------------------------------------
+# phase 23: chunked prefill
+# ---------------------------------------------------------------------------
+
+# (a)'s chunk feed: (base, fed rows) a slot: a first chunk, one mid-prompt,
+# a final partial chunk and a slot fed nothing
+CHUNK_SLOTS = ((0, 64), (960, 64), (1024, 17), (0, 0))
+CHUNK_T = 64                  # query rows a slot (t_pad)
+CHUNK_BUDGET = 64             # (b)'s prefill_chunk_tokens
+CHUNK_MAX_SEQ = 2048
+CHUNK_SHORT_BUDGETS = (24, 48, 72, 96)   # (b)'s short requests' new tokens
+CHUNK_LONG_NEW = 32                      # (b)'s long requests' new tokens
+CHUNK_CROSS_PAGES = 100       # (c)'s second budget: chunk ends cross pages
+CHUNK_PREFIX_BUDGET = 16      # (c)'s budget on phase 22's prefix requests
+CHUNK_DS_LAYERS = 2           # (d)'s depth
+CHUNK_DS_PROMPTS = (215, 390, 263, 331, 298, 207)   # (d)'s prompt lengths
+CHUNK_SERVE_BUDGET = 3    # (e): under the CLI's shortest prompts (4 tokens)
+
+
+def _chunk_table(b, mp, num_pages, g, ps=16):
+    """Slot i's table row exposed only up to ``base + fed`` (the pages its
+    chunk can touch), over a shuffled pool; sentinels past that."""
+    perm = torch.randperm(num_pages, generator=g, device="cuda")
+    bt = torch.full((b, mp), num_pages, dtype=torch.int32, device="cuda")
+    for i, (base, feed) in enumerate(CHUNK_SLOTS):
+        occ = -(-(base + feed) // ps)
+        bt[i, :occ] = perm[i * mp:i * mp + occ].to(torch.int32)
+    lens = torch.tensor([[base + i + 1 for i in range(CHUNK_T)]
+                         for base, _ in CHUNK_SLOTS], dtype=torch.int32,
+                        device="cuda")
+    feed = torch.tensor([f for _, f in CHUNK_SLOTS], device="cuda")
+    return bt, lens, feed
+
+
+def _chunk_feed(dtype, g, kh=32, d=128, ps=16):
+    """The chunk dispatch's K/V attention operands at full width: slot i's
+    ``CHUNK_T`` rows on the staircase base + t + 1, rows at t >= fed
+    padding (their lengths reach past the exposed pages, which the walk
+    clamps to the pool's last page). Returns (q, k_pages, v_pages,
+    lengths, table, k_scales, v_scales, feed)."""
+    b = len(CHUNK_SLOTS)
+    mp = max(-(-(base + CHUNK_T) // ps) for base, _ in CHUNK_SLOTS) + 1
+    lens0 = torch.ones((b, 1), dtype=torch.int32)
+    q, kp, vp, _, _, ks, vs = _attn_case(b, CHUNK_T, lens0, dtype, g, kh=kh,
+                                         d=d, ps=ps, mp=mp)
+    bt, lens, feed = _chunk_table(b, mp, kp.shape[0], g, ps)
+    return q, kp, vp, lens, bt, ks, vs, feed
+
+
+def _chunk_latent_feed(dtype, g, ps=16):
+    """The same chunk feed at DeepSeek-V2's latent widths: (q, latent
+    pages, lengths, table, feed)."""
+    b = len(CHUNK_SLOTS)
+    mp = max(-(-(base + CHUNK_T) // ps) for base, _ in CHUNK_SLOTS) + 1
+    num_pages = b * mp
+    q = torch.randn((b, CHUNK_T, DS_H, DS_D), generator=g, device="cuda")
+    lat = torch.randn((num_pages, ps, DS_D), generator=g,
+                      device="cuda").to(dtype)
+    bt, lens, feed = _chunk_table(b, mp, num_pages, g, ps)
+    return q, lat, lens, bt, feed
+
+
+def phase_chunk_kernels(timer):
+    """(a) The plain (bf16, f32 pages), int8 and latent (bf16 pages)
+    modes on the chunk feed against their plain versions: one launch a
+    call, every row finite, repeats bit-identical; then the latent mode
+    timed there beside its plain version, SDPA under the same staircase
+    mask (latent rows gathered beforehand) and the bound. Returns
+    ({mode: worst error}, latent timing)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    worst = _ragged_modes_check(
+        lambda dtype: _chunk_feed(dtype, g), "chunk feed",
+        f"T={CHUNK_T} KH=32 D=128 ps=16 (base, fed) {list(CHUNK_SLOTS)}",
+        "chunk kernels")
+    q, lat, lq, bt, feed = _chunk_latent_feed(torch.bfloat16, g)
+    before = paged_attention_cuda.latent_launches
+    o = ops.paged_latent_attention(q, lat, lq, bt, v_rank=DS_R)
+    require(paged_attention_cuda.latent_launches == before + 1,
+            "chunk feed (latent): one launch")
+    ref = ops.paged_latent_attention(q, lat, lq, bt, v_rank=DS_R, plain=True)
+    b, t = q.shape[:2]
+    worst["latent"] = _feed_check(
+        o, ref, feed, f"chunk feed (latent) pages=bfloat16 B=4 T={t} "
+        f"H={DS_H} D={DS_D} v_rank={DS_R} (base, fed) {list(CHUNK_SLOTS)} "
+        f"({split_note(b, 1, t * DS_H, bt.shape[1], DS_R)})",
+        "chunk kernels")
+    require(torch.equal(o, ops.paged_latent_attention(q, lat, lq, bt,
+                                                      v_rank=DS_R)),
+            "chunk feed (latent): repeat not bit-identical")
+    # timed: the kernel alone, its plain version, SDPA (the 128 heads of
+    # T rows as T x 128 query rows of the one latent head, the staircase
+    # as a mask) and the bound
+    lq2, live = ops.paged_query_prep(lq, bt, b, t, lat.shape[1])
+    qh = q.reshape(b, 1, t * DS_H, DS_D).contiguous()
+    lat4 = lat[:, :, None, :]
+    t_k = timer.ms(lambda: paged_attention_cuda(qh, lat4, None, lq2, bt,
+                                                live, t, v_rank=DS_R))
+    t_p = timer.ms(lambda: ops.paged_latent_attention(
+        q, lat, lq, bt, v_rank=DS_R, plain=True), iters=5)
+    smax = int(lq.max())
+    kk = lat[bt.clamp(max=lat.shape[0] - 1).long()].reshape(
+        b, -1, DS_D)[:, None, :smax].contiguous()
+    vv = kk[..., :DS_R].contiguous()
+    rows = lq.repeat_interleave(DS_H, dim=1)               # [B, T*H]
+    mask = (torch.arange(smax, device="cuda")[None, None, :]
+            < rows[:, :, None])[:, None]                  # [B, 1, T*H, S]
+    qs = qh.to(torch.bfloat16)
+    t_l = timer.ms(lambda: F.scaled_dot_product_attention(
+        qs, kk, vv, attn_mask=mask))
+    # bytes: each slot's live latent rows (its longest row's positions)
+    # read once, q read and the output written in f32; operations: for
+    # every (row, head, visible position) a D-wide score and an R-wide
+    # value multiply-add
+    nbytes = sum(int(r.max()) for r in lq) * DS_D * 2 \
+        + b * t * DS_H * (DS_D + DS_R) * 4
+    flops = 2 * DS_H * int(lq.long().sum()) * (DS_D + DS_R)
+    bound, by, bound_f32 = _attn_bound(nbytes, flops)
+    log(f"[chunk time] latent chunk feed B=4 T={t} H={DS_H} D={DS_D} "
+        f"v_rank={DS_R} bf16 pages, lengths up to {smax}: kernel "
+        f"{t_k * 1e3:.1f}us plain {t_p * 1e3:.1f}us sdpa (staircase mask) "
+        f"{t_l * 1e3:.1f}us bound {bound * 1e3:.2f}us by {by} (f32 rate "
+        f"{bound_f32 * 1e3:.2f}us; {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} "
+        f"GFLOP) -> {bound / t_k:.0%} of bound")
+    return worst, dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound,
+                       bound_by=by, bound_f32_ms=bound_f32,
+                       max_abs_err=worst["latent"])
+
+
+def chunk_requests(vocab, seed=SEED):
+    """(b)-(c)'s 8 requests from ``seed``: four short prompts of 8-15
+    tokens with budgets ``CHUNK_SHORT_BUDGETS`` (so slots free one at a
+    time), then four long prompts of 1024-1536 tokens, none a whole
+    number of pages, ``CHUNK_LONG_NEW`` new tokens each (each admitted
+    while other slots decode). Returns (prompts, budgets)."""
+    rng = np.random.default_rng(seed + 23)
+    lens = list(rng.integers(8, 16, 4)) + [
+        n + (n % 16 == 0) for n in rng.integers(1024, 1536, 4)]
+    prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+    return prompts, list(CHUNK_SHORT_BUDGETS) + [CHUNK_LONG_NEW] * 4
+
+
+def _chunk_engine(cfg, params, chunk, prompts, budgets, record=None,
+                  max_seq=CHUNK_MAX_SEQ):
+    """``prompts`` through the engine, 4 slots, ``prefill_chunk_tokens``
+    ``chunk``. ``record``, a list, gets every dispatch in order: decode
+    steps, batched prefills and chunk (tail) dispatches, each with a
+    timing event recorded after it and what the host knew at its call
+    (no host read of the card is added). Returns (tokens in submission
+    order, engine, launches, wall seconds)."""
+    from repro_torch.engine import EngineConfig, InferenceEngine
+    from repro_torch.engine.scheduler import DECODE, PREFILL, PREFILLING
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    reset_launches()
+    t0 = time.time()
+    eng = InferenceEngine(cfg, params, EngineConfig(
+        num_slots=4, max_seq=max_seq, seed=SEED, device="cuda",
+        prefill_chunk_tokens=chunk))
+    if record is not None:
+        def states(state):
+            return [s.request for s in eng.scheduler.slots
+                    if s.request is not None and s.request.state == state]
+
+        def wrap(attr, kind):
+            inner = getattr(eng, attr)
+
+            def recorded(*args):
+                entry = dict(kind=kind, decoding=len(states(DECODE)),
+                             prefilling=[r.slot for r in states(PREFILLING)],
+                             prompts=[r.prompt_len for r in states(PREFILL)],
+                             latent=paged_attention_cuda.latent_launches)
+                out = inner(*args)
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                entry.update(event=ev, latent=paged_attention_cuda
+                             .latent_launches - entry["latent"])
+                if kind == "chunk":
+                    entry.update(feed=args[4], t_pad=args[2].shape[1])
+                record.append(entry)
+                return out
+            setattr(eng, attr, recorded)
+        wrap("_decode_fn", "decode")
+        wrap("_prefill_fn", "prefill")
+        wrap("_tail_fn", "chunk")
+    rids = [eng.submit(p, n) for p, n in zip(prompts, budgets)]
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    by = {r["rid"]: r["tokens"] for r in res["results"]}
+    require(len(by) == len(prompts)
+            and all(len(by[r]) == n for r, n in zip(rids, budgets)),
+            "every request answered with its budget")
+    alc = eng.kv.allocator
+    require(alc.num_free + alc.num_outstanding == eng.kv.num_pages,
+            "page conservation")
+    return [by[r] for r in rids], eng, read_launches(), wall
+
+
+def _admission_stalls(record, long_from):
+    """Device time between consecutive decode steps, split by whether a
+    long prompt's batched prefill or chunk dispatch ran between them:
+    (stalls while admitting, the other gaps), in ms."""
+    admitting, other = [], []
+    last, between = None, False
+    for e in record:
+        if e["kind"] == "decode":
+            if last is not None:
+                gap = last.elapsed_time(e["event"])
+                (admitting if between else other).append(gap)
+            last, between = e["event"], False
+        elif e["kind"] == "chunk" or max(e["prompts"], default=0) \
+                >= long_from:
+            between = True
+    return admitting, other
+
+
+def phase_chunk_engine(full, params):
+    """(b) The main path: llama2-7b at full width and depth, GQSA W4 S50
+    G16, bf16, the engine with chunked prefill at ``CHUNK_BUDGET`` tokens
+    and without it, on :func:`chunk_requests`: chunk tokens as the prompts
+    imply, no chunk over the budget and only PREFILLING slots fed, a
+    decode step between two chunk dispatches whenever a slot decodes,
+    every kernel's launches as the dispatches and layers imply; the
+    longest device-side decode stall while a long prompt is admitted,
+    the co-resident requests' TPOT and the long prompts' TTFT, chunking
+    on and off. Returns (launches, numbers)."""
+    prompts, budgets = chunk_requests(full.vocab)
+    long_from = min(len(p) for p in prompts[4:])
+    out, tokens = {}, {}
+    for chunk in (CHUNK_BUDGET, 0):
+        record = []
+        tokens[chunk], eng, launches, wall = _chunk_engine(
+            full, params, chunk, prompts, budgets, record)
+        torch.cuda.synchronize()
+        m = eng.metrics.summary()
+        tag = f"chunk {chunk}" if chunk else "monolithic"
+        chunks = [e for e in record if e["kind"] == "chunk"]
+        log(f"[chunk engine] {tag}: {eng.metrics.format_summary()}")
+        log(f"[chunk engine] {tag}: prompts {[len(p) for p in prompts]}; "
+            f"{m['prefills']} batched prefills, {len(chunks)} chunk "
+            f"dispatches, {m['decode_steps']} decode steps; wall "
+            f"{wall:.1f}s; launches {launches}")
+        reg = eng.tel.registry
+        fed = int(reg.counter("engine.prefill_chunk_tokens").value)
+        want = sum(len(p) for p in prompts if chunk and len(p) > chunk)
+        require(fed == want, f"{tag}: chunk tokens {fed}, the prompts imply "
+                             f"{want}")
+        require(bool(chunks) == bool(chunk) and m["prefill_tails"] == 0,
+                f"{tag}: chunk dispatches exactly when chunking")
+        for i, e in enumerate(chunks):
+            feed = e["feed"].cpu()
+            fed_slots = [s for s in range(4) if int(feed[s]) > 0]
+            require(int(feed.max()) <= chunk and e["t_pad"] <= chunk
+                    and fed_slots == sorted(e["prefilling"]),
+                    f"{tag}: chunk dispatch {i} fed {feed.tolist()} (t_pad "
+                    f"{e['t_pad']}) with slots {e['prefilling']} "
+                    f"PREFILLING")
+        kinds = [e["kind"] for e in record]
+        for i, e in enumerate(record):
+            if e["kind"] != "chunk" or not e["decoding"]:
+                continue
+            nxt = kinds[i + 1:]
+            if "chunk" in nxt:
+                require("decode" in nxt[:nxt.index("chunk")],
+                        f"{tag}: a decode step between chunk dispatches "
+                        f"while {e['decoding']} slots decode")
+        layers = full.n_layers
+        dispatches = m["prefills"] + len(chunks) + m["decode_steps"]
+        expect = {"gqsa_gemv": 7 * layers * dispatches,
+                  "paged_attention": layers * (len(chunks)
+                                               + m["decode_steps"])}
+        require(all(launches[k] == v for k, v in expect.items()),
+                f"{tag}: launches {launches} are not the layer structure's "
+                f"{expect}")
+        require(all(v == 0 for k, v in launches.items() if k not in expect),
+                f"{tag}: nothing else launched")
+        admitting, other = _admission_stalls(record, long_from)
+        require(admitting, f"{tag}: long prompts admitted beside decodes")
+        rts = [eng.metrics.requests[i] for i in range(8)]
+        tpot = [r.tpot_s * 1e3 for r in rts[:4]]
+        ttft = [r.ttft_s * 1e3 for r in rts[4:]]
+        out[tag] = dict(
+            launches=launches, chunk_dispatches=len(chunks),
+            decode_steps=m["decode_steps"], prefills=m["prefills"],
+            stall_ms_max=max(admitting),
+            gap_ms_p50=float(np.median(other)) if other else None,
+            tpot_ms_p50=float(np.percentile(tpot, 50)),
+            tpot_ms_p99=float(np.percentile(tpot, 99)),
+            long_ttft_ms=ttft, wall_s=wall)
+        log(f"[chunk engine] {tag}: longest device-side decode stall while "
+            f"a long prompt is admitted {max(admitting):.1f} ms (over "
+            f"{len(admitting)} gaps; other gaps p50 "
+            f"{out[tag]['gap_ms_p50'] or float('nan'):.2f} ms); co-resident "
+            f"requests' TPOT p50 {out[tag]['tpot_ms_p50']:.2f} ms p99 "
+            f"{out[tag]['tpot_ms_p99']:.2f} ms ({['%.2f' % x for x in tpot]});"
+            f" long prompts' TTFT {['%.1f' % x for x in ttft]} ms")
+        del eng
+        torch.cuda.empty_cache()
+    same = sum(np.array_equal(a, b) for a, b in zip(tokens[CHUNK_BUDGET],
+                                                    tokens[0]))
+    log(f"[chunk engine] bf16: {same} of 8 requests' tokens equal with "
+        f"chunking on and off (bf16 ties may flip; (c) holds f32)")
+    return out
+
+
+def phase_chunk_f32(cfg, params, prefix_on=None):
+    """(c) f32 at full width and ``PREFIX_CHECK_LAYERS`` layers: greedy
+    tokens with chunking on against off on (b)'s requests at budgets
+    ``CHUNK_BUDGET`` and ``CHUNK_CROSS_PAGES``, and on phase 22's prefix
+    requests with the prefix cache on at ``CHUNK_PREFIX_BUDGET`` (the
+    hits chunk their tails from the shared boundary); ``prefix_on``, the
+    cache-on tokens phase 22 took there (run again when None)."""
+    prompts, budgets = chunk_requests(cfg.vocab)
+    off, _, _, w_off = _chunk_engine(cfg, params, 0, prompts, budgets)
+    for chunk in (CHUNK_BUDGET, CHUNK_CROSS_PAGES):
+        got, eng, launches, wall = _chunk_engine(cfg, params, chunk,
+                                                 prompts, budgets)
+        n = int(eng.tel.registry.counter("engine.prefill_chunks").value)
+        mism = _tokens_equal(params, cfg, prompts, got, off,
+                             f"chunk {chunk}", tag="chunk f32")
+        log(f"[chunk f32] chunk {chunk} ({cfg.n_layers} layers): "
+            f"{8 - mism} of 8 requests' tokens equal to unchunked; {n} "
+            f"slot chunks; wall {wall:.1f}s (off {w_off:.1f}s)")
+        require(n > 0 and launches["paged_attention"] > 0, "chunks ran")
+        del eng
+    pprompts = prefix_requests(cfg.vocab)
+    if prefix_on is None:
+        prefix_on = _prefix_engine(cfg, params, True)[0]
+    got, eng, _, wall = _prefix_engine(
+        cfg, params, True, prefill_chunk_tokens=CHUNK_PREFIX_BUDGET)
+    c = _prefix_counters(eng)
+    n = int(eng.tel.registry.counter("engine.prefill_chunks").value)
+    mism = _tokens_equal(params, cfg, pprompts, got, prefix_on,
+                         f"prefix chunk {CHUNK_PREFIX_BUDGET}",
+                         tag="chunk f32")
+    log(f"[chunk f32] prefix cache on, chunk {CHUNK_PREFIX_BUDGET}: "
+        f"{8 - mism} of 8 requests' tokens equal to unchunked; counters {c}; "
+        f"{n} slot chunks; wall {wall:.1f}s")
+    require(c["hits"] > 0 and n > 0, "prefix hits chunked their tails")
+
+
+def phase_chunk_deepseek():
+    """(d) DeepSeek-V2 at full width and ``CHUNK_DS_LAYERS`` layers, f32,
+    dropless, GQSA: prompts of 200-400 tokens through the engine with
+    chunking on and off; tokens equal (the near-tie rule), the latent
+    mode launched on the chunk dispatches. Returns the latent launches
+    on the chunk dispatches."""
+    from repro_torch.core.gqs_layer import GQSAConfig
+    from repro_torch.models import transformer as tf
+    arch = "deepseek_v2_236b"
+    cfg = _moe_spec_cfg(arch, CHUNK_DS_LAYERS, "float32", MOE_DROPLESS[arch])
+    t0 = time.time()
+    params = tf.init_params(SEED, cfg, "cuda", compress=GQSAConfig())
+    torch.cuda.synchronize()
+    log(f"[chunk deepseek] DeepSeek-V2 full width, {CHUNK_DS_LAYERS} layers, "
+        f"f32, capacity factor {cfg.moe.capacity_factor:g}: packed in "
+        f"{time.time() - t0:.1f}s")
+    rng = np.random.default_rng(SEED + 24)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in CHUNK_DS_PROMPTS]
+    budgets = [16] * len(prompts)
+    off, _, _, w_off = _chunk_engine(cfg, params, 0, prompts, budgets,
+                                     max_seq=512)
+    record = []
+    got, eng, launches, wall = _chunk_engine(cfg, params, CHUNK_BUDGET,
+                                             prompts, budgets, record,
+                                             max_seq=512)
+    latent = sum(e["latent"] for e in record if e["kind"] == "chunk")
+    chunks = sum(e["kind"] == "chunk" for e in record)
+    mism = _tokens_equal(params, cfg, prompts, got, off, "deepseek chunk",
+                         tag="chunk deepseek")
+    log(f"[chunk deepseek] chunk {CHUNK_BUDGET}: {len(prompts) - mism} of "
+        f"{len(prompts)} requests' tokens equal to unchunked; {chunks} chunk "
+        f"dispatches, {latent} latent launches on them; launches "
+        f"{launches}; wall {wall:.1f}s (off {w_off:.1f}s)")
+    require(latent == cfg.n_layers * chunks > 0,
+            "the latent mode launched on every chunk dispatch's layers")
+    del params, eng
+    torch.cuda.empty_cache()
+    return latent
+
+
+def phase_chunk_serve():
+    """(e) The serve CLI with ``--chunked-prefill 3 --trace`` at full width
+    and depth on llama2-7b: every one of its 4-15-token prompts chunks
+    (a 4-token prompt would fit one chunk of 4 and take the batched
+    prefill), so its trace holds ``prefill_chunk`` spans whose
+    ``completed`` sums to the 8 requests. Returns its launches."""
+    os.makedirs("build", exist_ok=True)
+    path = os.path.join("build", "chunk_serve_trace.json")
+    launches = phase_serve("gqsa", extra=[
+        "--chunked-prefill", str(CHUNK_SERVE_BUDGET), "--trace", path])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events
+             if e.get("ph") == "X" and e.get("name") == "prefill_chunk"]
+    done = sum(e["args"]["completed"] for e in spans)
+    log(f"[chunk serve] trace {path}: {len(spans)} prefill_chunk spans, "
+        f"completed sums to {done}")
+    require(spans and done == 8, "the trace holds the chunk spans of all 8 "
+                                 "requests")
+    return launches
+
+
+def phase_chunk(timer, llama=None, llama_f32=None, prefix_on=None):
+    """Phase 23, chunked prefill: (a) :func:`phase_chunk_kernels`; (b)
+    :func:`phase_chunk_engine` on ``llama`` (cfg, params; packed here when
+    None); (c) :func:`phase_chunk_f32` on ``llama_f32``; (d)
+    :func:`phase_chunk_deepseek`; (e) :func:`phase_chunk_serve`. Returns
+    (errors, latent timing, {path: launches}, engine numbers)."""
+    t0 = time.time()
+    errs, timing = phase_chunk_kernels(timer)
+    torch.cuda.empty_cache()
+    llama = llama or _llama_gqsa()
+    numbers = phase_chunk_engine(*llama)
+    launches = {"chunk engine": numbers[f"chunk {CHUNK_BUDGET}"]["launches"]}
+    llama = None
+    torch.cuda.empty_cache()
+    phase_chunk_f32(*(llama_f32 or _llama_gqsa(PREFIX_CHECK_LAYERS,
+                                               "float32")), prefix_on)
+    torch.cuda.empty_cache()
+    numbers["deepseek_latent_chunk_launches"] = phase_chunk_deepseek()
+    launches["chunk serve"] = phase_chunk_serve()
+    log(f"[time] chunked prefill (phase 23) {time.time() - t0:.1f}s")
+    return errs, timing, launches, numbers
 
 
 KERNELS = {
@@ -3674,7 +4166,8 @@ KERNELS = {
              "its error, llama2-7b's packed GB and its launches on the "
              "llama2-7b serve at that g; 'spec_g32_launches' / 'spec_g128_launches' those of the "
              "chain w4s75 serve at g; 'prefix_launches' its launches on "
-             "phase 22's prefix engine"),
+             "phase 22's prefix engine, 'chunk_launches' on phase 23's "
+             "chunked engine"),
     "paged_attention": dict(
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:181",
@@ -3683,7 +4176,12 @@ KERNELS = {
              "tail feed (T=64 rows a slot over 1008-1040 cached "
              "positions, phase 22) timed, its error, its launches on the "
              "prefix engine and the TTFT of that engine's misses and "
-             "hits"),
+             "hits; 'chunk_feed_max_abs_err' its error on phase 23's chunk "
+             "feed, 'chunk_launches' its launches on the chunked engine "
+             "and 'chunk_engine' that engine's numbers, chunking on and "
+             "off (the longest device-side decode stall while a long "
+             "prompt is admitted, the co-resident requests' TPOT, the "
+             "long prompts' TTFT)"),
     "w4_matmul": dict(
         source="src/repro_torch/csrc/w4_matmul.cu",
         replaces="src/repro/kernels/w4_matmul.py:51",
@@ -3696,7 +4194,8 @@ KERNELS = {
         replaces="src/repro/kernels/paged_attention.py:181",
         unit="one layer's decode attention: 4 slots, lengths 20/25/31/29, "
              "KH=32, D=128, int8 pages + f32 scales; "
-             "'prefix_tail_max_abs_err' its error on phase 22's tail feed"),
+             "'prefix_tail_max_abs_err' its error on phase 22's tail feed, "
+             "'chunk_feed_max_abs_err' on phase 23's chunk feed"),
     "paged_attention_tree": dict(
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:181",
@@ -3734,7 +4233,10 @@ KERNELS = {
              "its bound at the tensor cores' rate (bound_f32_ms: at the "
              "f32 rate); 'spec_launches' / 'spec_tree_launches' the latent "
              "launches (with tree operands) of the DeepSeek-V2 tree "
-             "engine"),
+             "engine; 'chunk_feed' the chunk feed (T=64 rows a slot over "
+             "up to 1088 positions, phase 23) timed with its error, "
+             "'chunk_launches' its launches on the chunk dispatches of "
+             "phase 23's DeepSeek-V2 engine"),
     "w4_matmul_experts": dict(
         source="src/repro_torch/csrc/w4_matmul.cu",
         replaces="src/repro/kernels/w4_matmul.py:51",
@@ -3828,9 +4330,19 @@ def main() -> int:
         timer)
     launches.update(dense_launches)
     torch.cuda.empty_cache()
-    prefix_errs, prefix_time, prefix_launches, prefix_ttft = phase_prefix(
-        timer)
+    # phases 22 and 23 share llama2-7b, packed once: bf16 at full depth
+    # and f32 at PREFIX_CHECK_LAYERS
+    llama = _llama_gqsa()
+    llama_f32 = _llama_gqsa(PREFIX_CHECK_LAYERS, "float32")
+    prefix_errs, prefix_time, prefix_launches, prefix_ttft, prefix_on = \
+        phase_prefix(timer, llama, llama_f32)
     launches.update(prefix_launches)
+    torch.cuda.empty_cache()
+    chunk_errs, chunk_time, chunk_launches, chunk_numbers = phase_chunk(
+        timer, llama, llama_f32, prefix_on)
+    launches.update(chunk_launches)
+    del llama, llama_f32
+    torch.cuda.empty_cache()
     path_of = {"gqsa_gemv": "gqsa serve", "paged_attention": "gqsa serve",
                "w4_matmul": "w4 serve",
                "paged_attention_int8": "int8-kv engine",
@@ -3913,6 +4425,16 @@ def main() -> int:
     pi8 = next(k for k in kernels if k["name"] == "paged_attention_int8")
     pi8["prefix_tail_max_abs_err"] = prefix_errs["int8"]
     gemv["prefix_launches"] = launches["prefix engine"]["gqsa_gemv"]
+    # phase 23: chunked prefill's feed and its main path
+    pa["chunk_feed_max_abs_err"] = chunk_errs["plain"]
+    pa["chunk_launches"] = launches["chunk engine"]["paged_attention"]
+    pa["chunk_engine"] = {
+        tag: {k: v for k, v in n.items() if k != "launches"}
+        for tag, n in chunk_numbers.items() if isinstance(n, dict)}
+    pi8["chunk_feed_max_abs_err"] = chunk_errs["int8"]
+    lat["chunk_feed"] = chunk_time
+    lat["chunk_launches"] = chunk_numbers["deepseek_latent_chunk_launches"]
+    gemv["chunk_launches"] = launches["chunk engine"]["gqsa_gemv"]
     require(all(k["launches"] > 0 for k in kernels),
             "every kernel launched on its main path")
     require(all(r["launches"] > 0 for k in (gemv, gx)

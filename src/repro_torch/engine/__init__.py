@@ -8,7 +8,8 @@ on top of the GQSA-compressed model::
     eng.submit(prompt_tokens, max_new_tokens=32)
     results = eng.run()
 """
-from repro_torch.engine.engine import EngineConfig, InferenceEngine
+from repro_torch.engine.engine import (EngineConfig, InferenceEngine,
+                                       plan_chunks)
 from repro_torch.engine.kv_cache import PageAllocator, PagedKVCache
 from repro_torch.engine.metrics import EngineMetrics
 from repro_torch.engine.prefix_cache import PrefixCache
@@ -23,4 +24,4 @@ __all__ = ["EngineConfig", "InferenceEngine", "PageAllocator",
            "PagedKVCache", "PrefixCache", "EngineMetrics", "SamplingParams",
            "sample", "Request", "Scheduler", "Telemetry", "MetricsRegistry",
            "SpanTracer", "StreamingHistogram", "ResilienceConfig",
-           "RejectedRequest", "OversizedRequest"]
+           "RejectedRequest", "OversizedRequest", "plan_chunks"]

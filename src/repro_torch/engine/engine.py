@@ -26,10 +26,17 @@ prefix onto pages other requests already wrote (DESIGN.md §13,
 tail: one ragged multi-token decode dispatch (``tail_fn``) for all such
 slots of an admission group, beside the batched prefill of the others.
 
+With ``prefill_chunk_tokens > 0`` prefill stops being atomic (chunked
+prefill, DESIGN.md §14): a prompt whose unshared tail needs more than one
+chunk enters ``PREFILLING`` and feeds one chunk of at most that many
+tokens per scheduling boundary through the same ragged ``tail_fn`` (a
+chunk is a tail whose shared boundary is the previous chunk's end), while
+the other slots decode in one-step segments between the chunks.
+
 Steps are plain eager PyTorch functions (no ``torch.compile``, no CUDA
-graphs). Chunked prefill (ROADMAP A.4), timed admission and the
-resilience features of the reference engine (with them the spec ladder's
-pressure degrade; ROADMAP A.5) are later slices: ``run`` raises when
+graphs). Timed admission and the resilience features of the reference
+engine (with them preemption, the spec ladder's pressure degrade and
+fault injection; ROADMAP A.5) are a later slice: ``run`` raises when
 asked for them.
 """
 from __future__ import annotations
@@ -47,7 +54,7 @@ from repro_torch.engine.kv_cache import PagedKVCache
 from repro_torch.engine.metrics import EngineMetrics
 from repro_torch.engine.resilience import ResilienceConfig
 from repro_torch.engine.sampling import SamplingParams, sample
-from repro_torch.engine.scheduler import DECODE, Request, Scheduler
+from repro_torch.engine.scheduler import DECODE, PREFILLING, Request, Scheduler
 from repro_torch.engine.spec import TreeTemplate, spec_step_fns, tree_step_fns
 from repro_torch.engine.spec.drafter import draft_config
 from repro_torch.engine.telemetry import Telemetry
@@ -82,9 +89,12 @@ class EngineConfig:
     # admission maps cached full-page prompt blocks to existing pages
     # (refcounted, copy-on-write) and prefills only the unshared tail
     prefix_cache: bool = False
-    # options of the reference engine that later slices port; any value
-    # but the default makes run() raise
+    # the reference engine's resilience options, a later slice (ROADMAP
+    # A.5); any value but the default makes run() raise
     resilience: Optional[ResilienceConfig] = None
+    # chunked prefill (DESIGN.md §14): split each admitted prompt into
+    # chunks of at most this many tokens, fed between decode steps instead
+    # of one monolithic prefill; 0 = monolithic
     prefill_chunk_tokens: int = 0
 
 
@@ -93,6 +103,24 @@ def _bucket(n: int, lo: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def plan_chunks(start: int, prompt_len: int,
+                budget: int) -> List[Tuple[int, int]]:
+    """Chunk planner (DESIGN.md §14): split prompt positions
+    [start, prompt_len) into ``(chunk_start, chunk_len)`` pieces of at
+    most ``budget`` tokens, covering every position once. The last chunk
+    ends exactly at ``prompt_len`` (its sample is the request's first
+    token), so it is never empty. ``budget <= 0`` means one chunk."""
+    if budget <= 0:
+        return [(start, prompt_len - start)]
+    out = []
+    p = start
+    while p < prompt_len:
+        n = min(budget, prompt_len - p)
+        out.append((p, n))
+        p += n
+    return out
 
 
 def _step_fns(cfg, sampling: SamplingParams):
@@ -186,6 +214,10 @@ class InferenceEngine:
         reg = self.tel.registry
         self._c_ladder_flips = reg.counter("spec.ladder_transitions")
         self._g_ladder = reg.gauge("spec.ladder_rung")
+        # chunked prefill: slots fed a chunk, summed over dispatches, and
+        # the prompt tokens those chunks carried
+        self._c_chunks = reg.counter("engine.prefill_chunks")
+        self._c_chunk_tokens = reg.counter("engine.prefill_chunk_tokens")
         self._ladder_rung: Optional[int] = None
         self.kv = PagedKVCache(cfg, api, engine_cfg.num_slots,
                                engine_cfg.max_seq, engine_cfg.page_size,
@@ -253,8 +285,6 @@ class InferenceEngine:
     def _check_ported(self, source) -> None:
         e = self.ecfg
         later = []
-        if e.prefill_chunk_tokens > 0:
-            later.append("chunked prefill (ROADMAP A.4)")
         if source is not None:
             later.append("timed admission (source; ROADMAP A.5)")
         if e.resilience is not None and e.resilience != ResilienceConfig():
@@ -277,6 +307,11 @@ class InferenceEngine:
                 sp.set(admitted=len(admitted), queue_depth=len(sch.waiting))
             if admitted:
                 self._do_prefill(admitted)
+            # chunked prefill: every PREFILLING slot advances one chunk a
+            # boundary; a final chunk flips its slot to DECODE in time for
+            # this boundary's segment
+            self._feed_prefill_chunks()
+            prefilling = any(r.state == PREFILLING for r in sch.active())
             actives = [r for r in sch.active() if r.state == DECODE]
             if not actives:
                 if sch.waiting and not sch.active():
@@ -289,10 +324,13 @@ class InferenceEngine:
                             f"the pool only has {self.kv.num_pages}")
                     time.sleep(0.0005)
                 continue
-            if self.spec:
+            # no draft/verify while a slot is mid-prompt: one-step plain
+            # segments keep the chunks interleaved token by token
+            if self.spec and not prefilling:
                 finished = self._spec_segment(actives)
             else:
-                finished = self._decode_segment(actives)
+                finished = self._decode_segment(
+                    actives, max_steps=1 if prefilling else None)
             t = self.metrics.now()
             with tracer.span("evict") as sp:
                 for r in finished:
@@ -306,16 +344,23 @@ class InferenceEngine:
         return {"results": self._materialize(),
                 "metrics": self.metrics.summary()}
 
-    def _decode_segment(self, actives: List[Request]) -> List[Request]:
+    def _decode_segment(self, actives: List[Request],
+                        max_steps: Optional[int] = None) -> List[Request]:
         """Plain decode segment: no slot can exceed its budget before the
         earliest one finishes, so no host sync inside the segment. The
         boundary waits for the PREVIOUS segment's completion event (two-
         deep dispatch) and leaves this one in flight: host accounting
-        needs no token values, which are read only at materialization."""
+        needs no token values, which are read only at materialization.
+
+        ``max_steps`` clamps the segment (one step while a prompt is
+        chunking). A speculative engine runs this segment then, and logs
+        its tokens into the spec log at width 1."""
         sch = self.scheduler
         tracer = self.tel.tracer
         t0 = self.metrics.now()
         seg = max(1, min(r.remaining for r in actives))
+        if max_steps is not None:
+            seg = min(seg, max_steps)
         finished: List[Request] = []
         with tracer.span("decode_segment") as seg_sp:
             with tracer.annotate("decode_segment"):
@@ -324,8 +369,12 @@ class InferenceEngine:
                         self.params, self.kv.data, self._tokens,
                         self._positions, self._block_tables, self._active,
                         self._gen, self._max_live)
-                    idx = len(self._token_log)
-                    self._token_log.append(self._tokens)
+                    if self.spec:
+                        idx = self._log_spec(self._tokens[:, None],
+                                             self._active)
+                    else:
+                        idx = len(self._token_log)
+                        self._token_log.append(self._tokens)
                     for r in sch.active():
                         if r.state == DECODE:
                             r.log_entries.append(idx)
@@ -483,14 +532,34 @@ class InferenceEngine:
 
     def _do_prefill(self, admitted: List[Request]) -> None:
         """Prefill one admission group, split as the reference splits it
-        (DESIGN.md §13): slots with no shared prefix take the batched
-        full-prompt prefill, the others one ragged tail dispatch
-        together. ``metrics.prefills`` counts the batched prefill calls
-        only; ``metrics.prefill_tails`` counts the tail dispatches (the
-        tail attends through the paged kernel, the batched prefill does
-        not, so launch accounting needs the two apart)."""
+        (DESIGN.md §13-14): with chunking on, a prompt whose unshared tail
+        needs more than one chunk enters ``PREFILLING`` at its shared
+        boundary and is fed by :meth:`_feed_prefill_chunks`; of the rest,
+        slots with no shared prefix take the batched full-prompt prefill,
+        the others one ragged tail dispatch together.
+        ``metrics.prefills`` counts the batched prefill calls only;
+        ``metrics.prefill_tails`` counts the tail dispatches (the tail
+        attends through the paged kernel, the batched prefill does not,
+        so launch accounting needs the two apart); neither counts chunk
+        dispatches."""
         b = self.ecfg.num_slots
         tracer = self.tel.tracer
+        budget = self.ecfg.prefill_chunk_tokens
+        if budget > 0:
+            rest = []
+            for r in admitted:
+                sh = self.kv.slot_shared_tokens(r.slot)
+                if len(plan_chunks(sh, r.prompt_len, budget)) > 1:
+                    r.state = PREFILLING
+                    r.prefill_pos = sh
+                    self.metrics.record_admit(r.rid)
+                else:
+                    rest.append(r)
+            admitted = rest
+            if not admitted:
+                # the PREFILLING rows must leave the decode-side tables
+                self._sync_slot_state()
+                return
         shared = [r for r in admitted
                   if self.kv.slot_shared_tokens(r.slot) > 0]
         full = [r for r in admitted
@@ -537,42 +606,20 @@ class InferenceEngine:
                 idx_of[r.rid] = idx
             merged = torch.where(self._to_device(mask), first, merged)
         if shared:
-            # unshared tails, padded to one pow2 T; feed_len drops the
-            # padding's K/V writes, so rows of different tail lengths
-            # ride one dispatch
-            t_pad = min(_bucket(max(r.prompt_len
-                                    - self.kv.slot_shared_tokens(r.slot)
-                                    for r in shared),
-                                self.ecfg.prompt_bucket_min),
-                        self.ecfg.max_seq)
-            toks = np.zeros((b, t_pad), np.int32)
-            starts = np.zeros((b,), np.int32)
-            feed = np.zeros((b,), np.int32)
-            bt = np.full_like(self.kv.block_tables, self.kv.sentinel)
             mask = np.zeros((b,), bool)
+            rows = []
             for r in shared:
                 sh = self.kv.slot_shared_tokens(r.slot)
-                toks[r.slot, :r.prompt_len - sh] = r.prompt[sh:]
-                starts[r.slot] = sh
-                feed[r.slot] = r.prompt_len - sh
-                bt[r.slot] = self.kv.block_tables[r.slot]
+                rows.append((r.slot, r.prompt[sh:], sh,
+                             self.kv.block_tables[r.slot]))
                 mask[r.slot] = True
-            occ = int((bt != self.kv.sentinel).sum(1).max())
-            max_live = min(_bucket(max(occ, 1), 1),
-                           self.kv.max_pages_per_slot)
             self.metrics.prefill_tails += 1
             with tracer.span("prefill_tail") as sp, \
                     tracer.annotate("prefill_tail"):
-                first = self._tail_fn(self.params, self.kv.data,
-                                      self._to_device(toks),
-                                      self._to_device(starts),
-                                      self._to_device(feed),
-                                      self._to_device(bt), self._gen,
-                                      max_live)
+                first, t_pad, fed = self._ragged_dispatch(rows)
                 self._wait_all()
-                sp.set(admitted=len(shared), bucket=t_pad,
-                       tail_tokens=int(feed.sum()),
-                       shared_tokens=int(starts.sum()))
+                sp.set(admitted=len(shared), bucket=t_pad, tail_tokens=fed,
+                       shared_tokens=sum(start for _, _, start, _ in rows))
                 if tracer.enabled:
                     for r in shared:
                         tracer.flow_point(r.rid, "prefill_tail", t=sp.t0)
@@ -586,11 +633,115 @@ class InferenceEngine:
         if self.kv.prefix is not None:
             for r in admitted:
                 self.kv.prefix_insert(r.slot, r.prompt)
+        self._begin_decode(admitted, idx_of)
+        # merge the admitted slots into the device-side decode state
+        self._tokens = merged
+        self._positions = torch.where(self._to_device(mask_all),
+                                      self._to_device(lengths_all),
+                                      self._positions)
+        self._sync_slot_state()
+
+    def _feed_prefill_chunks(self) -> None:
+        """Advance every PREFILLING slot by one prompt chunk (DESIGN.md
+        §14) in ONE ragged ``tail_fn`` dispatch: slot rows padded to the
+        pow2 bucket of the longest chunk, each slot's table exposed only
+        up to the end of its chunk, the other slots' rows all-sentinel.
+        An intermediate chunk's sample is discarded and the dispatch adds
+        no host sync; a dispatch holding a final chunk (which ends at the
+        prompt length) waits for its first tokens, as the TTFT stamp
+        needs, and completes those requests as a prefill does. Chunk
+        dispatches count in neither ``metrics.prefills`` nor
+        ``metrics.prefill_tails``: ``engine.prefill_chunks`` counts the
+        slots fed, ``engine.prefill_chunk_tokens`` the tokens."""
+        sch = self.scheduler
+        chunking = [r for r in sch.active() if r.state == PREFILLING]
+        if not chunking:
+            return
+        budget = self.ecfg.prefill_chunk_tokens
+        b = self.ecfg.num_slots
+        tracer = self.tel.tracer
+        rows, finals = [], []
+        for r in chunking:
+            n = plan_chunks(r.prefill_pos, r.prompt_len, budget)[0][1]
+            end = r.prefill_pos + n
+            # only the pages this chunk can touch: the prefix, the chunks
+            # fed so far and this one
+            rows.append((r.slot, r.prompt[r.prefill_pos:end], r.prefill_pos,
+                         self.kv.slot_block_table(r.slot, end)))
+            r.prefill_pos = end
+            if end >= r.prompt_len:
+                finals.append(r)
+        with tracer.span("prefill_chunk") as sp, \
+                tracer.annotate("prefill_chunk"):
+            first, t_pad, fed = self._ragged_dispatch(rows)
+            if finals:
+                # the completed prompts' TTFT is stamped below, so their
+                # first tokens must exist
+                self._wait_all()
+            sp.set(slots=len(chunking), bucket=t_pad, chunk_tokens=fed,
+                   completed=len(finals))
+            if tracer.enabled:
+                for r in chunking:
+                    tracer.flow_point(r.rid, "prefill_chunk", t=sp.t0)
+        self._c_chunks.inc(len(chunking))
+        self._c_chunk_tokens.inc(fed)
+        if not finals:
+            return
+        fmask = np.zeros((b,), bool)
+        lengths = np.zeros((b,), np.int32)
+        for r in finals:
+            fmask[r.slot] = True
+            lengths[r.slot] = r.prompt_len
+        idx = self._log_first(first, fmask)
+        # a prompt's full-page blocks are all written only at its last
+        # chunk: cached any earlier, another request could map pages no
+        # chunk has written yet
+        if self.kv.prefix is not None:
+            for r in finals:
+                self.kv.prefix_insert(r.slot, r.prompt)
+        self._begin_decode(finals, {r.rid: idx for r in finals})
+        dmask = self._to_device(fmask)
+        self._tokens = torch.where(dmask, first, self._tokens)
+        self._positions = torch.where(dmask, self._to_device(lengths),
+                                      self._positions)
+        self._sync_slot_state()
+
+    def _ragged_dispatch(self, rows) -> Tuple[torch.Tensor, int, int]:
+        """One ``tail_fn`` dispatch of ragged multi-token rows: ``rows``
+        holds (slot, tokens, start position, table row) for every slot
+        fed; the rows are padded to one pow2 T (at least
+        ``prompt_bucket_min``, at most ``max_seq``), ``feed_len`` drops
+        the padding's K/V writes, and slots not fed get length 0 and an
+        all-sentinel table. Returns (first tokens [B], T, tokens fed)."""
+        b = self.ecfg.num_slots
+        t_pad = min(_bucket(max(len(tk) for _, tk, _, _ in rows),
+                            self.ecfg.prompt_bucket_min), self.ecfg.max_seq)
+        toks = np.zeros((b, t_pad), np.int32)
+        starts = np.zeros((b,), np.int32)
+        feed = np.zeros((b,), np.int32)
+        bt = np.full_like(self.kv.block_tables, self.kv.sentinel)
+        for slot, tk, start, row in rows:
+            toks[slot, :len(tk)] = tk
+            starts[slot] = start
+            feed[slot] = len(tk)
+            bt[slot] = row
+        occ = int((bt != self.kv.sentinel).sum(1).max())
+        max_live = min(_bucket(max(occ, 1), 1), self.kv.max_pages_per_slot)
+        first = self._tail_fn(self.params, self.kv.data,
+                              self._to_device(toks), self._to_device(starts),
+                              self._to_device(feed), self._to_device(bt),
+                              self._gen, max_live)
+        return first, t_pad, int(feed.sum())
+
+    def _begin_decode(self, reqs: List[Request],
+                      idx_of: Dict[int, int]) -> None:
+        """Prefill (or a final chunk) produced each request's first token,
+        logged at ``idx_of[rid]``: stamp TTFT, move it to DECODE, and
+        finish it at once if that token spent its budget."""
         t = self.metrics.now()
         done_now = []
-        for r in admitted:
+        for r in reqs:
             r.state = DECODE
-            # prefill produced the first generated token
             r.produced += 1
             r.log_entries = [idx_of[r.rid]]
             self.metrics.record_first_token(r.rid, t)
@@ -599,17 +750,21 @@ class InferenceEngine:
                 done_now.append(r)
         for r in done_now:
             self.scheduler.finish(r)
-        # merge the admitted slots into the device-side decode state
-        self._tokens = merged
-        self._positions = torch.where(self._to_device(mask_all),
-                                      self._to_device(lengths_all),
-                                      self._positions)
-        self._sync_slot_state()
 
     def _sync_slot_state(self) -> None:
         """Refresh the device copies of the block tables and the active
-        mask after a scheduling event (admission/eviction)."""
-        self._block_tables = self._to_device(self.kv.block_tables)
+        mask after a scheduling event (admission/eviction).
+
+        PREFILLING slots get all-sentinel rows in the decode-side tables:
+        a decode, draft or verify dispatch feeds every row, and its write
+        at such a slot's stale position would land in the pages the chunks
+        are writing. Chunk dispatches build their own tables."""
+        bts = self.kv.block_tables.copy()
+        mid = [i for i, s in enumerate(self.scheduler.slots)
+               if s.request is not None and s.request.state == PREFILLING]
+        if mid:
+            bts[mid, :] = self.kv.sentinel
+        self._block_tables = self._to_device(bts)
         # clamp for the decode-side page walk: the batch's max occupied
         # page count, pow2-bucketed as in the reference
         occ = int((self.kv.block_tables != self.kv.sentinel).sum(1).max())

@@ -340,8 +340,8 @@ class PagedKVCache:
                          n_tokens: Optional[int] = None) -> np.ndarray:
         """One slot's block-table row, optionally clamped to the pages
         covering positions [0, n_tokens): entries past them carry the
-        sentinel (the reference's chunked prefill dispatches a chunk
-        against only the pages it can touch)."""
+        sentinel (the engine's chunked prefill dispatches a chunk against
+        only the pages it can touch)."""
         row = self.block_tables[slot].copy()
         if n_tokens is not None:
             keep = -(-int(n_tokens) // self.page_size)

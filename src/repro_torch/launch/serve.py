@@ -17,6 +17,10 @@ unshared tail; a ``[prefix]`` line of its counters follows the summary.
 The CLI's own prompts (4-15 tokens) fill no page of 16, so here it shows
 misses only; hits come with longer shared prompts through the engine.
 
+``--chunked-prefill N`` splits every admitted prompt longer than N tokens
+into N-token chunks fed between decode steps instead of one prefill
+(greedy output is the same as without it).
+
 Runs on the card (``--device cuda``, the default; it raises when there is
 none) or, when asked, on the CPU (``--device cpu``) through the kernels'
 plain versions. Requests are admitted in FIFO order into a fixed pool of
@@ -108,6 +112,12 @@ def main(argv=None):
                          "map cached prefixes to existing pages "
                          "(refcounted, copy-on-write) and prefill only "
                          "the unshared tail; lossless for greedy")
+    ap.add_argument("--chunked-prefill", type=int, default=0, metavar="N",
+                    help="chunked prefill (DESIGN.md §14): split admitted "
+                         "prompts into N-token chunks fed between decode "
+                         "steps instead of one monolithic prefill; bounds "
+                         "the stall a prefill puts on co-resident decodes; "
+                         "lossless for greedy (0 = off)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy")
     ap.add_argument("--top-k", type=int, default=0)
@@ -166,6 +176,7 @@ def main(argv=None):
         EngineConfig(num_slots=args.slots, max_seq=args.max_seq,
                      page_size=args.page_size, num_pages=args.num_pages,
                      prefix_cache=args.prefix_cache,
+                     prefill_chunk_tokens=args.chunked_prefill,
                      seed=args.seed, device=str(device), spec_k=args.spec,
                      spec_draft_layers=(draft_layers(cfg, args.draft_profile)
                                         if spec_on else None),

@@ -1696,3 +1696,166 @@ def test_tail_dispatch_bit_identical_and_never_reads_the_host(cuda):
     for k, v in runs[0][2].items():
         changed = (v != pool[k]).reshape(v.shape[0], 16 * 4, -1).any(-1)
         assert not (changed & ~written).any(), k
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill's chunk feed
+# ---------------------------------------------------------------------------
+
+CHUNK_SLOTS = ((0, 64), (960, 64), (1024, 17), (0, 0))   # (base, fed)
+
+
+def _chunk_table(cuda, num_pages, mp, t=64, ps=16):
+    """Each slot's table exposed only up to base + fed (the pages its
+    chunk can touch), over a shuffled pool; lengths on the staircase
+    base + t + 1, so padding rows reach sentinel pages."""
+    b = len(CHUNK_SLOTS)
+    perm = torch.randperm(num_pages, generator=cuda, device="cuda")
+    bt = torch.full((b, mp), num_pages, dtype=torch.int32, device="cuda")
+    for i, (base, feed) in enumerate(CHUNK_SLOTS):
+        occ = -(-(base + feed) // ps)
+        bt[i, :occ] = perm[i * mp:i * mp + occ].to(torch.int32)
+    bases = torch.tensor([base for base, _ in CHUNK_SLOTS], device="cuda")
+    lens = bases[:, None] + torch.arange(1, t + 1, device="cuda")[None, :]
+    return bt, lens.to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.int8])
+def test_paged_attention_kernel_on_the_chunk_feed(cuda, dtype):
+    """Plain and int8 modes on a chunk dispatch's 64 rows a slot (a first
+    chunk, one mid-prompt, a final partial one, a slot fed nothing): one
+    launch, every row finite (padding rows clamp their sentinel pages to
+    the pool's last page) and equal to the plain version's, repeats
+    bit-identical."""
+    b, t, kh, d, ps = len(CHUNK_SLOTS), 64, 32, 128, 16
+    mp = max(-(-(base + t) // ps) for base, _ in CHUNK_SLOTS) + 1
+    num_pages = b * mp
+    q = torch.randn((b, t, kh, d), generator=cuda, device="cuda")
+    sc = ()
+    if dtype == torch.int8:
+        kp, vp = (torch.randint(-127, 128, (num_pages, ps, kh, d),
+                                generator=cuda, device="cuda",
+                                dtype=torch.int8) for _ in range(2))
+        sc = tuple(torch.rand(kp.shape[:3], generator=cuda, device="cuda")
+                   / 64 + 1e-3 for _ in range(2))
+    else:
+        kp, vp = (torch.randn((num_pages, ps, kh, d), generator=cuda,
+                              device="cuda").to(dtype) for _ in range(2))
+    bt, lens = _chunk_table(cuda, num_pages, mp)
+    counter = "int8_launches" if dtype == torch.int8 else "launches"
+    before = getattr(paged_attention_cuda, counter)
+    o = ops.paged_decode_attention(q, kp, vp, lens, bt, *sc)
+    assert getattr(paged_attention_cuda, counter) == before + 1
+    _close(o, ops.paged_decode_attention(q, kp, vp, lens, bt, *sc,
+                                         plain=True))
+    assert torch.equal(o, ops.paged_decode_attention(q, kp, vp, lens, bt,
+                                                     *sc))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_attention_kernel_latent_on_the_chunk_feed(cuda, dtype):
+    """The latent mode at DeepSeek-V2's widths (128 heads, D = 576, value
+    rank 512) on the same chunk feed: T x 128 query rows a slot on the
+    staircase, every row finite and equal to the plain version's, one
+    launch, repeats bit-identical."""
+    b, t, h, d, ps = len(CHUNK_SLOTS), 64, 128, 576, 16
+    mp = max(-(-(base + t) // ps) for base, _ in CHUNK_SLOTS) + 1
+    num_pages = b * mp
+    q = torch.randn((b, t, h, d), generator=cuda, device="cuda")
+    lat = torch.randn((num_pages, ps, d), generator=cuda,
+                      device="cuda").to(dtype)
+    bt, lens = _chunk_table(cuda, num_pages, mp)
+    before = paged_attention_cuda.latent_launches
+    o = ops.paged_latent_attention(q, lat, lens, bt, v_rank=512)
+    assert paged_attention_cuda.latent_launches == before + 1
+    _close(o, ops.paged_latent_attention(q, lat, lens, bt, v_rank=512,
+                                         plain=True))
+    assert torch.equal(o, ops.paged_latent_attention(q, lat, lens, bt,
+                                                     v_rank=512))
+
+
+def test_chunk_dispatch_bit_identical_and_never_reads_the_host(cuda):
+    """A chunk dispatch of the engine's tail step on the reduced model:
+    slot 0 continues its prompt at position 8, slot 1 feeds its first
+    chunk, slot 2 nothing; each table exposed only up to the chunk's end.
+    Two runs from the same pool give the same first tokens and pool bits,
+    and no tensor value is read on the host."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.engine.engine import _step_fns
+    from repro_torch.engine.sampling import SamplingParams
+    from repro_torch.models import transformer as ttf
+    cfg = get_config("llama2_7b", reduced=True)
+    params = ttf.init_params(0, cfg, "cuda", compress=GQSAConfig())
+    cache = ttf.init_paged_cache(cfg, 16, 4, device="cuda")
+    bt = torch.tensor([[0, 1, 2, 3, 4, 5], [6, 7, 8, 9, 10, 11],
+                       [16] * 6], dtype=torch.int32, device="cuda")
+    ttf.prefill(params, cache, torch.tensor([[5, 6, 7, 1, 2, 3, 4, 9],
+                                             [0] * 8, [0] * 8],
+                                            device="cuda"),
+                torch.tensor([8, 0, 0], device="cuda"), bt, cfg)
+    chunk_bt = bt.clone()
+    chunk_bt[0, 4:] = 16                     # positions 8-12: pages 0-3
+    chunk_bt[1, 2:] = 16                     # positions 0-7: pages 6-7
+    toks = torch.randint(0, cfg.vocab, (3, 8), generator=cuda,
+                         device="cuda", dtype=torch.int32)
+    pos = torch.tensor([8, 0, 0], dtype=torch.int32, device="cuda")
+    feed = torch.tensor([5, 8, 0], dtype=torch.int32, device="cuda")
+    tail_fn = _step_fns(cfg, SamplingParams())[2]
+    pool = {k: v.clone() for k, v in cache.items()}
+    runs = []
+    for _ in range(2):
+        for k in cache:
+            cache[k].copy_(pool[k])
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            first = tail_fn(params, cache, toks, pos, feed, chunk_bt, gen, 4)
+        torch.cuda.synchronize()
+        reads = [e.key for e in prof.key_averages()
+                 if e.key in ("aten::_local_scalar_dense", "aten::item")]
+        assert not reads, reads
+        runs.append((first, {k: v.clone() for k, v in cache.items()}))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in cache)
+
+
+@pytest.mark.parametrize("arch", ["llama2_7b", "deepseek_v2_236b"])
+def test_chunked_engine_on_the_card_equals_unchunked(cuda, arch):
+    """The reduced model (f32, GQSA; DeepSeek-V2 dropless) served on the
+    card with chunks of 5 tokens and without: the same greedy tokens, and
+    the chunk dispatches attend through the kernel (the latent mode on
+    DeepSeek-V2)."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.engine import EngineConfig, InferenceEngine
+    from repro_torch.models import transformer as ttf
+    cfg = get_config(arch, reduced=True)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=16.0))
+    params = ttf.init_params(0, cfg, "cuda", compress=GQSAConfig())
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (9, 3, 13, 6, 11)]
+    counter = "latent_launches" if cfg.family == "mla_moe" else "launches"
+    out = {}
+    for chunk in (0, 5):
+        eng = InferenceEngine(cfg, params, EngineConfig(
+            num_slots=2, max_seq=32, page_size=4, device="cuda",
+            prefill_chunk_tokens=chunk))
+        inner, during = eng._tail_fn, []
+
+        def counted(*args, _inner=inner):
+            before = getattr(paged_attention_cuda, counter)
+            first = _inner(*args)
+            during.append(getattr(paged_attention_cuda, counter) - before)
+            return first
+        eng._tail_fn = counted
+        rids = [eng.submit(p, 6) for p in prompts]
+        by = {r["rid"]: list(r["tokens"]) for r in eng.run()["results"]}
+        out[chunk] = [by[r] for r in rids]
+        assert bool(during) == bool(chunk)
+        assert all(n == cfg.n_layers for n in during)
+    assert out[5] == out[0]

@@ -5,7 +5,7 @@ reference engine with it on, on the reduced llama2-7b (GQSA W4 S50 G16,
 packed by the reference and carried over through the bridge); the
 ``prefix.*`` counters against the reference's; eviction under a small
 pool; chain and tree speculation, the int8 pool and the latent pool with
-the cache on; and the serve CLI.
+the cache on; chunked prefill with the cache on; and the serve CLI.
 
 Tolerances: tokens with the cache on equal the port's own tokens with
 it off (the tail dispatch and the batched prefill compute the same f32
@@ -213,14 +213,26 @@ def test_serve_cli_prints_the_prefix_line(capsys):
     assert len(res["results"]) == 3
 
 
-def test_chunked_prefill_is_still_refused():
-    """Chunked prefill stays a later slice: the engine raises naming
-    ROADMAP A.4 (with the prefix cache on too), and the CLI has no flag."""
-    cfg = get_config("llama2_7b", reduced=True)
-    eng = InferenceEngine(cfg, ttf.init_params(0, cfg, "cpu"), EngineConfig(
-        device="cpu", prefix_cache=True, prefill_chunk_tokens=4))
-    eng.submit(np.arange(4, dtype=np.int32), 2)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.4"):
-        eng.run()
-    with pytest.raises(SystemExit):
-        serve.main(["--device", "cpu", "--chunked-prefill", "4"])
+def test_chunked_prefill_with_the_prefix_cache_equals_the_cache_off(
+        packed, capsys):
+    """Chunked prefill with the prefix cache on: the hits' tails (longer
+    than the budget) chunk from the shared boundary, and tokens equal the
+    chunked run's with the cache off. The CLI takes ``--chunked-prefill``
+    beside ``--prefix-cache``."""
+    _, _, cfg, params = packed
+    prompts = shared_prompts(cfg.vocab, 8, [9, 6, 13, 0], seed=3)
+    off = _serve(_port(cfg, params, False, prefill_chunk_tokens=4),
+                 prompts, 5)
+    eng = _port(cfg, params, True, prefill_chunk_tokens=4)
+    got = _serve(eng, prompts, 5)
+    _equal(got, off)
+    reg = eng.tel.registry
+    assert reg.counter("prefix.hits").value > 0
+    assert reg.counter("engine.prefill_chunks").value > 0
+    res = serve.main(["--device", "cpu", "--reduced", "--requests", "3",
+                      "--max-new", "4", "--slots", "2", "--prefix-cache",
+                      "--chunked-prefill", "4"])
+    out = capsys.readouterr().out
+    assert re.search(r"^\[prefix\] hits=0 misses=3 ", out, re.M)
+    assert re.search(r"^\[digest\] [0-9a-f]{64}$", out, re.M)
+    assert len(res["results"]) == 3

@@ -67,9 +67,11 @@ def test_serve_on_cpu_prints_digest(capsys):
 
 @pytest.mark.parametrize("later", [dict(resilience=ResilienceConfig(
                                        deadline_ttft_ms=50.0)),
-                                   dict(prefix_cache=True,
-                                        prefill_chunk_tokens=8),
-                                   dict(prefill_chunk_tokens=4),
+                                   dict(resilience=ResilienceConfig(
+                                       max_preemptions=1)),
+                                   dict(prefill_chunk_tokens=4,
+                                        resilience=ResilienceConfig(
+                                            pressure_occupancy=0.5)),
                                    dict(resilience=ResilienceConfig(
                                        chaos=ChaosConfig(alloc_fail=0.5)))])
 def test_engine_refuses_options_of_later_slices(later):
